@@ -24,3 +24,11 @@ except ImportError:                       # hypothesis-free environments
 @pytest.fixture(scope="session")
 def rng():
     return jax.random.PRNGKey(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (the PyTorch port's hand-written kernels); "
+        "the test skips itself without one",
+    )
