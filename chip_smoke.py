@@ -15,13 +15,24 @@ and never JAX or the JAX package ``repro``.  Phases, each fatal on failure:
    (TF32 off), within the stated tolerance; two launches bitwise equal;
    CUDA-event times of the kernel, the plain version and one PyTorch
    library call computing the same function, beside the card's bound;
-4. main path: ``vrlr`` coreset -> ``fit_ridge`` -> ``evaluate`` at the
+4. main path, ``vrlr``: coreset -> ``fit_ridge`` -> ``evaluate`` at the
    YearPrediction scale (n = 463,715, d = 90, T = 3) for m = 1000 and 5000
    on data made from the seed, with the exact DIS bill, the Theorem 2.5
    +2mT, rising launch counters, a finite relative error under the
    benchmark gate, and the identity coreset reproducing the full solve;
    the build's time split into scoring, DIS draw and health report; then
-   agreement with the CPU plain path on a small input.
+   agreement with the CPU plain path on a small input;
+5. main path, ``vkmc``: ``end_to_end(k=10)``'s coreset -> ``fit_kmeans``
+   -> ``evaluate`` on the same data (alpha = 2, 15 local Lloyd iterations,
+   25 in the fits) for m = 1000 and 5000, with the exact bill and +2mT,
+   exactly the counted launches of the two k-means kernels, Lemma F.2's
+   per-party score sum, the identity coreset at relative error 0 and a
+   finite relative error under the gate; the build split into k-means++,
+   Lloyd, scoring, DIS draw and health report; then the card against the
+   CPU plain path on a small input.
+
+Every path is driven with all four launch counters set to 0 just before
+it and read just after.
 
 Its last two lines are the kernels' JSON record and the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -52,6 +63,18 @@ REL_ERROR_GATE = 0.5                          # benchmarks/e2e.py's gate
 # reach (fp32 sums of up to n products in another order than cuBLAS's)
 LEVERAGE_TOL = 1e-5        # max|k - p| / max|p|
 GRAM_TOL = 1e-5            # max|k - p| / max(|X|^T |w| |X|)
+# k-means kernels: an assignment must be near-minimal (its center's float64
+# distance within KMEANS_D2_TOL * max(||x||^2 + ||c||^2) of the row's
+# minimum; index equality is not required where two distances tie within
+# rounding), d2 within that of the plain version's (the expanded form's
+# cancellation error), and csum / wsum / ccost within KMEANS_SUM_TOL of the
+# largest absolute segment sum of the kernel's own assignment.  The plain
+# version's scatter_add_ runs one atomic chain of up to n/k rows per
+# cluster, whose rounding grows like sqrt(n/k) * 2^-24: about 1.5e-5 in the
+# tail at n/k = 46,000, hence 1e-4 and not GRAM_TOL's 1e-5.
+KMEANS_D2_TOL = 1e-5
+KMEANS_SUM_TOL = 1e-4
+K_CLUSTERS, ALPHA, LOCAL_ITERS, FIT_ITERS = 10, 2.0, 15, 25   # Table 1 right
 
 
 def fail(msg: str) -> None:
@@ -92,6 +115,21 @@ def gram_flops(n: int, d: int) -> int:
     return n * d * (d + 1) + n * d
 
 
+def kmeans_flops(n: int, k: int, d: int, fused: bool) -> int:
+    """fp32 operations of one assignment sweep: x.c for k centers (2kd),
+    ||x||^2 (2d) and the combination (3k) per row; the fused update adds
+    w x into csum (2d), w into wsum and w d2 into ccost (3) per row."""
+    return n * (2 * k * d + 2 * d + 3 * k + ((2 * d + 3) if fused else 0))
+
+
+def kmeans_bytes(B: int, n: int, k: int, d: int, c_batched: bool,
+                 w_rows: int, fused: bool) -> int:
+    """Bytes read once (X, C, the weights) and written once (assign, d2
+    and, fused, the per-cluster sums)."""
+    read = 4 * (B * n * d + (B if c_batched else 1) * k * d + w_rows)
+    return read + 8 * B * n + (4 * B * (k * d + 2 * k) if fused else 0)
+
+
 def make_data(seed: int, n: int, d: int, k_clusters: int = 8):
     """Clustered Gaussian rows with a noisy linear response, in the style
     of benchmarks/e2e.py::_dataset, made with numpy from ``seed``."""
@@ -129,6 +167,74 @@ def check_kernel(torch, name, kern, plain, args, scale_fn, tol):
     return err
 
 
+def check_kmeans(torch, ref, name, kern, plain, X, C, w=None, fused=False):
+    """A k-means kernel against its plain version on the card: two launches
+    bitwise equal, assignments near-minimal, d2 and the sums within the
+    tolerances above.  Returns the max abs error over d2 and the sums."""
+    args = (X, C, w) if fused else (X, C)
+    got = kern(*args)
+    again = kern(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    shapes = " ".join(str(tuple(a.shape)) for a in args if a is not None)
+    if fused and w is None:
+        shapes += " w=None"
+    if any(not torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"{name} {shapes}: two launches on the same input differ")
+    assign, d2 = got[0], got[1]
+    if assign.shape != want[0].shape or assign.dtype != torch.int32:
+        fail(f"{name} {shapes}: assign {tuple(assign.shape)} {assign.dtype}")
+    if not all(torch.isfinite(t).all() for t in got[1:]):
+        fail(f"{name} {shapes}: non-finite output")
+    k = C.shape[-2]
+    X64, C64 = X.double(), C.double()
+    x2, c2 = (X64 * X64).sum(-1), (C64 * C64).sum(-1)
+    full = (x2[..., None] + c2[..., None, :]
+            - 2.0 * X64 @ C64.transpose(-1, -2)).expand(assign.shape + (k,))
+    chosen = full.gather(-1, assign.long()[..., None])[..., 0]
+    scale = float(x2.max() + c2.max())
+    gap = float((chosen - full.min(-1).values).max()) / scale
+    d2_err = float((d2 - want[1]).abs().max())
+    mismatched = int((assign != want[0]).sum())
+    if gap > KMEANS_D2_TOL or d2_err / scale > KMEANS_D2_TOL:
+        fail(f"{name} {shapes}: assignment gap {gap:.3e} or d2 error "
+             f"{d2_err / scale:.3e} above {KMEANS_D2_TOL:g}")
+    err, rel = d2_err, 0.0
+    if fused:
+        sums = ref.segment_sums(X, w, assign, d2, k)
+        scales = ref.segment_sums(X.abs(), None if w is None else w.abs(),
+                                  assign, d2.abs(), k)
+        for g, e, sc in zip(got[2:], sums, scales):
+            e_abs = float((g - e).abs().max())
+            rel = max(rel, e_abs / max(float(sc.abs().max()), 1.0))
+            err = max(err, e_abs)
+        if rel > KMEANS_SUM_TOL:
+            fail(f"{name} {shapes}: sums error {rel:.3e} above {KMEANS_SUM_TOL:g}")
+    log(f"  {name} {shapes}: max_abs_err={err:.3e} assign_gap={gap:.2e} "
+        f"d2_scaled={d2_err / scale:.2e} sums_scaled={rel:.2e} "
+        f"assign!=plain {mismatched}")
+    return err
+
+
+def library_assign_update(torch, X, C, w=None):
+    """One PyTorch expression for K2's function (timed, used nowhere in the
+    port): torch.cdist(X, C).min(-1), then index_add_ of w x, w and w d2
+    over the flattened batch."""
+    dist, a = torch.cdist(X, C).min(-1)
+    d2 = dist * dist
+    n, d = X.shape[-2:]
+    k = C.shape[-2]
+    B = a.numel() // n
+    flat = (a + torch.arange(B, device=X.device).view(a.shape[:-1] + (1,)) * k
+            ).reshape(-1) if a.ndim > 1 else a
+    ww = (torch.ones_like(d2) if w is None else w.expand(a.shape)).reshape(-1)
+    Xf = X.expand(a.shape + (d,)).reshape(-1, d)
+    csum = torch.zeros(B * k, d, device=X.device).index_add_(0, flat, ww[:, None] * Xf)
+    wsum = torch.zeros(B * k, device=X.device).index_add_(0, flat, ww)
+    ccost = torch.zeros(B * k, device=X.device).index_add_(0, flat, ww * d2.reshape(-1))
+    return a, d2, csum, wsum, ccost
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -146,14 +252,30 @@ def main() -> None:
     from repro_torch import rng
     from repro_torch.core import (
         CommLedger, CommSchedule, CoresetPipeline, CoresetSpec, VFLDataset,
-        end_to_end, evaluate, fit_ridge, full_data_coreset)
-    from repro_torch.core.api import vrlr_scores
+        end_to_end, evaluate, fit_kmeans, fit_ridge, full_data_coreset,
+        kmeans_plusplus, lloyd)
+    from repro_torch.core.api import vkmc_scores, vrlr_scores
     from repro_torch.core.dis import dis_plan_full
     from repro_torch.core.integrity import health_from_masses
-    from repro_torch.core.sensitivity import batched_gram_pinv
+    from repro_torch.core.sensitivity import (
+        batched_gram_pinv, kmeans_update, total_sensitivity_bound_vkmc,
+        vkmc_local_scores)
     from repro_torch.kernels import _build
+    from repro_torch.kernels import kmeans_assign as kka
+    from repro_torch.kernels import kmeans_assign_update as kkau
     from repro_torch.kernels import leverage as klev
+    from repro_torch.kernels import ref as kref
     from repro_torch.kernels import weighted_gram as kwg
+
+    counted = (klev.leverage, kwg.weighted_gram, kka.kmeans_assign,
+               kkau.kmeans_assign_update)
+
+    def reset_counts():
+        for fn in counted:
+            fn.launches = 0
+
+    def read_counts():
+        return {fn.__name__: fn.launches for fn in counted}
 
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     if bad:
@@ -256,8 +378,96 @@ def main() -> None:
     log(f"time weighted_gram {tuple(Xc.shape)}: kernel {wc_ms:.4f} ms, plain "
         f"{wc_plain:.4f} ms, einsum {wc_lib:.4f} ms, bound {wc_bound:.4f} ms ({wc_by})")
 
-    # ---- 4. main path ---------------------------------------------------------
-    launches = {"leverage": 0, "weighted_gram": 0}
+    # the k-means kernels at the main path's shapes: Lloyd and scoring on
+    # the stacked parties (w = None), the full-data baseline fit (unit
+    # weights), the coreset fit (weights) and kmeans_cost
+    kb = ds.stacked().blocks                                      # (3, n, 30)
+    rows = torch.randperm(N_FULL, generator=gen)[:K_CLUSTERS].to(dev)
+    Cb = kb[:, rows, :].contiguous()                              # (3, 10, 30)
+    Cf = X_full[rows].contiguous()                                # (10, 90)
+    kau_err = check_kmeans(torch, kref, "kmeans_assign_update",
+                           kkau.kmeans_assign_update, kkau.plain, kb, Cb, fused=True)
+    kau_err = max(kau_err, check_kmeans(
+        torch, kref, "kmeans_assign_update", kkau.kmeans_assign_update,
+        kkau.plain, X_full, Cf, ones, fused=True))
+    check_kmeans(torch, kref, "kmeans_assign_update", kkau.kmeans_assign_update,
+                 kkau.plain, Xc, Cf, wc, fused=True)
+    ka_err = check_kmeans(torch, kref, "kmeans_assign", kka.kmeans_assign,
+                          kka.plain, X_full, Cf)
+    check_kmeans(torch, kref, "kmeans_assign", kka.kmeans_assign, kka.plain, Xc, Cf)
+    # the sweep: odd n, d = 1, k = 1, duplicate centers (a tie takes the
+    # first index), batch on X only, C only and both, w None / given /
+    # batched / all zero, and k*d at the shared-memory limit
+    kmax = max(k for k in range(1, 2000)
+               if kkau.smem_bytes(k, 64, 32) <= kka.MAX_SMEM_BYTES)
+    for n, k, dk, xb, cb, wk in [(1, 1, 1, (), (), None), (7, 3, 1, (), (), "w"),
+                                (37, 1, 5, (), (), "w"), (1001, 8, 13, (), (), None),
+                                (129, 4, 5, (3,), (), "w"), (65, 5, 9, (), (2,), "wb"),
+                                (301, 8, 13, (3,), (3,), "wb"),
+                                (200, 6, 4, (2,), (2,), "zero"),
+                                (1001, kmax, 64, (), (), "w")]:
+        Xs, Cs = randn(*xb, n, dk), randn(*cb, k, dk)
+        if k > 2:
+            Cs[..., 2, :] = Cs[..., 0, :]
+        lead = xb or cb
+        w = {None: None, "w": torch.rand(n, generator=gen).to(dev),
+             "wb": torch.rand(*lead, n, generator=gen).to(dev),
+             "zero": torch.zeros(n, device=dev)}[wk]
+        check_kmeans(torch, kref, "kmeans_assign", kka.kmeans_assign,
+                     kka.plain, Xs, Cs)
+        check_kmeans(torch, kref, "kmeans_assign_update", kkau.kmeans_assign_update,
+                     kkau.plain, Xs, Cs, w, fused=True)
+        if k > 2 and bool((kkau.kmeans_assign_update(Xs, Cs, w)[0] == 2).any()):
+            fail(f"kmeans_assign_update k={k}: a duplicate center took a row")
+    try:
+        kkau.kmeans_assign_update(randn(5, 64), randn(kmax + 1, 64))
+        fail(f"kmeans_assign_update took k={kmax + 1}, d=64 past shared memory")
+    except ValueError:
+        log(f"  k*d limit: k={kmax} at d=64 runs, k={kmax + 1} raises ValueError")
+
+    n, B, s = kb.shape[1], kb.shape[0], kb.shape[2]
+    kau_ms = cuda_ms(torch, lambda: kkau.kmeans_assign_update(kb, Cb))
+    kau_plain = cuda_ms(torch, lambda: kkau.plain(kb, Cb))
+    kau_lib = cuda_ms(torch, lambda: library_assign_update(torch, kb, Cb))
+    kau_bound, kau_by = bound_ms(kmeans_bytes(B, n, K_CLUSTERS, s, True, 0, True),
+                                 B * kmeans_flops(n, K_CLUSTERS, s, True))
+    kf_ms = cuda_ms(torch, lambda: kkau.kmeans_assign_update(X_full, Cf, ones))
+    kf_plain = cuda_ms(torch, lambda: kkau.plain(X_full, Cf, ones))
+    kf_lib = cuda_ms(torch, lambda: library_assign_update(torch, X_full, Cf, ones))
+    kf_bound, kf_by = bound_ms(kmeans_bytes(1, N_FULL, K_CLUSTERS, d, False, N_FULL, True),
+                               kmeans_flops(N_FULL, K_CLUSTERS, d, True))
+    kc_ms = cuda_ms(torch, lambda: kkau.kmeans_assign_update(Xc, Cf, wc))
+    kc_plain = cuda_ms(torch, lambda: kkau.plain(Xc, Cf, wc))
+    kc_lib = cuda_ms(torch, lambda: library_assign_update(torch, Xc, Cf, wc))
+    kc_bound, kc_by = bound_ms(kmeans_bytes(1, 5000, K_CLUSTERS, d, False, 5000, True),
+                               kmeans_flops(5000, K_CLUSTERS, d, True))
+    ka_ms = cuda_ms(torch, lambda: kka.kmeans_assign(X_full, Cf))
+    ka_plain = cuda_ms(torch, lambda: kka.plain(X_full, Cf))
+    ka_lib = cuda_ms(torch, lambda: torch.cdist(X_full, Cf).min(-1))
+    ka_bound, ka_by = bound_ms(kmeans_bytes(1, N_FULL, K_CLUSTERS, d, False, 0, False),
+                               kmeans_flops(N_FULL, K_CLUSTERS, d, False))
+    kac_ms = cuda_ms(torch, lambda: kka.kmeans_assign(Xc, Cf))
+    kac_plain = cuda_ms(torch, lambda: kka.plain(Xc, Cf))
+    kac_lib = cuda_ms(torch, lambda: torch.cdist(Xc, Cf).min(-1))
+    kac_bound, kac_by = bound_ms(kmeans_bytes(1, 5000, K_CLUSTERS, d, False, 0, False),
+                                 kmeans_flops(5000, K_CLUSTERS, d, False))
+    lib_kau = "cdist(X, C).min(-1) + index_add_ x3"
+    for nm, shape, km, pm, lm, lname, bd, by in [
+            ("kmeans_assign_update", f"{tuple(kb.shape)} x {tuple(Cb.shape)} w=None",
+             kau_ms, kau_plain, kau_lib, lib_kau, kau_bound, kau_by),
+            ("kmeans_assign_update", f"{tuple(X_full.shape)} x {tuple(Cf.shape)} w=ones",
+             kf_ms, kf_plain, kf_lib, lib_kau, kf_bound, kf_by),
+            ("kmeans_assign_update", f"{tuple(Xc.shape)} x {tuple(Cf.shape)} w",
+             kc_ms, kc_plain, kc_lib, lib_kau, kc_bound, kc_by),
+            ("kmeans_assign", f"{tuple(X_full.shape)} x {tuple(Cf.shape)}",
+             ka_ms, ka_plain, ka_lib, "cdist(X, C).min(-1)", ka_bound, ka_by),
+            ("kmeans_assign", f"{tuple(Xc.shape)} x {tuple(Cf.shape)}",
+             kac_ms, kac_plain, kac_lib, "cdist(X, C).min(-1)", kac_bound, kac_by)]:
+        log(f"time {nm} {shape}: kernel {km:.4f} ms, plain {pm:.4f} ms, "
+            f"{lname} {lm:.4f} ms, bound {bd:.4f} ms ({by})")
+
+    # ---- 4. main path: vrlr ---------------------------------------------------
+    launches = {fn.__name__: 0 for fn in counted}
     pipeline = CoresetPipeline(ds)
     results = {}
     for m in BUDGETS:
@@ -266,8 +476,7 @@ def main() -> None:
         led = CommLedger()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        klev.leverage.launches = 0
-        kwg.weighted_gram.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         cs = pipeline.build(spec, key=key, ledger=led)
         torch.cuda.synchronize()
@@ -279,15 +488,16 @@ def main() -> None:
         rep = evaluate(ds, fit)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
-        nl, nw = klev.leverage.launches, kwg.weighted_gram.launches
+        counts = read_counts()
+        nl, nw = counts["leverage"], counts["weighted_gram"]
         peak = torch.cuda.max_memory_allocated()
-        launches["leverage"] += nl
-        launches["weighted_gram"] += nw
+        for nm, c in counts.items():
+            launches[nm] += c
         results[m] = (cs, rep)
         log(f"m={m}: build_s={t1 - t0:.4f} fit_s={t2 - t1:.4f} eval_s={t3 - t2:.4f} "
             f"rel_error={rep.rel_error:.6g} comm_units={cs.comm_units} "
             f"comm_bits={cs.comm_bits} peak_bytes={peak} "
-            f"launches leverage={nl} weighted_gram={nw}")
+            f"launches {counts}")
         want = CommSchedule.dis_total(T_PARTIES, m)
         if cs.comm_units != want or built_units != want:
             fail(f"m={m}: bill {cs.comm_units} (ledger {built_units}) != "
@@ -298,6 +508,8 @@ def main() -> None:
         if nl < 1 or nw < 2:
             fail(f"m={m}: the path did not go through the kernels "
                  f"(leverage {nl}, weighted_gram {nw})")
+        if counts["kmeans_assign"] or counts["kmeans_assign_update"]:
+            fail(f"m={m}: vrlr launched a k-means kernel: {counts}")
         if cs.indices.shape != (m,) or not torch.isfinite(cs.weights).all():
             fail(f"m={m}: malformed coreset")
         if not (math.isfinite(rep.rel_error) and rep.rel_error < REL_ERROR_GATE):
@@ -353,7 +565,153 @@ def main() -> None:
         fail("DIS on shared scores draws different indices on the card and the CPU")
     log("DIS on shared scores: card and CPU draw the same indices")
 
-    # ---- 5. records -----------------------------------------------------------
+    # ---- 5. main path: vkmc ---------------------------------------------------
+    # launches per end_to_end, counted from the code: K2 once per Lloyd
+    # iteration (15 local on the party stack, 25 in fit_kmeans, 25 in the
+    # full-data baseline fit) and once for the scoring pass; K4 once for
+    # the coreset objective and three times at full n (cost_fit, the
+    # baseline's own objective, cost_opt)
+    want_k2 = LOCAL_ITERS + 1 + 2 * FIT_ITERS
+    want_k4 = 1 + 3
+    lemma = total_sensitivity_bound_vkmc(K_CLUSTERS, 1, ALPHA)
+    vk_results = {}
+    for m in BUDGETS:
+        spec = CoresetSpec(task="vkmc", budgets=m,
+                           params={"k": K_CLUSTERS, "alpha": ALPHA,
+                                   "local_iters": LOCAL_ITERS})
+        key = rng.fold_in(rng.PRNGKey(args.seed + 100), m)
+        sk = rng.fold_in(key, 1)
+        led = CommLedger()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        cs = pipeline.build(spec, key=key, ledger=led)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        built_units = led.total
+        fit = fit_kmeans(ds, cs, K_CLUSTERS, key=sk, iters=FIT_ITERS, ledger=led)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        rep = evaluate(ds, fit, key=sk, iters=FIT_ITERS)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        for nm, c in counts.items():
+            launches[nm] += c
+        vk_results[m] = (cs, rep, fit)
+        best_rel = rep.cost_fit / min(rep.cost_fit, rep.cost_opt) - 1.0
+        log(f"vkmc m={m}: build_s={t1 - t0:.4f} fit_s={t2 - t1:.4f} "
+            f"eval_s={t3 - t2:.4f} rel_error={rep.rel_error:.6g} "
+            f"rel_error_vs_best={best_rel:.6g} cost_fit={rep.cost_fit:.8g} "
+            f"cost_opt={rep.cost_opt:.8g} comm_units={cs.comm_units} "
+            f"comm_bits={cs.comm_bits} peak_bytes={peak} launches {counts}")
+        want = CommSchedule.dis_total(T_PARTIES, m)
+        if cs.comm_units != want or built_units != want:
+            fail(f"vkmc m={m}: bill {cs.comm_units} (ledger {built_units}) != "
+                 f"dis_total {want}")
+        if led.total - built_units != 2 * m * T_PARTIES:
+            fail(f"vkmc m={m}: fit_kmeans billed {led.total - built_units}, "
+                 f"Theorem 2.5 says {2 * m * T_PARTIES}")
+        if (counts["kmeans_assign_update"], counts["kmeans_assign"]) != (want_k2, want_k4):
+            fail(f"vkmc m={m}: k-means launches {counts}, counted "
+                 f"{want_k2} and {want_k4} from the code")
+        if cs.indices.shape != (m,) or not torch.isfinite(cs.weights).all():
+            fail(f"vkmc m={m}: malformed coreset")
+        if fit.params.shape != (K_CLUSTERS, D_FULL) or not torch.isfinite(fit.params).all():
+            fail(f"vkmc m={m}: malformed centers")
+        if not (math.isfinite(rep.rel_error) and rep.rel_error < REL_ERROR_GATE):
+            fail(f"vkmc m={m}: rel_error {rep.rel_error} not finite or >= {REL_ERROR_GATE}")
+
+    # where the vkmc build's time goes (outside the counted runs), stage by
+    # stage with the build's key: the same draw, and Lemma F.2's sum
+    m = BUDGETS[-1]
+    key = rng.fold_in(rng.PRNGKey(args.seed + 100), m)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    k_sub = key
+    subs = []
+    for _ in range(T_PARTIES):
+        k_sub, sub = rng.split(k_sub)
+        subs.append(sub)
+    k_sub, dis_key = rng.split(k_sub)
+    blocks = ds.stacked().blocks
+    init = torch.stack([kmeans_plusplus(sub, Xb, K_CLUSTERS)
+                        for sub, Xb in zip(subs, blocks)])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    local_c = lloyd(blocks, init, iters=LOCAL_ITERS)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    scores = vkmc_local_scores(blocks, local_c, ALPHA)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    plan = dis_plan_full(dis_key, scores, m)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    health_from_masses(scores.cpu().numpy())
+    t5 = time.perf_counter()
+    if not torch.equal(plan.indices, vk_results[m][0].indices):
+        fail(f"vkmc m={m}: rerunning the build's stages drew another coreset")
+    sizes = kmeans_update(blocks, local_c)[3]
+    sums = scores.sum(-1).double()
+    log(f"breakdown vkmc m={m}: kmeanspp_s={t1 - t0:.4f} lloyd_s={t2 - t1:.4f} "
+        f"score_s={t3 - t2:.4f} dis_s={t4 - t3:.4f} health_s={t5 - t4:.4f}; "
+        f"score sums per party {sums.tolist()} (Lemma F.2: {lemma}), "
+        f"smallest local cluster {int(sizes.min())}")
+    if bool((sizes > 0).all()) and not torch.allclose(
+            sums, torch.full_like(sums, lemma), rtol=1e-4, atol=0.0):
+        fail(f"vkmc: per-party score sums {sums.tolist()} != Lemma F.2's {lemma}")
+
+    # end_to_end is the staged path above, and the identity coreset fit
+    # with the baseline's key reproduces the baseline
+    m = BUDGETS[0]
+    key = rng.fold_in(rng.PRNGKey(args.seed + 100), m)
+    cs_e, _, rep_e = end_to_end(
+        CoresetSpec(task="vkmc", budgets=m,
+                    params={"k": K_CLUSTERS, "alpha": ALPHA, "local_iters": LOCAL_ITERS}),
+        ds, key=key, k=K_CLUSTERS, iters=FIT_ITERS)
+    if (not torch.equal(cs_e.indices, vk_results[m][0].indices)
+            or rep_e.rel_error != vk_results[m][1].rel_error):
+        fail("vkmc end_to_end differs from build -> fit_kmeans -> evaluate")
+    sk = rng.fold_in(key, 1)
+    ident = evaluate(ds, fit_kmeans(ds, full_data_coreset(ds), K_CLUSTERS, key=sk,
+                                    iters=FIT_ITERS), key=sk, iters=FIT_ITERS)
+    log(f"vkmc identity coreset: rel_error={ident.rel_error:.3e}")
+    if ident.rel_error != 0.0:
+        fail(f"vkmc identity coreset rel_error {ident.rel_error} is not 0")
+
+    # small input: the card against the port's plain path on the CPU, at
+    # widths 5, 4, 4, so the batched K2 sees zero-padded columns
+    Xs, _ = make_data(args.seed + 3, 2000, 13)
+    ds_gpu = VFLDataset.from_dense(Xs, None, T=3)
+    ds_cpu = VFLDataset.from_dense(Xs, None, T=3, device="cpu")
+    key = rng.PRNGKey(args.seed + 4)
+    same_seeds = all(
+        torch.equal(kmeans_plusplus(sub, ds_gpu.parts[j], 6).cpu(),
+                    kmeans_plusplus(sub, ds_cpu.parts[j], 6))
+        for j, sub in enumerate(rng.split(key, 3)))
+    if not same_seeds:
+        fail("small input: k-means++ picks other rows on the card than on the CPU")
+    sg, dkg = vkmc_scores(key, ds_gpu, k=6)
+    sc_, dkc = vkmc_scores(key, ds_cpu, backend="ref", k=6)
+    score_gap = float(((sg.cpu() - sc_).abs() / sc_.abs()).max())
+    if not torch.equal(dkg.cpu(), dkc) or score_gap > 1e-4:
+        fail(f"small input: vkmc scores differ by {score_gap:.3e} (rtol 1e-4)")
+    spec = CoresetSpec(task="vkmc", budgets=128, params={"k": 6})
+    cs_g, _, rep_g = end_to_end(spec, ds_gpu, key=key, k=6)
+    cs_c, _, rep_c = end_to_end(spec, ds_cpu, key=key, k=6, device="cpu")
+    same = torch.equal(cs_g.indices.cpu(), cs_c.indices)
+    differ = "" if same else (
+        f" ({int((cs_g.indices.cpu() != cs_c.indices).sum())} of 128 differ)")
+    log(f"small input vkmc card vs CPU, widths {ds_gpu.dims}: k-means++ rows "
+        f"equal, scores rtol {score_gap:.3e}, indices equal={same}{differ}, "
+        f"rel_error {rep_g.rel_error:.6g} vs {rep_c.rel_error:.6g}")
+    if cs_g.comm_units != cs_c.comm_units:
+        fail("small input: vkmc bills differ on the card and the CPU")
+
+    # ---- 6. records -----------------------------------------------------------
     record = {"kernels": [
         {"name": "leverage", "route": "cuda",
          "source": "src/repro_torch/csrc/leverage.cu",
@@ -367,6 +725,18 @@ def main() -> None:
          "launches": launches["weighted_gram"], "max_abs_err": gram_err,
          "ms": wg_ms, "plain_ms": wg_plain, "bound_ms": wg_bound,
          "bound_by": wg_by, "library_ms": wg_lib},
+        {"name": "kmeans_assign_update", "route": "cuda",
+         "source": "src/repro_torch/csrc/kmeans_assign_update.cu",
+         "replaces": "src/repro/kernels/kmeans_assign_update.py:158",
+         "launches": launches["kmeans_assign_update"], "max_abs_err": kau_err,
+         "ms": kau_ms, "plain_ms": kau_plain, "bound_ms": kau_bound,
+         "bound_by": kau_by, "library_ms": kau_lib},
+        {"name": "kmeans_assign", "route": "cuda",
+         "source": "src/repro_torch/csrc/kmeans_assign.cu",
+         "replaces": "src/repro/kernels/kmeans_assign.py:89",
+         "launches": launches["kmeans_assign"], "max_abs_err": ka_err,
+         "ms": ka_ms, "plain_ms": ka_plain, "bound_ms": ka_bound,
+         "bound_by": ka_by, "library_ms": ka_lib},
     ]}
     print(json.dumps(record))
     for line in smi:

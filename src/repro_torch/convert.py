@@ -1,8 +1,9 @@
-"""Carry data, keys and coresets across from the reference package.
+"""Carry data, keys, coresets and fitted parameters across from the
+reference package.
 
 This system has no model weights: what the two packages must share is the
-dataset, the PRNG keys and, to fit a reference-built coreset with the
-port, the coreset itself.  Everything crosses as numpy — the port never
+dataset, the PRNG keys, to fit a reference-built coreset with the port the
+coreset itself, and to score against a reference fit its k-means centers.  Everything crosses as numpy — the port never
 sees a jax array.
 """
 
@@ -45,3 +46,13 @@ def coreset_from_numpy(indices, weights, comm_units: int, comm_bits: int = 0,
     return Coreset(torch.as_tensor(np.array(indices, dtype=np.int64), device=dev),
                    torch.as_tensor(np.array(weights, dtype=np.float32), device=dev),
                    int(comm_units), comm_bits=int(comm_bits))
+
+
+def centers_from_numpy(centers, device: DeviceLike = "cuda") -> torch.Tensor:
+    """The port's k-means parameters from a reference fit's centers (k, d)
+    as numpy (``np.asarray(fit.params)``): a float32 tensor on ``device``,
+    ready for ``evaluate(..., baseline=)`` or a ``FitResult``."""
+    c = np.asarray(centers)
+    if c.ndim != 2:
+        raise ValueError(f"centers must be (k, d), got shape {c.shape}")
+    return torch.as_tensor(c.astype(np.float32), device=resolve_device(device))

@@ -1,5 +1,5 @@
-"""repro_torch.core — the coreset/VFL core of the port (the ``vrlr`` slice
-on the materialized engine)."""
+"""repro_torch.core — the coreset/VFL core of the port (the ``vrlr`` and
+``vkmc`` slices on the materialized engine)."""
 
 from repro_torch.core.api import (
     CORESET_TASKS,
@@ -14,17 +14,29 @@ from repro_torch.core.comm import CommLedger, CommSchedule, null_ledger
 from repro_torch.core.coreset import Coreset
 from repro_torch.core.plan import CoresetSpec, ExecutionPlan, compile_plan
 from repro_torch.core.solve import (
+    DEFAULT_SOLVER,
     EvalReport,
     FitResult,
     end_to_end,
     evaluate,
+    fit_kmeans,
     fit_ridge,
     full_data_coreset,
+    solver_for,
 )
 from repro_torch.core.vfl import VFLDataset, split_columns
+from repro_torch.core.vkmc import (
+    distdim,
+    kmeans,
+    kmeans_central_comm_cost,
+    kmeans_cost,
+    kmeans_plusplus,
+    lloyd,
+)
 
 __all__ = [
     "CORESET_TASKS",
+    "DEFAULT_SOLVER",
     "CommLedger",
     "CommSchedule",
     "Coreset",
@@ -37,13 +49,21 @@ __all__ = [
     "VFLDataset",
     "build_coreset",
     "compile_plan",
+    "distdim",
     "end_to_end",
     "evaluate",
+    "fit_kmeans",
     "fit_ridge",
     "full_data_coreset",
     "get_task",
+    "kmeans",
+    "kmeans_central_comm_cost",
+    "kmeans_cost",
+    "kmeans_plusplus",
+    "lloyd",
     "null_ledger",
     "register_task",
     "resolve_backend",
+    "solver_for",
     "split_columns",
 ]

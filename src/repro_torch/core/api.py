@@ -6,14 +6,15 @@ materialized engine with the DIS rounds recorded on a ledger (the
 reference's ``transport is None`` branch of ``_exec_materialized``):
 
   * :class:`CoresetTask` + :func:`register_task` — the task registry
-    (``CORESET_TASKS``); shipped here: ``vrlr`` (Algorithm 2) and
-    ``uniform`` (the U-* baseline).  ``vkmc`` waits for the k-means kernels.
+    (``CORESET_TASKS``); shipped here: ``vrlr`` (Algorithm 2), ``vkmc``
+    (Algorithm 3) and ``uniform`` (the U-* baseline).
   * :class:`CoresetPipeline` — ``build(spec)`` compiles a
     :class:`~repro_torch.core.plan.CoresetSpec` and runs it.
   * :func:`build_coreset` — the shim over a forced materialized spec.
 
 Key choreography matches the reference: the ``vrlr`` score function
-passes its key through untouched, and DIS consumes it as
+passes its key through untouched; ``vkmc`` splits it once per party (the
+local k-means++ seeds) and once more for DIS; DIS consumes its key as
 :func:`repro_torch.core.dis.dis_plan_full` describes.  Builds run on the
 card unless the caller passes ``device="cpu"``.
 """
@@ -36,8 +37,13 @@ from repro_torch.core.plan import (
     ExecutionPlan,
     compile_plan,
 )
-from repro_torch.core.sensitivity import norm_scores, vrlr_scores_stacked
+from repro_torch.core.sensitivity import (
+    norm_scores,
+    vkmc_local_scores,
+    vrlr_scores_stacked,
+)
 from repro_torch.core.vfl import VFLDataset
+from repro_torch.core.vkmc import kmeans_plusplus, lloyd
 from repro_torch.core.wire import WirePayload
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.utils.registry import Registry
@@ -76,12 +82,16 @@ class CoresetTask:
     """Declarative spec of one coreset-construction task.
 
     ``score_fn is None`` marks the uniform baseline: no scores travel, the
-    schedule is broadcast-only.
+    schedule is broadcast-only.  ``deterministic_scores`` says the scores
+    do not depend on the key (``vrlr``); ``vkmc`` draws its local seeds.
+    Nothing in the port reads it yet: it is carried for the batched
+    engine, which scores once for all seeds only when it is true.
     """
 
     name: str
     score_fn: Optional[ScoreFn]
     needs_labels: bool = False
+    deterministic_scores: bool = True
     description: str = ""
 
 
@@ -116,6 +126,35 @@ def vrlr_scores(key, ds: VFLDataset, backend: str = "pallas"):
     if backend == "norm":
         return norm_scores(st.blocks) + 1.0 / ds.n, key
     return vrlr_scores_stacked(st.blocks, use_kernel=_use_kernel(backend)), key
+
+
+@register_task("vkmc", deterministic_scores=False,
+               description="Algorithm 3: local alpha-approx k-means sensitivities + DIS")
+def vkmc_scores(key, ds: VFLDataset, backend: str = "pallas",
+                k: int = 10, alpha: float = 2.0, local_iters: int = 15):
+    """Algorithm 3: party j runs local k-means (alpha-approximate) and
+    scores its block; the key is split once per party and once more for
+    DIS — the reference's chain.
+
+    k-means++ runs party by party (each pick draws from 1-D logits); then
+    every Lloyd iteration, and the scoring pass, is ONE
+    ``kmeans_assign_update`` launch over the (T, n, s) stacked view.  Zero
+    column padding is distance-transparent, so the padded blocks give the
+    per-party values.
+    """
+    subs = []
+    for _ in range(ds.T):                     # the reference's per-party chain
+        key, sub = rng.split(key)
+        subs.append(sub)
+    key, dis_key = rng.split(key)
+    st = ds.stacked()
+    if backend == "norm":
+        return norm_scores(st.blocks) + 1.0 / ds.n, dis_key
+    use_kernel = _use_kernel(backend)
+    init = torch.stack([kmeans_plusplus(sub, Xb, k)
+                        for sub, Xb in zip(subs, st.blocks)])
+    local_c = lloyd(st.blocks, init, iters=local_iters, use_kernel=use_kernel)
+    return vkmc_local_scores(st.blocks, local_c, alpha, use_kernel), dis_key
 
 
 CORESET_TASKS.register("uniform")(

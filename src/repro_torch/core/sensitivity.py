@@ -1,17 +1,18 @@
-"""Party-local sensitivity scores — the Algorithm 2 (VRLR) half of
+"""Party-local sensitivity scores — Algorithms 2 (VRLR) and 3 (VKMC) of
 :mod:`repro.core.sensitivity`, over torch tensors.
 
 Everything here is computed from ONE party's block ``X^(j)`` only (or the
 party-batched stack of them); the cross-party combination happens inside
 DIS (Algorithm 1).  The Gram products and ``eigh`` stay plain torch in
 full fp32, as the reference leaves them to XLA; the O(n s^2) row sweep is
-the ``leverage`` kernel.  The Algorithm 3 (VKMC) half waits for the
-k-means kernels.
+the ``leverage`` kernel.  The k-means half runs on the ``kmeans_assign``
+and ``kmeans_assign_update`` kernels; every function there also takes the
+(T, n, s) party stack, with the party axis folded into one launch.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -104,3 +105,62 @@ def vrlr_scores_stacked(blocks: torch.Tensor, rcond: float = 1e-6,
     lev = kops.leverage(f, M, use_kernel)                  # (T, n)
     return torch.clamp(lev, 0.0, 1.0) + 1.0 / n
 
+
+# --------------------------------------------------------------------------
+# Algorithm 3: VKMC local sensitivities
+# --------------------------------------------------------------------------
+
+def kmeans_assignment(Xj: torch.Tensor, centers: torch.Tensor,
+                      use_kernel: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(argmin_l d(x_i, c_l), min_l d(x_i, c_l)^2) as (int32, float32) —
+    the O(nkd) sweep, served by the ``kmeans_assign`` kernel.  The plain
+    branch keeps the reference's inline formula and order:
+    ``(||x||^2 - 2 X C^T) + ||c||^2``, clamped at 0, then the argmin."""
+    if use_kernel:
+        return kops.kmeans_assign(Xj, centers)
+    d2 = (torch.sum(Xj * Xj, dim=-1, keepdim=True)
+          - 2.0 * Xj @ centers.transpose(-1, -2)
+          + torch.sum(centers * centers, dim=-1)[..., None, :])
+    mn, idx = torch.min(torch.clamp_min(d2, 0.0), dim=-1)
+    return idx.to(torch.int32), mn
+
+
+def kmeans_update(Xj: torch.Tensor, centers: torch.Tensor,
+                  w: Optional[torch.Tensor] = None, use_kernel: bool = True):
+    """One fused Lloyd read: (assign, d2, csum, wsum, ccost).
+
+    An alias of ``kernels.ops.kmeans_assign_update``, kept under the
+    reference's name for ``lloyd`` and ``vkmc_local_scores``.
+    ``use_kernel=True`` is the single-pass ``kmeans_assign_update`` kernel;
+    ``use_kernel=False`` the plain assignment + segment-sum composition."""
+    return kops.kmeans_assign_update(Xj, centers, w, use_kernel)
+
+
+def vkmc_local_scores(Xj: torch.Tensor, centers: torch.Tensor, alpha: float,
+                      use_kernel: bool = True) -> torch.Tensor:
+    """Algorithm 3 lines 3-11 for one party, or for the (T, n, s) party
+    stack with (T, k, s) centers in one launch.
+
+    g_i^(j) = alpha*d(x_i, c_pi(i))^2 / cost
+            + alpha * (sum_{i' in B_pi(i)} d(x_i', c_pi(i'))^2) / (|B_pi(i)| * cost)
+            + 2*alpha / |B_pi(i)|
+
+    Cluster sizes and costs come out of the same fused pass that computes
+    the assignment (unit weights: wsum = |B_l|, ccost = cost_l).
+    """
+    assign, d2, _, cluster_size, cluster_cost = kmeans_update(
+        Xj, centers, use_kernel=use_kernel)
+    cost = torch.clamp_min(d2.sum(dim=-1, keepdim=True), 1e-30)
+    cluster_size = torch.clamp_min(cluster_size, 1.0)
+    idx = assign.to(torch.int64)
+    size_i = torch.gather(cluster_size, -1, idx)
+    term1 = alpha * d2 / cost
+    term2 = alpha * torch.gather(cluster_cost, -1, idx) / (size_i * cost)
+    term3 = 2.0 * alpha / size_i
+    return term1 + term2 + term3
+
+
+def total_sensitivity_bound_vkmc(k: int, T: int, alpha: float) -> float:
+    """Lemma F.2: G = 2(k+1) * alpha * T exactly when no local cluster is
+    empty (each party's scores sum to 2(k+1) alpha)."""
+    return 2.0 * (k + 1) * alpha * T

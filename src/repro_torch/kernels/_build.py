@@ -36,6 +36,10 @@ _SIGNATURES = {
     "repro_leverage": ((_vp, _vp, _vp, _i, _ll, _i, _ll, _ll, _vp), _i),
     "repro_weighted_gram": ((_vp, _vp, _vp, _vp, _i, _ll, _i, _ll, _ll, _ll,
                              _vp), _i),
+    "repro_kmeans_assign": ((_vp, _vp, _vp, _vp, _i, _ll, _i, _i, _i, _ll, _ll,
+                             _vp), _i),
+    "repro_kmeans_assign_update": ((_vp,) * 9 + (_i, _ll, _i, _i, _i, _ll, _ll,
+                                                 _ll, _ll, _vp), _i),
     "repro_error_string": ((_i,), ctypes.c_char_p),
 }
 

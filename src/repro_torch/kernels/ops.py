@@ -10,9 +10,15 @@ only by asking for ``"ref"`` or by placing the data on the CPU.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.kmeans_assign import kmeans_assign as _kmeans_assign
+from repro_torch.kernels.kmeans_assign_update import (
+    kmeans_assign_update as _kmeans_assign_update,
+)
 from repro_torch.kernels.leverage import leverage as _leverage
 from repro_torch.kernels.weighted_gram import weighted_gram as _weighted_gram
 
@@ -23,3 +29,16 @@ def leverage(X: torch.Tensor, M: torch.Tensor, use_kernel: bool = True) -> torch
 
 def weighted_gram(X: torch.Tensor, w: torch.Tensor, use_kernel: bool = True) -> torch.Tensor:
     return _weighted_gram(X, w) if use_kernel else ref.weighted_gram(X, w)
+
+
+def kmeans_assign(X: torch.Tensor, C: torch.Tensor, use_kernel: bool = True):
+    return _kmeans_assign(X, C) if use_kernel else ref.kmeans_assign(X, C)
+
+
+def kmeans_assign_update(X: torch.Tensor, C: torch.Tensor,
+                         w: Optional[torch.Tensor] = None,
+                         use_kernel: bool = True):
+    """(assign, d2, csum, wsum, ccost) in one read of X."""
+    if use_kernel:
+        return _kmeans_assign_update(X, C, w)
+    return ref.kmeans_assign_update(X, C, w)

@@ -6,6 +6,18 @@ Tolerances: every comparison is fp32 against fp32 with another summation
 order, so ``rtol=1e-5`` with an ``atol`` per case, scaled to the largest
 magnitude the sum can reach (a few fp32 ulps of it).
 
+The k-means kernels (``kmeans_assign``, ``kmeans_assign_update``) are
+held as ``tests/test_kernels.py`` holds the Pallas ones: an assignment is
+right when its center's distance, recomputed in float64, is within
+``KMEANS_TOL`` times max(||x||^2 + ||c||^2) of the row's minimum (index
+equality is not required where two distances tie within rounding); ``d2``
+agrees at that same absolute tolerance (the expanded form's cancellation
+error); csum, wsum and ccost agree with the segment sums of the
+assignment itself at ``KMEANS_TOL`` times the largest absolute sum
+(``sum_i |w_i| |x_ij|``, ``sum_i |w_i|``, ``sum_i |w_i| d2_i``).
+Assignments computed twice on one device are also compared index for
+index against the other side wherever no tie is near.
+
 The module imports no JAX at the top, so the ``gpu`` tests run on a card
 machine without it: ``python -m pytest --noconftest -m gpu
 tests/test_torch_kernels.py``.  The reference tests import it inside.
@@ -17,10 +29,17 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import kmeans_assign as kka
+from repro_torch.kernels import kmeans_assign_update as kkau
 from repro_torch.kernels import leverage as klev
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 from repro_torch.kernels import weighted_gram as kwg
+
+KMEANS_TOL = 1e-5
+#: The largest k whose K2 layout fits in shared memory at d = 64.
+KMAX_64 = max(k for k in range(1, 2000)
+              if kkau.smem_bytes(k, 64, 32) <= kka.MAX_SMEM_BYTES)
 
 # (batch dims of X, batch dims of the second operand, n, d)
 LEV_CASES = [((), (), 1, 1), ((), (), 7, 1), ((), (), 37, 5), ((), (), 513, 16),
@@ -29,6 +48,13 @@ LEV_CASES = [((), (), 1, 1), ((), (), 7, 1), ((), (), 37, 5), ((), (), 513, 16),
 GRAM_CASES = [((), (), 1, 1), ((), (), 7, 1), ((), (), 37, 5), ((), (), 600, 12),
               ((3,), (), 129, 8), ((), (2,), 65, 9), ((3,), (3,), 301, 31),
               ((2,), (2,), 1, 3)]
+
+# (batch dims of X, of C, weights: None | "w" | "wb" (batched) | "zero", n, k, d)
+KMEANS_CASES = [((), (), None, 1, 1, 1), ((), (), None, 7, 3, 1),
+                ((), (), "w", 37, 1, 5), ((), (), "w", 513, 8, 13),
+                ((3,), (), None, 129, 4, 5), ((), (2,), "w", 65, 5, 9),
+                ((3,), (3,), "wb", 301, 8, 13), ((), (), "wb2", 200, 6, 4),
+                ((2,), (2,), "zero", 200, 6, 4), ((), (), "w", 2000, 8, 13)]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -62,6 +88,85 @@ def _gram_inputs(seed, xb, wb, n, d):
     r = np.random.default_rng(seed)
     return (r.standard_normal(xb + (n, d)).astype(np.float32),
             r.uniform(0.0, 3.0, wb + (n,)).astype(np.float32))
+
+
+def _kmeans_inputs(seed, xb, cb, wk, n, k, d):
+    """X, C (with a duplicate center when k > 1: a tie takes the first
+    index) and w per the case's weight kind."""
+    r = np.random.default_rng(seed)
+    X = r.standard_normal(xb + (n, d)).astype(np.float32)
+    C = r.standard_normal(cb + (k, d)).astype(np.float32)
+    if k > 2:
+        C[..., 2, :] = C[..., 0, :]
+    w = {None: None,
+         "w": r.uniform(0.0, 3.0, (n,)),
+         "wb": r.uniform(0.0, 3.0, xb + (n,)),
+         "wb2": r.uniform(0.0, 3.0, (2, n)),
+         "zero": np.zeros((n,))}[wk]
+    return X, C, None if w is None else w.astype(np.float32)
+
+
+def _true_d2(X, C):
+    """float64 squared distances (..., n, k)."""
+    X, C = np.asarray(X, np.float64), np.asarray(C, np.float64)
+    return ((X[..., :, None, :] - C[..., None, :, :]) ** 2).sum(-1)
+
+
+def _d2_scale(X, C):
+    X, C = np.asarray(X, np.float64), np.asarray(C, np.float64)
+    return float((X ** 2).sum(-1).max() + (C ** 2).sum(-1).max())
+
+
+def _check_assign(X, C, assign, d2, want_d2):
+    """The near-minimal rule and d2 at KMEANS_TOL of the distance scale."""
+    full = _true_d2(X, C)
+    batch = np.broadcast_shapes(full.shape[:-1], np.shape(assign))
+    full = np.broadcast_to(full, batch + full.shape[-1:])
+    chosen = np.take_along_axis(full, np.asarray(assign, np.int64)[..., None], -1)[..., 0]
+    atol = KMEANS_TOL * _d2_scale(X, C)
+    np.testing.assert_allclose(chosen, full.min(-1), rtol=0, atol=atol)
+    np.testing.assert_allclose(d2, want_d2, rtol=KMEANS_TOL, atol=atol)
+
+
+def _check_sums(X, w, assign, d2, k, sums):
+    """csum, wsum, ccost against the segment sums of ``assign`` itself."""
+    Xt, at, dt = (torch.as_tensor(np.asarray(a)) for a in (X, assign, d2))
+    wt = None if w is None else torch.as_tensor(np.asarray(w))
+    want = ref.segment_sums(Xt, wt, at, dt, k)
+    absw = None if wt is None else wt.abs()
+    scale = ref.segment_sums(Xt.abs(), absw, at, dt.abs(), k)
+    for got, exp, sc in zip(sums, want, scale):
+        atol = KMEANS_TOL * max(float(sc.abs().max()), 1.0)
+        np.testing.assert_allclose(np.asarray(got), exp.numpy(), rtol=KMEANS_TOL, atol=atol)
+
+
+@pytest.mark.parametrize("xb,cb,wk,n,k,d", KMEANS_CASES)
+def test_kmeans_plain_matches_reference_and_pallas(xb, cb, wk, n, k, d):
+    jref = _reference("ref")
+    jka, jkau = _reference("kmeans_assign"), _reference("kmeans_assign_update")
+    X, C, w = _kmeans_inputs(n * 7 + k + d, xb, cb, wk, n, k, d)
+    Xt, Ct = torch.from_numpy(X), torch.from_numpy(C)
+    wt = None if w is None else torch.from_numpy(w)
+    a4, d4 = ref.kmeans_assign(Xt, Ct)
+    assert a4.dtype == torch.int32 and d4.dtype == torch.float32
+    out = ref.kmeans_assign_update(Xt, Ct, wt)
+    a2, d2 = out[:2]
+    np.testing.assert_array_equal(np.broadcast_to(a4.numpy(), a2.shape), a2.numpy())
+    ja, jd = jref.kmeans_assign(X, C)
+    _check_assign(X, C, a4.numpy(), d4.numpy(), np.asarray(jd))
+    _check_sums(X, w, a2.numpy(), d2.numpy(), k, out[2:])
+    jout = jref.kmeans_assign_update(X, C, w)
+    pout = jkau.kmeans_assign_update(X, C, w, interpret=True)
+    pa, pd = jka.kmeans_assign(X, C, interpret=True)
+    _check_assign(X, C, np.asarray(pa), np.asarray(pd), d4.numpy())
+    for other in (jout, pout):
+        _check_assign(X, C, np.asarray(other[0]), np.asarray(other[1]), d2.numpy())
+        if np.array_equal(np.asarray(other[0]), a2.numpy()):
+            _check_sums(X, w, a2.numpy(), d2.numpy(), k,
+                        [np.asarray(o) for o in other[2:]])
+    # the reference's own tie rule: a duplicate center is never chosen
+    if k > 2:
+        assert not (a2.numpy() == 2).any() and not (np.asarray(pout[0]) == 2).any()
 
 
 @pytest.mark.parametrize("xb,mb,n,d", LEV_CASES)
@@ -100,6 +205,22 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     assert torch.equal(ops.weighted_gram(Xt, w, use_kernel=False),
                        ref.weighted_gram(Xt, w))
     assert (klev.leverage.launches, kwg.weighted_gram.launches) == before
+    C = Xt[..., :4, :]
+    before = (kka.kmeans_assign.launches, kkau.kmeans_assign_update.launches)
+    for got, want in zip(kka.kmeans_assign(Xt, C), kka.plain(Xt, C)):
+        assert torch.equal(got, want)
+    for got, want in zip(ops.kmeans_assign_update(Xt, C, w),
+                         ref.kmeans_assign_update(Xt, C, w)):
+        assert torch.equal(got, want)
+    assert (kka.kmeans_assign.launches, kkau.kmeans_assign_update.launches) == before
+
+
+def test_kmeans_tile_height_and_shared_memory_limit():
+    assert kka.tile_rows(10, 90) == 128 and kkau.tile_rows(10, 90, kkau.smem_bytes) == 128
+    assert kkau.smem_bytes(10, 90, 128) == 4 * (90 * 16 + 16 + 128 * 91 + 3 * 128 + 900 + 20)
+    assert KMAX_64 == 424 and kka.tile_rows(KMAX_64, 64, kkau.smem_bytes) == 32
+    with pytest.raises(ValueError, match="shared memory"):
+        kka.tile_rows(KMAX_64 + 1, 64, kkau.smem_bytes)
 
 
 def test_row_split_is_a_function_of_n():
@@ -150,6 +271,33 @@ def test_weighted_gram_kernel_matches_plain_and_is_deterministic(xb, wb, n, d):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("xb,cb,wk,n,k,d", KMEANS_CASES + [
+    ((3,), (3,), None, 100_003, 10, 30), ((), (), "w", 20_001, 10, 90),
+    ((), (), "w", 1001, KMAX_64, 64)])
+def test_kmeans_kernels_match_plain_and_are_deterministic(xb, cb, wk, n, k, d):
+    dev = _cuda()
+    X, C, w = _kmeans_inputs(n * 7 + k + d, xb, cb, wk, n, k, d)
+    Xt, Ct = torch.from_numpy(X).to(dev), torch.from_numpy(C).to(dev)
+    wt = None if w is None else torch.from_numpy(w).to(dev)
+    before = (kka.kmeans_assign.launches, kkau.kmeans_assign_update.launches)
+    a4, d4 = kka.kmeans_assign(Xt, Ct)
+    got = kkau.kmeans_assign_update(Xt, Ct, wt)
+    again = kkau.kmeans_assign_update(Xt, Ct, wt)
+    assert (kka.kmeans_assign.launches, kkau.kmeans_assign_update.launches) == (
+        before[0] + 1, before[1] + 2)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    assert a4.dtype == got[0].dtype == torch.int32
+    assert torch.equal(torch.broadcast_to(a4, got[0].shape), got[0])
+    pa, pd = kka.plain(Xt, Ct)
+    cpu = lambda t: t.cpu().numpy()
+    _check_assign(X, C, cpu(got[0]), cpu(got[1]), np.broadcast_to(cpu(pd), got[1].shape))
+    _check_sums(X, w, cpu(got[0]), cpu(got[1]), k, [cpu(t) for t in got[2:]])
+    if k > 2:
+        assert not (cpu(got[0]) == 2).any()
+
+
+@pytest.mark.gpu
 def test_kernels_reject_what_they_do_not_take():
     dev = _cuda()
     with pytest.raises(ValueError):
@@ -160,3 +308,13 @@ def test_kernels_reject_what_they_do_not_take():
         kwg.weighted_gram(torch.zeros(4, 3, device=dev), torch.zeros(5, device=dev))
     with pytest.raises(ValueError):
         kwg.weighted_gram(torch.zeros(4, 3, device=dev), torch.zeros(4))
+    with pytest.raises(ValueError):
+        kka.kmeans_assign(torch.zeros(4, 3, device=dev), torch.zeros(2, 4, device=dev))
+    with pytest.raises(ValueError):
+        kka.kmeans_assign(torch.zeros(4, 64, device=dev), torch.zeros(2000, 64, device=dev))
+    with pytest.raises(ValueError):
+        kkau.kmeans_assign_update(torch.zeros(2, 4, 3, device=dev),
+                                  torch.zeros(3, 2, 3, device=dev))
+    with pytest.raises(ValueError):
+        kkau.kmeans_assign_update(torch.zeros(4, 3, device=dev),
+                                  torch.zeros(2, 3, device=dev), torch.ones(5, device=dev))

@@ -152,8 +152,10 @@ def test_plan_validation_and_unported_engines():
                 dict(num_seeds=0), dict(task=3)):
         with pytest.raises(ValueError):
             CoresetSpec(**bad)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        end_to_end("vrlr", tds, key=rng.PRNGKey(0), k=4, device="cpu")
+    # the k-means leg runs on any task's coreset, as the reference's does
+    _, fit, rep = end_to_end("vrlr", tds, key=rng.PRNGKey(0), k=4, iters=3,
+                             device="cpu")
+    assert (fit.task, fit.k, rep.task) == ("kmeans", 4, "kmeans")
     with pytest.raises(ValueError):
         end_to_end("vrlr", tds, key=rng.PRNGKey(0), device="cpu")
     no_labels = VFLDataset(list(tds.parts))
@@ -193,6 +195,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import sys\n"
         "import repro_torch, repro_torch.core, repro_torch.convert, repro_torch.rng\n"
         "import repro_torch.kernels.ops, repro_torch.kernels._build\n"
+        "import repro_torch.core.vkmc, repro_torch.kernels.kmeans_assign\n"
+        "import repro_torch.kernels.kmeans_assign_update\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
         "import torch\n"
