@@ -13,8 +13,15 @@ and never JAX or the JAX package ``repro``.  Phases, each fatal on failure:
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes and over a sweep of odd shapes, in full fp32
    (TF32 off), within the stated tolerance; two launches bitwise equal;
-   CUDA-event times of the kernel, the plain version and one PyTorch
-   library call computing the same function, beside the card's bound;
+   weighted_gram's G exactly symmetric; the general variants past the
+   fast kernels' limits (leverage at s = 239, 256, 512; the k-means
+   kernels at (k, d) = (425, 64), (2000, 64), (10, 2048) and one batched
+   case, with assignments equal to the plain version's); CUDA-event times
+   of the kernel, the plain version and one PyTorch library call
+   computing the same function, beside the card's bound, at the main
+   path's shapes and for each general variant; the threefry words past
+   2**32 - 1 counters equal on the card and the CPU, and one timed
+   categorical draw of cap * n just past that limit;
 4. main path, ``vrlr``: coreset -> ``fit_ridge`` -> ``evaluate`` at the
    YearPrediction scale (n = 463,715, d = 90, T = 3) for m = 1000 and 5000
    on data made from the seed, with the exact DIS bill, the Theorem 2.5
@@ -57,6 +64,8 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 
 N_FULL, D_FULL, T_PARTIES = 463_715, 90, 3   # YearPrediction, paper Table 1
+N_WIDE = 20_001          # rows of the timed general-variant shapes
+CAP_PAST_LIMIT = 9_263   # the first cap with cap * N_FULL > 2**32 - 1
 BUDGETS = (1000, 5000)
 REL_ERROR_GATE = 0.5                          # benchmarks/e2e.py's gate
 # kernel-vs-plain tolerances, relative to the largest magnitude the sum can
@@ -144,6 +153,14 @@ def make_data(seed: int, n: int, d: int, k_clusters: int = 8):
     return X, y
 
 
+def digest(indices) -> str:
+    """A short hash of a coreset's drawn indices, to compare draws across
+    runs and commits."""
+    import hashlib
+
+    return hashlib.sha256(indices.cpu().numpy().astype("int64").tobytes()).hexdigest()[:16]
+
+
 def check_kernel(torch, name, kern, plain, args, scale_fn, tol):
     """Kernel vs plain on the card: returns the max abs error; fails past
     ``tol`` (relative to ``scale_fn``'s magnitude) or on unequal repeats."""
@@ -167,10 +184,14 @@ def check_kernel(torch, name, kern, plain, args, scale_fn, tol):
     return err
 
 
-def check_kmeans(torch, ref, name, kern, plain, X, C, w=None, fused=False):
+def check_kmeans(torch, ref, name, kern, plain, X, C, w=None, fused=False,
+                 exact=False):
     """A k-means kernel against its plain version on the card: two launches
-    bitwise equal, assignments near-minimal, d2 and the sums within the
-    tolerances above.  Returns the max abs error over d2 and the sums."""
+    bitwise equal, assignments near-minimal (with ``exact``, equal to the
+    plain version's on every row where the two choices are not tied within
+    KMEANS_D2_TOL in float64: there the two summation orders may round
+    either way), d2 and the sums within the tolerances above.  Returns the
+    max abs error over d2 and the sums."""
     args = (X, C, w) if fused else (X, C)
     got = kern(*args)
     again = kern(*args)
@@ -195,7 +216,14 @@ def check_kmeans(torch, ref, name, kern, plain, X, C, w=None, fused=False):
     scale = float(x2.max() + c2.max())
     gap = float((chosen - full.min(-1).values).max()) / scale
     d2_err = float((d2 - want[1]).abs().max())
-    mismatched = int((assign != want[0]).sum())
+    differ = assign != want[0]
+    mismatched = int(differ.sum())
+    if exact and mismatched:
+        other = full.gather(-1, want[0].long()[..., None])[..., 0]
+        tied = (chosen - other).abs() <= KMEANS_D2_TOL * scale
+        if bool((differ & ~tied).any()):
+            fail(f"{name} {shapes}: {int((differ & ~tied).sum())} assignments "
+                 f"differ from plain's where the two are not tied")
     if gap > KMEANS_D2_TOL or d2_err / scale > KMEANS_D2_TOL:
         fail(f"{name} {shapes}: assignment gap {gap:.3e} or d2 error "
              f"{d2_err / scale:.3e} above {KMEANS_D2_TOL:g}")
@@ -328,24 +356,36 @@ def main() -> None:
                            (blocks, M), lev_scale, LEVERAGE_TOL)
     for n, s, xb, mb in [(1, 5, (), ()), (7, 1, (), ()), (129, 31, (3,), ()),
                          (1001, 64, (), (2,)), (4097, 33, (2,), (2,)),
-                         (513, 238, (), ())]:
+                         (513, 238, (), ()),
+                         # the wide kernel, past M whole in shared memory
+                         (4097, 239, (), ()), (1001, 256, (2,), ()),
+                         (777, 512, (), ())]:
         check_kernel(torch, "leverage", klev.leverage, klev.plain,
                      (randn(*xb, n, s), psd(mb, s)), lev_scale, LEVERAGE_TOL)
+    Xw, Mw = randn(N_WIDE, 512), psd((), 512)
+    levw_err = check_kernel(torch, "leverage", klev.leverage, klev.plain,
+                            (Xw, Mw), lev_scale, LEVERAGE_TOL)
 
     X_full = ds.full()
     ones = torch.ones(N_FULL, device=dev)
     Xc = X_full[:5000].contiguous()
     wc = torch.rand(5000, generator=gen).to(dev) * 100.0
-    gram_err = check_kernel(torch, "weighted_gram", kwg.weighted_gram, kwg.plain,
-                            (X_full, ones), gram_scale, GRAM_TOL)
-    check_kernel(torch, "weighted_gram", kwg.weighted_gram, kwg.plain,
-                 (Xc, wc), gram_scale, GRAM_TOL)
+    def check_gram(X, w):
+        err = check_kernel(torch, "weighted_gram", kwg.weighted_gram, kwg.plain,
+                           (X, w), gram_scale, GRAM_TOL)
+        G = kwg.weighted_gram(X, w)
+        if not torch.equal(G, G.transpose(-1, -2)):
+            fail(f"weighted_gram {tuple(X.shape)}: G is not exactly symmetric")
+        return err
+
+    gram_err = check_gram(X_full, ones)
+    check_gram(Xc, wc)
     for n, d, xb, wb in [(1, 1, (), ()), (7, 1, (), ()), (255, 9, (), ()),
                          (1001, 90, (3,), ()), (3001, 17, (), (2,)),
-                         (2049, 31, (3,), (3,)), (777, 200, (), ())]:
-        check_kernel(torch, "weighted_gram", kwg.weighted_gram, kwg.plain,
-                     (randn(*xb, n, d), torch.rand(*wb, n, generator=gen).to(dev)),
-                     gram_scale, GRAM_TOL)
+                         (2049, 31, (3,), (3,)), (777, 200, (), ()),
+                         (33, 90, (), ()), (5000, 13, (), ())]:
+        check_gram(randn(*xb, n, d), torch.rand(*wb, n, generator=gen).to(dev))
+    log("  weighted_gram: G exactly symmetric at every shape")
 
     # rng on the card gives the CPU's bits (the draws depend on nothing else)
     key = rng.PRNGKey(args.seed + 11)
@@ -354,6 +394,35 @@ def main() -> None:
     if not torch.equal(g_cpu.view(torch.int32), g_gpu.view(torch.int32)):
         fail("gumbel bits on the card differ from the CPU's")
     log("rng: gumbel (257, 1001) bitwise equal on card and CPU")
+    # past 2**32 - 1 counters a draw is blocks of 2**32 - 1 words under split
+    # subkeys: the words there, a full block's pad slot and the last block's
+    # among them, are the same on the card and the CPU
+    limit = 2 ** 32 - 1
+    size = 3 * limit + 7
+    pos = torch.tensor([2 ** 32 - 2, 2 ** 32 - 1, 2 ** 32, 2 * limit + 5, size - 1,
+                        2 ** 31 - 1, limit + 2 ** 31 - 1, 3 * limit + 3], dtype=torch.int64)
+    if not torch.equal(rng._bits_at(key, pos, size),
+                       rng._bits_at(key.to(dev), pos.to(dev), size).cpu()):
+        fail("threefry words past 2**32 - 1 counters differ on the card and the CPU")
+    log(f"rng: words at {pos.tolist()} of a {size}-word draw equal on card and CPU")
+    # one draw with cap * n just past the limit, timed like dis_s; its last
+    # row straddles the first block edge and equals the CPU's
+    lg = torch.log(torch.rand(N_FULL, generator=gen) + 0.01)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx = rng.categorical(key.to(dev), lg.to(dev), CAP_PAST_LIMIT)
+    torch.cuda.synchronize()
+    cat_s = time.perf_counter() - t0
+    last = CAP_PAST_LIMIT - 1
+    row = last * N_FULL + torch.arange(N_FULL, dtype=torch.int64)
+    want_last = int(torch.argmax(rng._gumbel_of(rng._bits_at(key, row, CAP_PAST_LIMIT * N_FULL)) + lg))
+    if (idx.shape != (CAP_PAST_LIMIT,) or int(idx.min()) < 0 or int(idx.max()) >= N_FULL
+            or int(idx[last]) != want_last):
+        fail(f"categorical past the counter limit: shape {tuple(idx.shape)}, "
+             f"last row {int(idx[last])} against the CPU's {want_last}")
+    log(f"rng: categorical cap={CAP_PAST_LIMIT} n={N_FULL} (cap*n = "
+        f"{CAP_PAST_LIMIT * N_FULL} > 2**32 - 1) drew in {cat_s:.4f}s; its last "
+        f"row, across the block edge, equals the CPU's")
 
     # timing at the main path's shapes
     T, n, s = blocks.shape
@@ -419,11 +488,35 @@ def main() -> None:
                      kkau.plain, Xs, Cs, w, fused=True)
         if k > 2 and bool((kkau.kmeans_assign_update(Xs, Cs, w)[0] == 2).any()):
             fail(f"kmeans_assign_update k={k}: a duplicate center took a row")
-    try:
-        kkau.kmeans_assign_update(randn(5, 64), randn(kmax + 1, 64))
-        fail(f"kmeans_assign_update took k={kmax + 1}, d=64 past shared memory")
-    except ValueError:
-        log(f"  k*d limit: k={kmax} at d=64 runs, k={kmax + 1} raises ValueError")
+    # past the shared-memory layout the global variants run, with the same
+    # assignments as the plain version
+    # (K4 keeps its smaller layout at k = kmax + 1, d = 64)
+    for n, k, dk, xb, cb, wk, k4 in [(1001, kmax + 1, 64, (), (), "w", 128),
+                                    (N_WIDE, 2000, 64, (), (), None, kka.GLOBAL),
+                                    (N_WIDE, 10, 2048, (), (), "w", kka.GLOBAL),
+                                    (2001, 10, 2048, (2,), (2,), "wb", kka.GLOBAL)]:
+        plans = (kka.tile_rows(k, dk), kka.tile_rows(k, dk, kkau.smem_bytes))
+        if plans != (k4, kka.GLOBAL):
+            fail(f"k-means kernels at (k, d) = ({k}, {dk}) planned {plans}, "
+                 f"not ({k4}, {kka.GLOBAL})")
+        Xs, Cs = randn(*xb, n, dk), randn(*cb, k, dk)
+        w = {None: None, "w": torch.rand(n, generator=gen).to(dev),
+             "wb": torch.rand(*xb, n, generator=gen).to(dev)}[wk]
+        check_kmeans(torch, kref, "kmeans_assign", kka.kmeans_assign,
+                     kka.plain, Xs, Cs, exact=True)
+        check_kmeans(torch, kref, "kmeans_assign_update", kkau.kmeans_assign_update,
+                     kkau.plain, Xs, Cs, w, fused=True, exact=True)
+        if k4 != kka.GLOBAL:
+            # K4's shared-memory layout and K2's global variant: the same bits
+            same = all(torch.equal(a, b) for a, b in zip(
+                kka.kmeans_assign(Xs, Cs), kkau.kmeans_assign_update(Xs, Cs, w)[:2]))
+            if not same:
+                fail(f"(k, d) = ({k}, {dk}): K2's global variant and K4's "
+                     f"shared-memory kernel assign differently")
+            log(f"  (k, d) = ({k}, {dk}): K2's global variant gives K4's "
+                f"shared-memory assign and d2 bit for bit")
+    log(f"  k*d limit: k={kmax} at d=64 takes the shared-memory layout, "
+        f"k={kmax + 1} and d=2048 the global variants")
 
     n, B, s = kb.shape[1], kb.shape[0], kb.shape[2]
     kau_ms = cuda_ms(torch, lambda: kkau.kmeans_assign_update(kb, Cb))
@@ -451,6 +544,42 @@ def main() -> None:
     kac_lib = cuda_ms(torch, lambda: torch.cdist(Xc, Cf).min(-1))
     kac_bound, kac_by = bound_ms(kmeans_bytes(1, 5000, K_CLUSTERS, d, False, 0, False),
                                  kmeans_flops(5000, K_CLUSTERS, d, False))
+    # the general variants, at N_WIDE rows
+    variants = {"leverage": [], "kmeans_assign": [], "kmeans_assign_update": []}
+
+    def time_variant(nm, shape, fn, plain_fn, lib_fn, nbytes, flops, err):
+        km, pm, lm = cuda_ms(torch, fn), cuda_ms(torch, plain_fn), cuda_ms(torch, lib_fn)
+        bd, by = bound_ms(nbytes, flops)
+        log(f"time {nm} {shape} (general variant): kernel {km:.4f} ms, plain "
+            f"{pm:.4f} ms, library {lm:.4f} ms, bound {bd:.4f} ms ({by})")
+        variants[nm].append({"shape": shape, "max_abs_err": err, "ms": km,
+                             "plain_ms": pm, "library_ms": lm, "bound_ms": bd,
+                             "bound_by": by})
+
+    sw = Xw.shape[1]
+    time_variant("leverage", f"{tuple(Xw.shape)} x {tuple(Mw.shape)}",
+                 lambda: klev.leverage(Xw, Mw), lambda: klev.plain(Xw, Mw),
+                 lambda: torch.einsum("ns,sr,nr->n", Xw, Mw, Xw),
+                 4 * (N_WIDE * sw + sw * sw + N_WIDE), 2 * N_WIDE * (sw * sw + sw), levw_err)
+    for k, dk in [(2000, 64), (10, 2048)]:
+        Xg, Cg = randn(N_WIDE, dk), randn(k, dk)
+        wg = torch.rand(N_WIDE, generator=gen).to(dev)
+        shape = f"{tuple(Xg.shape)} x {tuple(Cg.shape)}"
+        err = check_kmeans(torch, kref, "kmeans_assign", kka.kmeans_assign,
+                           kka.plain, Xg, Cg, exact=True)
+        time_variant("kmeans_assign", shape, lambda: kka.kmeans_assign(Xg, Cg),
+                     lambda: kka.plain(Xg, Cg), lambda: torch.cdist(Xg, Cg).min(-1),
+                     kmeans_bytes(1, N_WIDE, k, dk, False, 0, False),
+                     kmeans_flops(N_WIDE, k, dk, False), err)
+        err = check_kmeans(torch, kref, "kmeans_assign_update", kkau.kmeans_assign_update,
+                           kkau.plain, Xg, Cg, wg, fused=True, exact=True)
+        time_variant("kmeans_assign_update", shape + " w",
+                     lambda: kkau.kmeans_assign_update(Xg, Cg, wg),
+                     lambda: kkau.plain(Xg, Cg, wg),
+                     lambda: library_assign_update(torch, Xg, Cg, wg),
+                     kmeans_bytes(1, N_WIDE, k, dk, False, N_WIDE, True),
+                     kmeans_flops(N_WIDE, k, dk, True), err)
+
     lib_kau = "cdist(X, C).min(-1) + index_add_ x3"
     for nm, shape, km, pm, lm, lname, bd, by in [
             ("kmeans_assign_update", f"{tuple(kb.shape)} x {tuple(Cb.shape)} w=None",
@@ -465,6 +594,11 @@ def main() -> None:
              kac_ms, kac_plain, kac_lib, "cdist(X, C).min(-1)", kac_bound, kac_by)]:
         log(f"time {nm} {shape}: kernel {km:.4f} ms, plain {pm:.4f} ms, "
             f"{lname} {lm:.4f} ms, bound {bd:.4f} ms ({by})")
+
+    # the checks' own large tensors go before the main path, so its
+    # peak_bytes counts the path's memory and the dataset only
+    del Xw, Mw, Xg, Cg, wg, Xs, Cs, w, lg, idx
+    torch.cuda.empty_cache()
 
     # ---- 4. main path: vrlr ---------------------------------------------------
     launches = {fn.__name__: 0 for fn in counted}
@@ -495,7 +629,8 @@ def main() -> None:
             launches[nm] += c
         results[m] = (cs, rep)
         log(f"m={m}: build_s={t1 - t0:.4f} fit_s={t2 - t1:.4f} eval_s={t3 - t2:.4f} "
-            f"rel_error={rep.rel_error:.6g} comm_units={cs.comm_units} "
+            f"rel_error={rep.rel_error:.6g} indices_sha256={digest(cs.indices)} "
+            f"comm_units={cs.comm_units} "
             f"comm_bits={cs.comm_bits} peak_bytes={peak} "
             f"launches {counts}")
         want = CommSchedule.dis_total(T_PARTIES, m)
@@ -604,6 +739,7 @@ def main() -> None:
         best_rel = rep.cost_fit / min(rep.cost_fit, rep.cost_opt) - 1.0
         log(f"vkmc m={m}: build_s={t1 - t0:.4f} fit_s={t2 - t1:.4f} "
             f"eval_s={t3 - t2:.4f} rel_error={rep.rel_error:.6g} "
+            f"indices_sha256={digest(cs.indices)} "
             f"rel_error_vs_best={best_rel:.6g} cost_fit={rep.cost_fit:.8g} "
             f"cost_opt={rep.cost_opt:.8g} comm_units={cs.comm_units} "
             f"comm_bits={cs.comm_bits} peak_bytes={peak} launches {counts}")
@@ -718,25 +854,31 @@ def main() -> None:
          "replaces": "src/repro/kernels/leverage.py:59",
          "launches": launches["leverage"], "max_abs_err": lev_err,
          "ms": lev_ms, "plain_ms": lev_plain, "bound_ms": lev_bound,
-         "bound_by": lev_by, "library_ms": lev_lib},
+         "bound_by": lev_by, "library_ms": lev_lib,
+         "variants": variants["leverage"]},
         {"name": "weighted_gram", "route": "cuda",
          "source": "src/repro_torch/csrc/weighted_gram.cu",
          "replaces": "src/repro/kernels/weighted_gram.py:67",
          "launches": launches["weighted_gram"], "max_abs_err": gram_err,
          "ms": wg_ms, "plain_ms": wg_plain, "bound_ms": wg_bound,
-         "bound_by": wg_by, "library_ms": wg_lib},
+         "bound_by": wg_by, "library_ms": wg_lib,
+         "variants": [{"shape": str(tuple(Xc.shape)), "ms": wc_ms,
+                       "plain_ms": wc_plain, "library_ms": wc_lib,
+                       "bound_ms": wc_bound, "bound_by": wc_by}]},
         {"name": "kmeans_assign_update", "route": "cuda",
          "source": "src/repro_torch/csrc/kmeans_assign_update.cu",
          "replaces": "src/repro/kernels/kmeans_assign_update.py:158",
          "launches": launches["kmeans_assign_update"], "max_abs_err": kau_err,
          "ms": kau_ms, "plain_ms": kau_plain, "bound_ms": kau_bound,
-         "bound_by": kau_by, "library_ms": kau_lib},
+         "bound_by": kau_by, "library_ms": kau_lib,
+         "variants": variants["kmeans_assign_update"]},
         {"name": "kmeans_assign", "route": "cuda",
          "source": "src/repro_torch/csrc/kmeans_assign.cu",
          "replaces": "src/repro/kernels/kmeans_assign.py:89",
          "launches": launches["kmeans_assign"], "max_abs_err": ka_err,
          "ms": ka_ms, "plain_ms": ka_plain, "bound_ms": ka_bound,
-         "bound_by": ka_by, "library_ms": ka_lib},
+         "bound_by": ka_by, "library_ms": ka_lib,
+         "variants": variants["kmeans_assign"]},
     ]}
     print(json.dumps(record))
     for line in smi:

@@ -20,7 +20,9 @@
 // and gives one row to each thread.  The distance and argmin code is
 // kmeans_common.cuh's, shared with kmeans_assign_update.cu.  fp32 with
 // explicit fmaf, no tensor cores and no TF32.  The real d and k are kept:
-// there is no padding to 128 lanes, which is a TPU layout.
+// there is no padding to 128 lanes, which is a TPU layout.  A (k, d) whose
+// layout does not fit in shared memory runs kmeans_assign_global_kernel,
+// which reads C from global memory instead (the same result, bit for bit).
 #include "kmeans_common.cuh"
 
 namespace {
@@ -52,18 +54,48 @@ __global__ void kmeans_assign_kernel(const float* __restrict__ X,
   d2[b * n + r0 + r] = dd;
 }
 
+// The global variant, for (k, d) whose layout does not fit in shared memory:
+// one row per thread, the row and C read through the caches
+// (kmeans::assign_row_global, assign_row's arithmetic in its order).
+__global__ void kmeans_assign_global_kernel(const float* __restrict__ X,
+                                            const float* __restrict__ C,
+                                            int* __restrict__ assign,
+                                            float* __restrict__ d2, long long n,
+                                            int d, int k, long long x_bstride,
+                                            long long c_bstride) {
+  const long long b = blockIdx.y;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  int a;
+  float dd;
+  kmeans::assign_row_global(X + b * x_bstride + i * d, C + b * c_bstride, d, k,
+                            &a, &dd);
+  assign[b * n + i] = a;
+  d2[b * n + i] = dd;
+}
+
 }  // namespace
 
 // X: B (or 1, with x_bstride 0) blocks of (n, d) fp32, row-major; C: B (or
 // 1, with c_bstride 0) blocks of (k, d); assign, d2: (B, n).  `rows` is the
-// tile height the wrapper chose so that the layout fits in shared memory.
+// tile height the wrapper chose so that the layout fits in shared memory, or
+// 0 for the global variant.
 REPRO_API int repro_kmeans_assign(const float* X, const float* C, int* assign,
                                   float* d2, int B, long long n, int d, int k,
                                   int rows, long long x_bstride,
                                   long long c_bstride, void* stream) {
-  if (B < 1 || B > 65535 || n < 1 || d < 1 || k < 1 || rows < 1 ||
+  if (B < 1 || B > 65535 || n < 1 || d < 1 || k < 1 || rows < 0 ||
       rows > kmeans::kThreads)
     return (int)cudaErrorInvalidValue;
+  if (rows == 0) {
+    const long long blocks = (n + kmeans::kThreads - 1) / kmeans::kThreads;
+    if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+    kmeans_assign_global_kernel<<<dim3((unsigned)blocks, (unsigned)B),
+                                  kmeans::kThreads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+        X, C, assign, d2, n, d, k, x_bstride, c_bstride);
+    return (int)cudaGetLastError();
+  }
   const size_t bytes = (size_t)kmeans::common_floats(d, k, rows) * sizeof(float);
   cudaError_t e = repro_set_smem(kmeans_assign_kernel, bytes);
   if (e != cudaSuccess) return (int)e;

@@ -11,7 +11,9 @@
 //                  so that thread r reading row r hits distinct banks
 // The kernels put their own arrays after these.  The Python wrappers
 // (kernels/kmeans_assign*.py) compute the same byte counts to decide the
-// tile height and to refuse shapes that do not fit.
+// tile height; where even the shortest tile does not fit (k d past about
+// 27,000 floats at d = 64, or d past about 1,400 whatever k), they ask for the
+// kernel's global variant, which keeps nothing of C in shared memory.
 #pragma once
 
 #include "common.cuh"
@@ -102,6 +104,50 @@ __device__ inline void assign_row(const float* xr, const float* CT,
       if (l < k) {
         // 2 t is exact, so contracting this into an fma changes no bit
         const float dl = (x2 + cn[l]) - 2.0f * t[i];
+        if (l == 0 || dl < best) {
+          best = dl;
+          arg = l;
+        }
+      }
+    }
+  }
+  *arg_out = arg;
+  *d2_out = fmaxf(best, 0.f);
+}
+
+// assign_row for the global variants, whose layout does not fit in shared
+// memory: the row xr and C (k, d), row-major, are read from global memory
+// (through L1 and L2), and ||c_l||^2 is summed beside x.c_l in the same pass.
+// Every sum is assign_row's fmaf chain over j = 0..d-1, the centers are taken
+// in ascending order, 8 at a time, and the min and argmin rule is the same,
+// so the result is assign_row's bit for bit.
+__device__ inline void assign_row_global(const float* __restrict__ xr,
+                                         const float* __restrict__ C, int d,
+                                         int k, int* arg_out, float* d2_out) {
+  float x2 = 0.f;
+  for (int j = 0; j < d; ++j) x2 = fmaf(xr[j], xr[j], x2);
+  float best = 0.f;
+  int arg = 0;
+  for (int l0 = 0; l0 < k; l0 += kL) {
+    float t[kL], c2[kL];
+#pragma unroll
+    for (int i = 0; i < kL; ++i) t[i] = c2[i] = 0.f;
+    for (int j = 0; j < d; ++j) {
+      const float xj = xr[j];
+#pragma unroll
+      for (int i = 0; i < kL; ++i) {
+        if (l0 + i < k) {
+          const float c = __ldg(C + (long long)(l0 + i) * d + j);
+          t[i] = fmaf(xj, c, t[i]);
+          c2[i] = fmaf(c, c, c2[i]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kL; ++i) {
+      const int l = l0 + i;
+      if (l < k) {
+        const float dl = (x2 + c2[i]) - 2.0f * t[i];
         if (l == 0 || dl < best) {
           best = dl;
           arg = l;

@@ -30,10 +30,14 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas=-v")
 
+#: Dynamic shared memory a block may use on an H100 (227 KB).
+MAX_SMEM_BYTES = 232_448
+
 _vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # name -> (argtypes, restype)
 _SIGNATURES = {
     "repro_leverage": ((_vp, _vp, _vp, _i, _ll, _i, _ll, _ll, _vp), _i),
+    "repro_leverage_wide": ((_vp, _vp, _vp, _i, _ll, _i, _i, _ll, _ll, _vp), _i),
     "repro_weighted_gram": ((_vp, _vp, _vp, _vp, _i, _ll, _i, _ll, _ll, _ll,
                              _vp), _i),
     "repro_kmeans_assign": ((_vp, _vp, _vp, _vp, _i, _ll, _i, _i, _i, _ll, _ll,

@@ -11,6 +11,9 @@ The kernel follows the Pallas kernel: the argmin of the unclamped
 expanded distance, then the minimum clamped at 0.  The plain version
 follows ``repro.kernels.ref``, which clamps first; the two differ only
 where a row has a negative expanded distance to two or more centers.
+
+Where the centers do not fit in shared memory beside a row tile
+(:func:`tile_rows`), the wrapper launches the kernel's global variant.
 """
 
 from __future__ import annotations
@@ -20,13 +23,11 @@ import math
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels._build import batch_shape, check, launch_device, library
+from repro_torch.kernels._build import (MAX_SMEM_BYTES, batch_shape, check,
+                                       launch_device, library)
 
 #: The plain PyTorch version of the kernel (the CPU path and the oracle).
 plain = ref.kmeans_assign
-
-#: Dynamic shared memory a block may use on an H100 (227 KB).
-MAX_SMEM_BYTES = 232_448
 #: Tile heights tried, largest first (one row per thread of a 128-thread CTA).
 TILE_ROWS = (128, 64, 32)
 
@@ -43,16 +44,19 @@ def common_bytes(k: int, d: int, rows: int) -> int:
     return 4 * (d * kp + kp + rows * (d | 1))
 
 
+#: ``tile_rows``'s answer when no tile fits: the kernel's global variant,
+#: which reads C and the rows through the caches, runs instead.
+GLOBAL = 0
+
+
 def tile_rows(k: int, d: int, smem=common_bytes) -> int:
-    """The tallest tile whose layout fits in a block's shared memory;
-    raises ``ValueError`` when even the shortest does not."""
+    """Which variant of a k-means kernel runs at (k, d): the tallest tile
+    whose layout fits in a block's shared memory, or :data:`GLOBAL` when
+    even the shortest does not.  Both variants give the same bits."""
     for rows in TILE_ROWS:
         if smem(k, d, rows) <= MAX_SMEM_BYTES:
             return rows
-    raise ValueError(
-        f"k-means kernels keep the (k, d) = ({k}, {d}) centers in shared "
-        f"memory; {smem(k, d, TILE_ROWS[-1])} bytes do not fit in "
-        f"{MAX_SMEM_BYTES}")
+    return GLOBAL
 
 
 def check_shapes(what: str, X: torch.Tensor, C: torch.Tensor):

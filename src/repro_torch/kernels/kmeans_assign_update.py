@@ -13,6 +13,9 @@ takes the plain PyTorch version (:data:`plain`) for CPU tensors.
 Like :mod:`repro_torch.kernels.kmeans_assign`, the kernel takes the
 argmin of the unclamped distance and clamps the minimum (the Pallas
 kernel's order); the plain version clamps first (``repro.kernels.ref``'s).
+Where the layout does not fit in shared memory (``tile_rows`` gives
+``GLOBAL``), stage 1 runs the kernel's global variant, which gives the
+same partials.
 """
 
 from __future__ import annotations
@@ -25,10 +28,22 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import batch_shape, check, launch_device, library
 from repro_torch.kernels.kmeans_assign import check_shapes, common_bytes, tile_rows
-from repro_torch.kernels.weighted_gram import row_split
 
 #: The plain PyTorch version of the kernel (the CPU path and the oracle).
 plain = ref.kmeans_assign_update
+
+#: The row split is a function of n alone (never of the device), so a
+#: shape always reduces in the same order: ranges of at least MIN_ROWS
+#: rows, about TARGET_CTAS of them once n is large.  The vkmc scores and
+#: draws depend on this order through ccost.
+MIN_ROWS = 256
+TARGET_CTAS = 264
+
+
+def row_split(n: int):
+    """(rows per CTA, number of partials P) for n rows."""
+    rows = max(MIN_ROWS, -(-n // TARGET_CTAS))
+    return rows, -(-n // rows)
 
 
 def smem_bytes(k: int, d: int, rows: int) -> int:

@@ -5,6 +5,10 @@ Port of :mod:`repro.kernels.leverage`.  :func:`leverage` launches the
 kernel for CUDA tensors and takes the plain PyTorch version
 (:data:`plain`) for CPU tensors; there is no fallback on the card.
 ``leverage.launches`` counts kernel launches.
+
+Two kernels compute the same function in the same order: one keeps M
+whole in shared memory (s up to :data:`SHARED_M_WIDTH`), the wide one
+reads it through the caches; the wrapper picks by s.
 """
 
 from __future__ import annotations
@@ -14,14 +18,31 @@ import math
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels._build import batch_shape, check, launch_device, library
+from repro_torch.kernels._build import (MAX_SMEM_BYTES, batch_shape, check,
+                                       launch_device, library)
 
 #: The plain PyTorch version of the kernel (the CPU path and the oracle).
 plain = ref.leverage
 
-#: Largest width whose (s, s) fp32 M fits in a block's 227 KB of shared
-#: memory (238^2 * 4 = 226,576 bytes).
-MAX_WIDTH = 238
+#: Widest party whose (s, s) fp32 M the first kernel keeps whole in a
+#: block's 227 KB of shared memory (238^2 * 4 = 226,576 bytes).  Wider
+#: parties take the wide kernel, which reads M through L1 and L2.
+SHARED_M_WIDTH = 238
+#: Shared memory the wide kernel's X tile may take (the static 48 KB, no
+#: opt-in).
+WIDE_TILE_BYTES = 48 * 1024
+
+
+def wide_rows(s: int) -> int:
+    """Tile height of the wide kernel: as many rows (up to 128, one per
+    thread) as fit in WIDE_TILE_BYTES at the odd row stride, at least one;
+    raises ``ValueError`` when one row of X does not fit in shared memory
+    (s above 58,104, where M alone is 13.5 GB)."""
+    row_bytes = 4 * (-(-s // 8) * 8 + 1)
+    if row_bytes > MAX_SMEM_BYTES:
+        raise ValueError(f"leverage stages whole rows of X in shared memory; "
+                         f"a row of s={s} takes {row_bytes} bytes")
+    return max(1, min(128, WIDE_TILE_BYTES // row_bytes))
 
 
 def leverage(X: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
@@ -39,10 +60,7 @@ def leverage(X: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
     n, s = X.shape[-2:]
     if M.shape[-2:] != (s, s):
         raise ValueError(f"M must be ({s}, {s}) to match X, got {tuple(M.shape)}")
-    if s > MAX_WIDTH:
-        raise ValueError(
-            f"leverage kernel keeps M in shared memory; s={s} > {MAX_WIDTH} "
-            f"does not fit in 227 KB")
+    rows = 0 if s <= SHARED_M_WIDTH else wide_rows(s)
     batch, xb, mb = batch_shape(X.shape[:-2], M.shape[:-2], "leverage")
     B = math.prod(batch)
     out = torch.empty(batch + (n,), dtype=torch.float32, device=dev)
@@ -52,9 +70,12 @@ def leverage(X: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
     Mc = M.to(torch.float32).contiguous()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        code = library().repro_leverage(
-            Xc.data_ptr(), Mc.data_ptr(), out.data_ptr(), B, n, s,
-            n * s if xb else 0, s * s if mb else 0, stream)
+        args = (Xc.data_ptr(), Mc.data_ptr(), out.data_ptr(), B, n, s)
+        strides = (n * s if xb else 0, s * s if mb else 0, stream)
+        if rows:
+            code = library().repro_leverage_wide(*args, rows, *strides)
+        else:
+            code = library().repro_leverage(*args, *strides)
     check(code, "leverage")
     leverage.launches += 1
     return out

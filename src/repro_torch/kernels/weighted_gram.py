@@ -3,11 +3,12 @@ solve, as a hand-written CUDA kernel (``csrc/weighted_gram.cu``).
 
 Port of :mod:`repro.kernels.weighted_gram`.  The sum over rows is a
 deterministic two-stage reduction: fixed contiguous row ranges per CTA,
-then an in-order sum of the partials — no float atomics, so two launches
-on the same input give the same bits.  :func:`weighted_gram` launches the
-kernel for CUDA tensors and takes the plain PyTorch version
-(:data:`plain`) for CPU tensors.  ``weighted_gram.launches`` counts
-kernel launches.
+each summing one triangle of G in a fixed order, then a fixed-order sum of
+the partials that fills both triangles from the one — no float atomics, so
+two launches on the same input give the same bits and G is exactly
+symmetric.  :func:`weighted_gram` launches the kernel for CUDA tensors and
+takes the plain PyTorch version (:data:`plain`) for CPU tensors.
+``weighted_gram.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -23,15 +24,17 @@ from repro_torch.kernels._build import batch_shape, check, launch_device, librar
 plain = ref.weighted_gram
 
 #: The row split is a function of n alone (never of the device), so a
-#: shape always reduces in the same order: ranges of at least MIN_ROWS
-#: rows, about TARGET_CTAS of them (two per SM of an H100) once n is large.
-MIN_ROWS = 256
-TARGET_CTAS = 264
+#: shape always reduces in the same order: ranges of at least
+#: GRAM_MIN_ROWS rows (one shared-memory stage of the kernel), about
+#: GRAM_TARGET_CTAS of them (two per SM of an H100) once n is large.  At
+#: n = 5,000 that is 157 ranges, more than the card's 132 SMs.
+GRAM_MIN_ROWS = 32
+GRAM_TARGET_CTAS = 264
 
 
-def row_split(n: int):
+def gram_split(n: int):
     """(rows per CTA, number of partials P) for n rows."""
-    rows = max(MIN_ROWS, -(-n // TARGET_CTAS))
+    rows = max(GRAM_MIN_ROWS, -(-n // GRAM_TARGET_CTAS))
     return rows, -(-n // rows)
 
 
@@ -53,7 +56,7 @@ def weighted_gram(X: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     B = math.prod(batch)
     if n == 0 or B == 0 or d == 0:
         return torch.zeros(batch + (d, d), dtype=torch.float32, device=dev)
-    rows, P = row_split(n)
+    rows, P = gram_split(n)
     out = torch.empty(batch + (d, d), dtype=torch.float32, device=dev)
     part = torch.empty((B, P, d, d), dtype=torch.float32, device=dev)
     Xc = X.to(torch.float32).contiguous()

@@ -83,18 +83,32 @@ def threefry_2x32(key: Key, count: torch.Tensor) -> torch.Tensor:
 
 
 def _bits_at(key: Key, pos: torch.Tensor, size: int) -> torch.Tensor:
-    """Words at flat positions ``pos`` of ``threefry_2x32(key, iota(size))``
-    — one position's word depends on that position alone."""
-    if size >= MASK:
-        # jax switches to a split-key block scheme past 2**32 - 1 counters
-        raise NotImplementedError(
-            f"random arrays of {size} >= 2**32 - 1 words are not supported")
-    k1, k2 = _words(key)
-    half = (size + 1) // 2
-    lo = pos < half
-    x1 = torch.where(lo, pos, pos - half)
-    x2 = torch.where(lo, pos + half, pos)
-    x2 = torch.where(x2 >= size, torch.zeros_like(x2), x2)   # odd-size pad
+    """Words at flat positions ``pos`` of a ``size``-word draw under
+    ``key`` — one position's word depends on that position alone.
+
+    Below 2**32 - 1 words the draw is ``threefry_2x32(key, iota(size))``.
+    From there on jax's counters would wrap, so it cuts the draw into
+    blocks of 2**32 - 1 words: with ``nblocks, rem = divmod(size, MASK)``
+    the keys are ``split(key, nblocks + 1)``, block b hashes
+    ``iota(MASK)`` under key b and the last key hashes ``iota(rem)``
+    (``_threefry_random_bits_original`` in jax's ``_src/prng.py``).  A
+    position p is offset ``p % MASK`` of block ``p // MASK``, with that
+    block's own size, pairing and odd-size pad."""
+    nblocks, rem = divmod(int(size), MASK)
+    if nblocks == 0:
+        k1, k2 = _words(key)
+        off, bsize = pos, size
+    else:
+        keys = split(key, nblocks + 1).to(pos.device)
+        blk = torch.div(pos, MASK, rounding_mode="floor")
+        off = pos - blk * MASK
+        k1, k2 = keys[blk, 0], keys[blk, 1]
+        bsize = torch.where(blk < nblocks, MASK, rem)
+    half = (bsize + 1) // 2
+    lo = off < half
+    x1 = torch.where(lo, off, off - half)
+    x2 = torch.where(lo, off + half, off)
+    x2 = torch.where(x2 >= bsize, torch.zeros_like(x2), x2)   # odd-size pad
     a, b = _hash(k1, k2, x1, x2)
     return torch.where(lo, a, b)
 

@@ -216,18 +216,46 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
 
 
 def test_kmeans_tile_height_and_shared_memory_limit():
+    """The planner keeps the shared-memory layout wherever a tile fits and
+    names the global variant past that: K2 at k = 424 / 425 with d = 64,
+    and both kernels at d = 2048 whatever k."""
     assert kka.tile_rows(10, 90) == 128 and kkau.tile_rows(10, 90, kkau.smem_bytes) == 128
     assert kkau.smem_bytes(10, 90, 128) == 4 * (90 * 16 + 16 + 128 * 91 + 3 * 128 + 900 + 20)
     assert KMAX_64 == 424 and kka.tile_rows(KMAX_64, 64, kkau.smem_bytes) == 32
-    with pytest.raises(ValueError, match="shared memory"):
-        kka.tile_rows(KMAX_64 + 1, 64, kkau.smem_bytes)
+    assert kka.tile_rows(KMAX_64 + 1, 64, kkau.smem_bytes) == kka.GLOBAL
+    assert kka.tile_rows(2000, 64) == kka.GLOBAL and kka.tile_rows(425, 64) == 128
+    for k in (1, 10):
+        assert kka.tile_rows(k, 2048) == kka.GLOBAL
+        assert kka.tile_rows(k, 2048, kkau.smem_bytes) == kka.GLOBAL
 
 
 def test_row_split_is_a_function_of_n():
-    assert kwg.row_split(1) == (kwg.MIN_ROWS, 1)
-    assert kwg.row_split(5000) == (256, 20)
-    rows, P = kwg.row_split(463_715)
-    assert P <= kwg.TARGET_CTAS and rows * P >= 463_715 > rows * (P - 1)
+    assert kkau.row_split(1) == (kkau.MIN_ROWS, 1)
+    assert kkau.row_split(5000) == (256, 20)
+    rows, P = kkau.row_split(463_715)
+    assert P <= kkau.TARGET_CTAS and rows * P >= 463_715 > rows * (P - 1)
+    assert (rows, P) == (1757, 264)
+
+
+def test_gram_split_is_a_function_of_n():
+    """K3's own split: at least one 32-row stage per range, more ranges
+    than the card's 132 SMs at n = 5,000, about two per SM at full n."""
+    assert kwg.gram_split(1) == (kwg.GRAM_MIN_ROWS, 1)
+    assert kwg.gram_split(5000) == (32, 157)
+    rows, P = kwg.gram_split(463_715)
+    assert P <= kwg.GRAM_TARGET_CTAS and rows * P >= 463_715 > rows * (P - 1)
+    assert (rows, P) == (1757, 264)
+
+
+def test_leverage_kernel_choice_by_width():
+    """M stays whole in shared memory up to s = 238; wider parties take
+    the wide kernel, whose X tile shrinks with s."""
+    assert klev.SHARED_M_WIDTH == 238
+    assert 238 ** 2 * 4 <= klev.MAX_SMEM_BYTES
+    assert [klev.wide_rows(s) for s in (239, 256, 512)] == [50, 47, 23]
+    assert klev.wide_rows(58_104) == 1
+    with pytest.raises(ValueError, match="shared memory"):
+        klev.wide_rows(58_105)
 
 
 # --------------------------------------------------------------------------
@@ -241,7 +269,9 @@ def _cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("xb,mb,n,d", LEV_CASES + [((), (), 4097, 238), ((3,), (3,), 100_003, 31)])
+@pytest.mark.parametrize("xb,mb,n,d", LEV_CASES + [
+    ((), (), 4097, 238), ((3,), (3,), 100_003, 31), ((), (), 4097, 239),
+    ((2,), (), 1001, 256), ((), (), 777, 512)])
 def test_leverage_kernel_matches_plain(xb, mb, n, d):
     dev = _cuda()
     X, M = (torch.from_numpy(a).to(dev) for a in _lev_inputs(n + d, xb, mb, n, d))
@@ -265,6 +295,7 @@ def test_weighted_gram_kernel_matches_plain_and_is_deterministic(xb, wb, n, d):
     again = kwg.weighted_gram(X, w)
     assert kwg.weighted_gram.launches == before + 2
     assert torch.equal(got, again)
+    assert torch.equal(got, got.transpose(-1, -2))   # one triangle, mirrored
     want = kwg.plain(X, w)
     scale = kwg.plain(X.abs(), w.abs()).max().item()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * max(scale, 1.0))
@@ -273,7 +304,8 @@ def test_weighted_gram_kernel_matches_plain_and_is_deterministic(xb, wb, n, d):
 @pytest.mark.gpu
 @pytest.mark.parametrize("xb,cb,wk,n,k,d", KMEANS_CASES + [
     ((3,), (3,), None, 100_003, 10, 30), ((), (), "w", 20_001, 10, 90),
-    ((), (), "w", 1001, KMAX_64, 64)])
+    ((), (), "w", 1001, KMAX_64, 64), ((), (), "w", 1001, KMAX_64 + 1, 64),
+    ((), (), None, 1001, 2000, 64), ((2,), (2,), "wb", 257, 10, 2048)])
 def test_kmeans_kernels_match_plain_and_are_deterministic(xb, cb, wk, n, k, d):
     dev = _cuda()
     X, C, w = _kmeans_inputs(n * 7 + k + d, xb, cb, wk, n, k, d)
@@ -301,8 +333,6 @@ def test_kmeans_kernels_match_plain_and_are_deterministic(xb, cb, wk, n, k, d):
 def test_kernels_reject_what_they_do_not_take():
     dev = _cuda()
     with pytest.raises(ValueError):
-        klev.leverage(torch.zeros(4, 239, device=dev), torch.zeros(239, 239, device=dev))
-    with pytest.raises(ValueError):
         klev.leverage(torch.zeros(2, 4, 3, device=dev), torch.zeros(3, 3, 3, device=dev))
     with pytest.raises(ValueError):
         kwg.weighted_gram(torch.zeros(4, 3, device=dev), torch.zeros(5, device=dev))
@@ -310,8 +340,6 @@ def test_kernels_reject_what_they_do_not_take():
         kwg.weighted_gram(torch.zeros(4, 3, device=dev), torch.zeros(4))
     with pytest.raises(ValueError):
         kka.kmeans_assign(torch.zeros(4, 3, device=dev), torch.zeros(2, 4, device=dev))
-    with pytest.raises(ValueError):
-        kka.kmeans_assign(torch.zeros(4, 64, device=dev), torch.zeros(2000, 64, device=dev))
     with pytest.raises(ValueError):
         kkau.kmeans_assign_update(torch.zeros(2, 4, 3, device=dev),
                                   torch.zeros(3, 2, 3, device=dev))

@@ -88,6 +88,34 @@ def test_threefry_2x32_raw_counts():
         np.testing.assert_array_equal(want.astype(np.int64), got.numpy())
 
 
+@pytest.mark.parametrize("seed", SEEDS[:3])
+def test_bits_past_the_counter_limit(seed):
+    """Past 2**32 - 1 words jax draws blocks of 2**32 - 1 counters under
+    split subkeys.  The port's words at positions around and past the
+    block edges (a full block's pad slot and the last block's among them)
+    equal jax's ``threefry_2x32`` under its ``threefry_split`` subkeys,
+    computed at those positions only, never as the full draw."""
+    from jax._src.prng import threefry_2x32, threefry_split
+
+    limit = 2 ** 32 - 1
+    size = 3 * limit + 7
+    nblocks, rem = divmod(size, limit)
+    subkeys = np.asarray(threefry_split(jax.random.PRNGKey(seed), (nblocks + 1,)))
+    pos = [2 ** 32 - 2, 2 ** 32 - 1, 2 ** 32, 2 * limit + 5, size - 1,
+           2 ** 31 - 1, limit + 2 ** 31 - 1, 3 * limit + 3, 0]
+    want = []
+    for p in pos:
+        blk, off = divmod(p, limit)
+        bsize = limit if blk < nblocks else rem
+        half = (bsize + 1) // 2
+        x1, x2, lane = (off, off + half, 0) if off < half else (off - half, off, 1)
+        pair = np.array([x1, 0 if x2 >= bsize else x2], np.uint32)
+        want.append(int(np.asarray(threefry_2x32(jnp.asarray(subkeys[blk]),
+                                                 jnp.asarray(pair)))[lane]))
+    got = rng._bits_at(rng.PRNGKey(seed), torch.tensor(pos, dtype=torch.int64), size)
+    np.testing.assert_array_equal(np.array(want, np.int64), got.numpy())
+
+
 @pytest.mark.parametrize("shape", [(1,), (9,), (4, 33), (101, 77)])
 @pytest.mark.parametrize("seed", SEEDS[:3])
 def test_uniform_and_gumbel_bits(seed, shape):
