@@ -13,7 +13,10 @@ and never JAX or the JAX package ``repro``.  Phases, each fatal on failure:
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes and over a sweep of odd shapes, in full fp32
    (TF32 off), within the stated tolerance; two launches bitwise equal;
-   weighted_gram's G exactly symmetric; the general variants past the
+   weighted_gram's G exactly symmetric; kmeans_assign_update's fast
+   kernel equal bit for bit to its global variant (the same sums in the
+   same order) at the main path's shapes (both timed), over the sweep and
+   at ragged edges; the general variants past the
    fast kernels' limits (leverage at s = 239, 256, 512; the k-means
    kernels at (k, d) = (425, 64), (2000, 64), (10, 2048) and one batched
    case, with assignments equal to the plain version's); CUDA-event times
@@ -244,6 +247,32 @@ def check_kmeans(torch, ref, name, kern, plain, X, C, w=None, fused=False,
     return err
 
 
+def check_k2_oracle(torch, kkau, X, C, w=None, timed=False):
+    """K2's fast stage 1 against its global variant on the same input: the
+    five outputs equal bit for bit (both sum every entry in the same order,
+    kmeans_assign_update.cu's bit contract).  With ``timed``, also the CUDA
+    event times of both, returned as (fast ms, global ms)."""
+    fast = kkau.kmeans_assign_update(X, C, w)
+    glob = kkau._launch(X, C, w, global_variant=True)
+    torch.cuda.synchronize()
+    shapes = " ".join(str(tuple(a.shape)) for a in (X, C, w) if a is not None)
+    layout = kkau.layout(C.shape[-2], X.shape[-1])
+    bad = [nm for nm, a, b in zip(("assign", "d2", "csum", "wsum", "ccost"), fast, glob)
+           if not torch.equal(a, b)]
+    if bad:
+        fail(f"kmeans_assign_update {shapes}: the fast kernel's {bad} differ from "
+             f"the global variant's (layout {layout})")
+    msg = (f"  kmeans_assign_update {shapes}: fast kernel (layout {layout}) == "
+           f"global variant, bit for bit")
+    if not timed:
+        log(msg)
+        return None
+    times = (cuda_ms(torch, lambda: kkau.kmeans_assign_update(X, C, w)),
+             cuda_ms(torch, lambda: kkau._launch(X, C, w, global_variant=True)))
+    log(f"{msg}; fast {times[0]:.4f} ms, global {times[1]:.4f} ms")
+    return times
+
+
 def library_assign_update(torch, X, C, w=None):
     """One PyTorch expression for K2's function (timed, used nowhere in the
     port): torch.cdist(X, C).min(-1), then index_add_ of w x, w and w d2
@@ -461,6 +490,10 @@ def main() -> None:
         kkau.plain, X_full, Cf, ones, fused=True))
     check_kmeans(torch, kref, "kmeans_assign_update", kkau.kmeans_assign_update,
                  kkau.plain, Xc, Cf, wc, fused=True)
+    # the fast K2 against its global variant, bit for bit, at the main path's
+    # shapes (timed) and below over the sweep and the edge cases
+    for Xo, Co, wo in [(kb, Cb, None), (X_full, Cf, ones), (Xc, Cf, wc)]:
+        check_k2_oracle(torch, kkau, Xo, Co, wo, timed=True)
     ka_err = check_kmeans(torch, kref, "kmeans_assign", kka.kmeans_assign,
                           kka.plain, X_full, Cf)
     check_kmeans(torch, kref, "kmeans_assign", kka.kmeans_assign, kka.plain, Xc, Cf)
@@ -486,8 +519,17 @@ def main() -> None:
                      kka.plain, Xs, Cs)
         check_kmeans(torch, kref, "kmeans_assign_update", kkau.kmeans_assign_update,
                      kkau.plain, Xs, Cs, w, fused=True)
+        check_k2_oracle(torch, kkau, Xs, Cs, w)
         if k > 2 and bool((kkau.kmeans_assign_update(Xs, Cs, w)[0] == 2).any()):
             fail(f"kmeans_assign_update k={k}: a duplicate center took a row")
+    # K2's ragged edges: every row in one cluster of ten (several ranges, a
+    # short last tile), one cluster empty in most tiles, and a one-row range
+    Cs = randn(10, 90)
+    for Xs in (Cs[3] + 1e-3 * randn(100_003, 90),
+               torch.cat([randn(4000, 90), Cs[7] + 1e-3 * randn(3, 90)])[
+                   torch.randperm(4003, generator=gen).to(dev)],
+               randn(2, 257, 90)):
+        check_k2_oracle(torch, kkau, Xs, Cs, torch.rand(Xs.shape[-2], generator=gen).to(dev))
     # past the shared-memory layout the global variants run, with the same
     # assignments as the plain version
     # (K4 keeps its smaller layout at k = kmax + 1, d = 64)

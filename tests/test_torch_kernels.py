@@ -220,13 +220,32 @@ def test_kmeans_tile_height_and_shared_memory_limit():
     names the global variant past that: K2 at k = 424 / 425 with d = 64,
     and both kernels at d = 2048 whatever k."""
     assert kka.tile_rows(10, 90) == 128 and kkau.tile_rows(10, 90, kkau.smem_bytes) == 128
-    assert kkau.smem_bytes(10, 90, 128) == 4 * (90 * 16 + 16 + 128 * 91 + 3 * 128 + 900 + 20)
+    assert kkau.smem_bytes(10, 90, 128) == 4 * (90 * 16 + 16 + 900 + 20 + 128 + 128 * 93)
     assert KMAX_64 == 424 and kka.tile_rows(KMAX_64, 64, kkau.smem_bytes) == 32
     assert kka.tile_rows(KMAX_64 + 1, 64, kkau.smem_bytes) == kka.GLOBAL
     assert kka.tile_rows(2000, 64) == kka.GLOBAL and kka.tile_rows(425, 64) == 128
     for k in (1, 10):
         assert kka.tile_rows(k, 2048) == kka.GLOBAL
         assert kka.tile_rows(k, 2048, kkau.smem_bytes) == kka.GLOBAL
+
+
+def test_kmeans_assign_update_layout_planner():
+    """K2's stage 1 takes a ring of two tiles at the main-path shapes, keeps
+    a shared-memory layout wherever the earlier one-tile layout (C, the
+    tile, three per-row arrays and the sums) fitted, and names the global
+    variant past it."""
+    assert kkau.layout(10, 90) == (128, 2) and kkau.layout(10, 30) == (128, 2)
+    assert kkau.smem_bytes(10, 90, 128, 2) <= kka.MAX_SMEM_BYTES
+    assert kkau.layout(KMAX_64, 64) == (32, 1)
+    assert kkau.layout(KMAX_64 + 1, 64) == (kka.GLOBAL, 0)
+    assert kkau.layout(10, 2048) == (kka.GLOBAL, 0) == kkau.layout(2000, 64)
+    for k in (1, 7, 10, 33, 200):
+        for d in (1, 2, 5, 30, 64, 90, 127, 300, 1000):
+            for rows in kka.TILE_ROWS:
+                earlier = kka.common_bytes(k, d, rows) + 4 * (3 * rows + k * d + 2 * k)
+                assert kkau.smem_bytes(k, d, rows) == earlier
+            if kka.tile_rows(k, d, kkau.smem_bytes) != kka.GLOBAL:
+                assert kkau.layout(k, d)[0] != kka.GLOBAL
 
 
 def test_row_split_is_a_function_of_n():
@@ -327,6 +346,44 @@ def test_kmeans_kernels_match_plain_and_are_deterministic(xb, cb, wk, n, k, d):
     _check_sums(X, w, cpu(got[0]), cpu(got[1]), k, [cpu(t) for t in got[2:]])
     if k > 2:
         assert not (cpu(got[0]) == 2).any()
+
+
+def _one_cluster_inputs(seed, n, k, d):
+    """Every row next to center 3: one cluster holds all rows."""
+    r = np.random.default_rng(seed)
+    C = r.standard_normal((k, d)).astype(np.float32)
+    X = (C[3] + 1e-3 * r.standard_normal((n, d))).astype(np.float32)
+    return X, C, r.uniform(0.0, 3.0, (n,)).astype(np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("xb,cb,wk,n,k,d", KMEANS_CASES + [
+    ((3,), (3,), None, 100_003, 10, 30), ((), (), "w", 20_001, 10, 90),
+    ((), (), "w", 257, 10, 90), ((), (), "w", 1001, KMAX_64, 64),
+    ((), (), "w", 3001, 40, 300), ((), (), "one", 100_003, 10, 90),
+    ((), (), "one", 1000, 4, 7)])
+def test_kmeans_assign_update_equals_its_global_variant(xb, cb, wk, n, k, d):
+    """The fast stage 1 gives the global variant's assign, d2 and sums bit
+    for bit (the same fmaf chain for every entry), and two launches agree:
+    ragged last tiles and ranges, a one-row range (n = 257), the one-tile
+    layout at k = 424, a 32-row tile at d = 300, and every row in one
+    cluster."""
+    dev = _cuda()
+    if wk == "one":
+        X, C, w = _one_cluster_inputs(n + k + d, n, k, d)
+    else:
+        X, C, w = _kmeans_inputs(n * 7 + k + d, xb, cb, wk, n, k, d)
+    Xt, Ct = torch.from_numpy(X).to(dev), torch.from_numpy(C).to(dev)
+    wt = None if w is None else torch.from_numpy(w).to(dev)
+    assert kkau.layout(k, d)[0] != kka.GLOBAL
+    got = kkau.kmeans_assign_update(Xt, Ct, wt)
+    again = kkau.kmeans_assign_update(Xt, Ct, wt)
+    oracle = kkau._launch(Xt, Ct, wt, global_variant=True)
+    for a, b, c in zip(got, again, oracle):
+        assert torch.equal(a, b)
+        assert torch.equal(a, c)
+    if wk == "one":
+        assert bool((got[0] == 3).all())
 
 
 @pytest.mark.gpu
