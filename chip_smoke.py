@@ -13,10 +13,11 @@ and never JAX or the JAX package ``repro``.  Phases, each fatal on failure:
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes and over a sweep of odd shapes, in full fp32
    (TF32 off), within the stated tolerance; two launches bitwise equal;
-   weighted_gram's G exactly symmetric; kmeans_assign_update's fast
-   kernel equal bit for bit to its global variant (the same sums in the
-   same order) at the main path's shapes (both timed), over the sweep and
-   at ragged edges; the general variants past the
+   weighted_gram's G exactly symmetric; each fast kernel equal bit for bit
+   to its oracle at the main path's shapes (both timed), over the sweep and
+   at ragged edges: kmeans_assign_update and kmeans_assign to their global
+   variants (the same sums in the same order), leverage to its wide
+   kernel; the general variants past the
    fast kernels' limits (leverage at s = 239, 256, 512; the k-means
    kernels at (k, d) = (425, 64), (2000, 64), (10, 2048) and one batched
    case, with assignments equal to the plain version's); CUDA-event times
@@ -273,6 +274,58 @@ def check_k2_oracle(torch, kkau, X, C, w=None, timed=False):
     return times
 
 
+def check_k1_oracle(torch, klev, X, M, timed=False):
+    """K1's kernel for the width of X against the wide kernel on the same
+    input, and against itself: equal bit for bit (leverage.cu's bit
+    contract).  With ``timed``, also the CUDA event times of both, returned
+    as (kernel ms, wide ms)."""
+    got = klev.leverage(X, M)
+    again = klev.leverage(X, M)
+    wide = klev._launch(X, M, wide=True)
+    torch.cuda.synchronize()
+    shapes = f"{tuple(X.shape)} {tuple(M.shape)}"
+    if not torch.equal(got, again):
+        fail(f"leverage {shapes}: two launches on the same input differ")
+    if not torch.equal(got, wide):
+        fail(f"leverage {shapes}: the kernel's output differs from the wide kernel's")
+    msg = f"  leverage {shapes}: kernel == wide kernel, bit for bit"
+    if not timed:
+        log(msg)
+        return None
+    times = (cuda_ms(torch, lambda: klev.leverage(X, M)),
+             cuda_ms(torch, lambda: klev._launch(X, M, wide=True)))
+    log(f"{msg}; kernel {times[0]:.4f} ms, wide {times[1]:.4f} ms")
+    return times
+
+
+def check_k4_oracle(torch, kka, X, C, timed=False):
+    """K4's fast kernel against its global variant on the same input, and
+    against itself: assign and d2 equal bit for bit (kmeans_assign.cu's bit
+    contract).  With ``timed``, also the CUDA event times of both, returned
+    as (fast ms, global ms)."""
+    fast = kka.kmeans_assign(X, C)
+    again = kka.kmeans_assign(X, C)
+    glob = kka._launch(X, C, global_variant=True)
+    torch.cuda.synchronize()
+    shapes = f"{tuple(X.shape)} {tuple(C.shape)}"
+    layout = kka.assign_layout(C.shape[-2], X.shape[-1])
+    if any(not torch.equal(a, b) for a, b in zip(fast, again)):
+        fail(f"kmeans_assign {shapes}: two launches on the same input differ")
+    bad = [nm for nm, a, b in zip(("assign", "d2"), fast, glob) if not torch.equal(a, b)]
+    if bad:
+        fail(f"kmeans_assign {shapes}: the fast kernel's {bad} differ from the "
+             f"global variant's (layout {layout})")
+    msg = (f"  kmeans_assign {shapes}: fast kernel (layout {layout}) == global "
+           f"variant, bit for bit")
+    if not timed:
+        log(msg)
+        return None
+    times = (cuda_ms(torch, lambda: kka.kmeans_assign(X, C)),
+             cuda_ms(torch, lambda: kka._launch(X, C, global_variant=True)))
+    log(f"{msg}; fast {times[0]:.4f} ms, global {times[1]:.4f} ms")
+    return times
+
+
 def library_assign_update(torch, X, C, w=None):
     """One PyTorch expression for K2's function (timed, used nowhere in the
     port): torch.cdist(X, C).min(-1), then index_add_ of w x, w and w d2
@@ -383,14 +436,32 @@ def main() -> None:
     M = batched_gram_pinv(blocks.transpose(1, 2) @ blocks)        # (3, 31, 31)
     lev_err = check_kernel(torch, "leverage", klev.leverage, klev.plain,
                            (blocks, M), lev_scale, LEVERAGE_TOL)
+    # K1 against the wide kernel, bit for bit, at the main path's shape
+    # (timed), over the sweep and at the edges below
+    check_k1_oracle(torch, klev, blocks, M, timed=True)
     for n, s, xb, mb in [(1, 5, (), ()), (7, 1, (), ()), (129, 31, (3,), ()),
                          (1001, 64, (), (2,)), (4097, 33, (2,), (2,)),
                          (513, 238, (), ()),
                          # the wide kernel, past M whole in shared memory
                          (4097, 239, (), ()), (1001, 256, (2,), ()),
                          (777, 512, (), ())]:
-        check_kernel(torch, "leverage", klev.leverage, klev.plain,
-                     (randn(*xb, n, s), psd(mb, s)), lev_scale, LEVERAGE_TOL)
+        Xs, Ms = randn(*xb, n, s), psd(mb, s)
+        check_kernel(torch, "leverage", klev.leverage, klev.plain, (Xs, Ms),
+                     lev_scale, LEVERAGE_TOL)
+        check_k1_oracle(torch, klev, Xs, Ms)
+    # K1's edges: the register kernel at s = 1, 31, 30 and 28 (a warp's rows
+    # starting in 32, 16 and 8 banks), s = 8, 16, 24, 32 and 33 (the
+    # shared-memory kernel), a short last tile over many CTAs, parties whose
+    # rows start off 16-byte alignment, an all-zero row and an all-zero M
+    for n, s, xb, mb in [(1, 1, (), ()), (300, 8, (), ()), (1000, 16, (2,), ()),
+                         (2049, 24, (), (2,)), (4097, 32, (3,), (3,)),
+                         (300, 33, (), ()), (100_003, 31, (3,), (3,)),
+                         (257, 31, (2,), ()), (1001, 30, (3,), ()),
+                         (1001, 28, (), (3,))]:
+        Xs, Ms = randn(*xb, n, s), psd(mb, s)
+        Xs[..., n // 2, :] = 0.0
+        check_k1_oracle(torch, klev, Xs, Ms)
+    check_k1_oracle(torch, klev, randn(3, 1001, 31), torch.zeros(3, 31, 31, device=dev))
     Xw, Mw = randn(N_WIDE, 512), psd((), 512)
     levw_err = check_kernel(torch, "leverage", klev.leverage, klev.plain,
                             (Xw, Mw), lev_scale, LEVERAGE_TOL)
@@ -497,6 +568,10 @@ def main() -> None:
     ka_err = check_kmeans(torch, kref, "kmeans_assign", kka.kmeans_assign,
                           kka.plain, X_full, Cf)
     check_kmeans(torch, kref, "kmeans_assign", kka.kmeans_assign, kka.plain, Xc, Cf)
+    # the fast K4 against its global variant, bit for bit, at the main path's
+    # shapes (timed) and below over the sweep and the edge cases
+    for Xo in (X_full, Xc):
+        check_k4_oracle(torch, kka, Xo, Cf, timed=True)
     # the sweep: odd n, d = 1, k = 1, duplicate centers (a tie takes the
     # first index), batch on X only, C only and both, w None / given /
     # batched / all zero, and k*d at the shared-memory limit
@@ -520,6 +595,7 @@ def main() -> None:
         check_kmeans(torch, kref, "kmeans_assign_update", kkau.kmeans_assign_update,
                      kkau.plain, Xs, Cs, w, fused=True)
         check_k2_oracle(torch, kkau, Xs, Cs, w)
+        check_k4_oracle(torch, kka, Xs, Cs)
         if k > 2 and bool((kkau.kmeans_assign_update(Xs, Cs, w)[0] == 2).any()):
             fail(f"kmeans_assign_update k={k}: a duplicate center took a row")
     # K2's ragged edges: every row in one cluster of ten (several ranges, a
@@ -530,6 +606,19 @@ def main() -> None:
                    torch.randperm(4003, generator=gen).to(dev)],
                randn(2, 257, 90)):
         check_k2_oracle(torch, kkau, Xs, Cs, torch.rand(Xs.shape[-2], generator=gen).to(dev))
+    # K4's edges: fewer rows than a tile, one row, a short last tile over
+    # many CTAs, d = 1, k = 1, k = 9 (a last block of one center), duplicate
+    # centers, batch on X, on C and on both; and each one-buffer layout
+    # (32, 16 and 8 rows), at the largest k whose one-tile layout fits
+    for n, k, dk, xb, cb in [(1, 1, 1, (), ()), (7, 9, 90, (), ()), (100, 10, 90, (), ()),
+                             (100_003, 10, 90, (), ()), (129, 9, 1, (3,), ()),
+                             (1000, 10, 90, (), (2,)), (257, 17, 13, (2,), (2,)),
+                             (300, 856, 64, (), ()), (300, 19_336, 2, (), ()),
+                             (300, 29_040, 1, (), ())]:
+        Xs, Cs = randn(*xb, n, dk), randn(*cb, k, dk)
+        if k > 2:
+            Cs[..., 2, :] = Cs[..., 0, :]
+        check_k4_oracle(torch, kka, Xs, Cs)
     # past the shared-memory layout the global variants run, with the same
     # assignments as the plain version
     # (K4 keeps its smaller layout at k = kmax + 1, d = 64)
@@ -537,7 +626,7 @@ def main() -> None:
                                     (N_WIDE, 2000, 64, (), (), None, kka.GLOBAL),
                                     (N_WIDE, 10, 2048, (), (), "w", kka.GLOBAL),
                                     (2001, 10, 2048, (2,), (2,), "wb", kka.GLOBAL)]:
-        plans = (kka.tile_rows(k, dk), kka.tile_rows(k, dk, kkau.smem_bytes))
+        plans = (kka.assign_layout(k, dk), kka.tile_rows(k, dk, kkau.smem_bytes))
         if plans != (k4, kka.GLOBAL):
             fail(f"k-means kernels at (k, d) = ({k}, {dk}) planned {plans}, "
                  f"not ({k4}, {kka.GLOBAL})")
@@ -549,6 +638,7 @@ def main() -> None:
         check_kmeans(torch, kref, "kmeans_assign_update", kkau.kmeans_assign_update,
                      kkau.plain, Xs, Cs, w, fused=True, exact=True)
         if k4 != kka.GLOBAL:
+            check_k4_oracle(torch, kka, Xs, Cs)
             # K4's shared-memory layout and K2's global variant: the same bits
             same = all(torch.equal(a, b) for a, b in zip(
                 kka.kmeans_assign(Xs, Cs), kkau.kmeans_assign_update(Xs, Cs, w)[:2]))
@@ -639,7 +729,7 @@ def main() -> None:
 
     # the checks' own large tensors go before the main path, so its
     # peak_bytes counts the path's memory and the dataset only
-    del Xw, Mw, Xg, Cg, wg, Xs, Cs, w, lg, idx
+    del Xw, Mw, Xg, Cg, wg, Xs, Cs, Ms, w, lg, idx
     torch.cuda.empty_cache()
 
     # ---- 4. main path: vrlr ---------------------------------------------------

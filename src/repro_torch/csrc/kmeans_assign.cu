@@ -13,50 +13,293 @@
 // 5 FLOP per byte at k = 10).  At the coreset fit's (m, 90) it is a few
 // microseconds of work and bound by the launch.
 //
-// Design: one CTA per tile of up to 128 rows of one batch entry (grid
-// (row tiles, B); a batch-less C is shared by every entry).  The CTA holds
-// C transposed and zero-padded to a multiple of 8 centers, and ||c||^2, in
-// shared memory, stages its rows with coalesced loads at an odd row stride,
-// and gives one row to each thread.  The distance and argmin code is
-// kmeans_common.cuh's, shared with kmeans_assign_update.cu.  fp32 with
-// explicit fmaf, no tensor cores and no TF32.  The real d and k are kept:
-// there is no padding to 128 lanes, which is a TPU layout.  A (k, d) whose
-// layout does not fit in shared memory runs kmeans_assign_global_kernel,
-// which reads C from global memory instead (the same result, bit for bit).
+// The bit contract.  Every row's assign and d2 are kmeans_common.cuh's
+// assign_row arithmetic: x2, t_l and cn[l] fmaf chains over j = 0..d-1,
+// dl = (x2 + cn[l]) - 2 t_l, the first index of the smallest unclamped dl,
+// then that minimum clamped at 0.  kmeans_assign_global_kernel computes exactly this
+// with C and the row in global memory: it is the oracle that chip_smoke.py
+// and the gpu tests hold the fast kernel to, bit for bit
+// (kernels/kmeans_assign.py::_launch with global_variant=True).  K2's stage
+// 1 (kmeans_assign_update.cu) assigns with the same bits.
+//
+// Design of the fast kernel, kmeans_assign_fast_kernel, 128 threads a CTA:
+// - Persistent CTAs: (SMs x CTAs per SM) / B per batch entry, from the
+//   occupancy calculator at launch (common.cuh's repro_persistent_ctas),
+//   each walking its entry's row tiles with a grid stride.  Rows need no
+//   sums, so any split gives the same bits.  C transposed and ||c||^2 are
+//   staged once per CTA, not once per tile: the k ||c||^2 chains run on
+//   their own threads while the others transpose C.
+// - One tile buffer of up to 128 rows a CTA, the tallest that fits
+//   (kernels/kmeans_assign.py::assign_layout): at (10, 90) four CTAs an
+//   SM, whose copies and distances overlap each other's (four CTAs of one
+//   buffer ran faster there than two of a ring of two).  Where d is not a
+//   multiple of 4 a tile is copied as the one contiguous run of floats it
+//   is in X, with 16-byte cp.async (4-byte at its unaligned ends), and its
+//   rows sit at the stride d (two-way bank conflicts at d = 2 mod 4);
+//   otherwise with 4-byte cp.async, a warp per row, at the odd stride
+//   d | 1.  The 4-byte copies
+//   go through L1, which holds few of them in flight once shared memory
+//   takes nearly all of the SM's 256 KB; the 16-byte copies bypass L1, and
+//   ran markedly faster at (463,715, 90).
+// - Each thread scans two rows (rows / 2 apart) at once, so every center
+//   value it loads feeds both; 128 / (rows / 2) runs of threads share a
+//   tile's rows, each run scanning a contiguous run of 8-center blocks (at
+//   (10, 90), 128-row tiles: two runs, one block of 8 and one of 2; the
+//   shorter block costs only its real centers).  From 64 rows up a run is
+//   whole warps, so every read of C is a broadcast; shorter tiles (only at
+//   large k d) put several runs in a warp, whose reads of C then differ.
+//   The runs' (min, argmin) are combined last to first through two per-row
+//   arrays: a later run wins only with a strictly smaller value, the
+//   sequential scan's answer.
+// The fast kernel runs where the earlier one-tile kernel's layout fitted,
+// its tiles going down to 8 rows so that one always fits there; elsewhere
+// kmeans_assign_global_kernel runs (past that line the short tiles that
+// still fit keep few threads busy, and ran slower than it).  fp32 with explicit fmaf, no tensor cores and no TF32.  The real d
+// and k are kept: there is no padding to 128 lanes, which is a TPU layout.
 #include "kmeans_common.cuh"
 
 namespace {
 
-__global__ void kmeans_assign_kernel(const float* __restrict__ X,
-                                     const float* __restrict__ C,
-                                     int* __restrict__ assign,
-                                     float* __restrict__ d2, long long n, int d,
-                                     int k, int rows, long long x_bstride,
-                                     long long c_bstride) {
-  extern __shared__ float4 smem4[];
+constexpr int kFastThreads = 128;   // the fast kernel's CTA
+constexpr int kFastWarps = kFastThreads / 32;
+constexpr int kFastRpt = 2;         // rows a thread scans at once
+// CTAs an SM must be able to hold: the registers are capped so
+constexpr int kFastMinCtas = 4;
+
+// Floats of one tile buffer of the fast kernel: `rows` rows at the odd
+// stride d | 1, and 4 floats of slack for a dense tile's alignment shift,
+// rounded up to whole 16-byte units.
+__host__ __device__ inline int fast_buffer_floats(int d, int rows) {
+  return (rows * kmeans::row_stride(d) + 4 + 3) / 4 * 4;
+}
+// Floats of the fast kernel's layout: CT, cn, the runs' per-row (min,
+// argmin), and the tile buffer (kernels/kmeans_assign.py::assign_bytes).
+__host__ __device__ inline long long fast_floats(int d, int k, int rows) {
   const int kp = kmeans::padded_k(k);
-  float* CT = reinterpret_cast<float*>(smem4);
-  float* cn = CT + (size_t)d * kp;
-  float* xs = cn + kp;
-  const long long b = blockIdx.y;
-  const long long r0 = (long long)blockIdx.x * rows;
-  const int nr = (int)min((long long)rows, n - r0);
-
-  kmeans::load_tile(X + b * x_bstride + r0 * d, xs, nr, d);
-  kmeans::load_centers(C + b * c_bstride, CT, cn, d, k);   // ends in a barrier
-
-  const int r = threadIdx.x;
-  if (r >= nr) return;
-  int a;
-  float dd;
-  kmeans::assign_row(xs + r * kmeans::row_stride(d), CT, cn, d, k, &a, &dd);
-  assign[b * n + r0 + r] = a;
-  d2[b * n + r0 + r] = dd;
+  return (long long)d * kp + kp + 2LL * rows + fast_buffer_floats(d, rows);
 }
 
-// The global variant, for (k, d) whose layout does not fit in shared memory:
-// one row per thread, the row and C read through the caches
-// (kmeans::assign_row_global, assign_row's arithmetic in its order).
+// The scan of R staged rows xr[q] over the W centers from l0 (a block of 8,
+// or the last, shorter one, which costs only its W centers): assign_row's
+// arithmetic (each t and x2 an fmaf chain over j = 0..d-1; x2 is recomputed
+// per block, the same chain each time), folded into (best[q], arg[q]) with
+// assign_row's rule: center 0 always, then strictly smaller values only.
+// Each center value loaded feeds the R rows.
+template <int W, int R>
+__device__ __forceinline__ void scan_rows(const float* const* xr,
+                                          const float* CT, const float* cn,
+                                          int d, int kp, int l0,
+                                          float (&best)[R], int (&arg)[R]) {
+  float t[R][W], x2[R];
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    x2[q] = 0.f;
+#pragma unroll
+    for (int i = 0; i < W; ++i) t[q][i] = 0.f;
+  }
+#pragma unroll 2
+  for (int j = 0; j < d; ++j) {
+    const float* cj = CT + j * kp + l0;
+    float c[8];
+    if constexpr (W <= 2) {
+      const float2 v = *reinterpret_cast<const float2*>(cj);
+      c[0] = v.x;
+      c[1] = v.y;
+    } else {
+      const float4 v = *reinterpret_cast<const float4*>(cj);
+      c[0] = v.x;
+      c[1] = v.y;
+      c[2] = v.z;
+      c[3] = v.w;
+      if constexpr (W > 4) {
+        const float4 u = *reinterpret_cast<const float4*>(cj + 4);
+        c[4] = u.x;
+        c[5] = u.y;
+        c[6] = u.z;
+        c[7] = u.w;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const float xj = xr[q][j];
+      x2[q] = fmaf(xj, xj, x2[q]);
+#pragma unroll
+      for (int i = 0; i < W; ++i) t[q][i] = fmaf(xj, c[i], t[q][i]);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < R; ++q)
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      const int l = l0 + i;
+      // 2 t is exact, so contracting this into an fma changes no bit
+      const float dl = (x2[q] + cn[l]) - 2.0f * t[q][i];
+      if (l == 0 || dl < best[q]) {
+        best[q] = dl;
+        arg[q] = l;
+      }
+    }
+}
+
+// scan_rows over the center blocks [blo, bhi) in order.
+template <int R>
+__device__ __forceinline__ void scan_run(const float* const* xr,
+                                         const float* CT, const float* cn,
+                                         int d, int k, int blo, int bhi,
+                                         float (&best)[R], int (&arg)[R]) {
+  const int kp = kmeans::padded_k(k);
+  for (int bl = blo; bl < bhi; ++bl) {
+    const int l0 = bl * kmeans::kL;
+    switch (min(kmeans::kL, k - l0)) {
+      case 1: scan_rows<1, R>(xr, CT, cn, d, kp, l0, best, arg); break;
+      case 2: scan_rows<2, R>(xr, CT, cn, d, kp, l0, best, arg); break;
+      case 3: scan_rows<3, R>(xr, CT, cn, d, kp, l0, best, arg); break;
+      case 4: scan_rows<4, R>(xr, CT, cn, d, kp, l0, best, arg); break;
+      case 5: scan_rows<5, R>(xr, CT, cn, d, kp, l0, best, arg); break;
+      case 6: scan_rows<6, R>(xr, CT, cn, d, kp, l0, best, arg); break;
+      case 7: scan_rows<7, R>(xr, CT, cn, d, kp, l0, best, arg); break;
+      default: scan_rows<8, R>(xr, CT, cn, d, kp, l0, best, arg); break;
+    }
+  }
+}
+
+// Stage C (k, d) transposed and zero-padded into CT, and ||c||^2 into cn:
+// threads [0, kp) each run one center's fmaf chain over j = 0..d-1 (from C
+// in global memory, the same values as CT), then every thread joins the
+// transpose, a warp per center and a lane per column.  Ends in a barrier.
+__device__ inline void stage_centers(const float* __restrict__ C, float* CT,
+                                     float* cn, int d, int k) {
+  const int kp = kmeans::padded_k(k);
+  for (int l = threadIdx.x; l < kp; l += blockDim.x) {
+    float s = 0.f;
+    if (l < k) {
+      const float* cl = C + (long long)l * d;
+#pragma unroll 8
+      for (int j = 0; j < d; ++j) s = fmaf(cl[j], cl[j], s);
+    }
+    cn[l] = s;
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  for (int l = warp; l < kp; l += nwarps)
+    for (int j = lane; j < d; j += 32)
+      CT[j * kp + l] = l < k ? C[(long long)l * d + j] : 0.f;
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kFastThreads, kFastMinCtas)
+    kmeans_assign_fast_kernel(const float* __restrict__ X,
+                              const float* __restrict__ C,
+                              int* __restrict__ assign, float* __restrict__ d2,
+                              long long n, int d, int k, int rows,
+                              long long x_bstride, long long c_bstride) {
+  extern __shared__ float4 smem4[];
+  const int kp = kmeans::padded_k(k);
+  const int ld = kmeans::row_stride(d);
+  float* CT = reinterpret_cast<float*>(smem4);
+  float* cn = CT + (size_t)d * kp;
+  float* sbest = cn + kp;                                // [rows] a run's min
+  int* sarg = reinterpret_cast<int*>(sbest + rows);      // [rows] its argmin
+  float* buf = reinterpret_cast<float*>(sarg + rows);    // the tile buffer
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long b = blockIdx.y;
+  const float* Xb = X + b * x_bstride;
+  int* ab = assign + b * n;
+  float* db = d2 + b * n;
+  // this CTA's tiles: blockIdx.x, blockIdx.x + gridDim.x, ...
+  const long long tiles = (n + rows - 1) / rows;
+  const long long first = blockIdx.x, stride = gridDim.x;
+  const long long mine = first < tiles ? (tiles - 1 - first) / stride + 1 : 0;
+
+  // where tile t's row 0 lands in the buffer: a dense tile keeps its
+  // source's offset modulo 16 bytes, so its 16-byte copies line up
+  const bool dense = d % 4 != 0;
+  const int lds = dense ? d : ld;
+  auto tile_at = [&](long long t) -> float* {
+    if (!dense) return buf;
+    const float* src = Xb + (first + t * stride) * rows * d;
+    return buf + (int)((reinterpret_cast<unsigned long long>(src) >> 2) & 3);
+  };
+  // stage this CTA's tile t into the buffer and wait for it
+  auto stage = [&](long long t) {
+    const long long r0 = (first + t * stride) * rows;
+    const int nr = (int)min((long long)rows, n - r0);
+    const float* src = Xb + r0 * d;
+    float* dst = tile_at(t);
+    if (dense) {
+      cp_async_run(dst, src, nr * d, threadIdx.x, kFastThreads);
+    } else {
+      for (int r = warp; r < nr; r += kFastWarps)
+        for (int c = lane; c < d; c += 32)
+          cp_async4(dst + r * ld + c, src + (long long)r * d + c);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+  };
+
+  stage_centers(C + b * c_bstride, CT, cn, d, k);   // ends in a barrier
+
+  // thread (i, h) scans run h, center blocks [blo, bhi), of the tile's
+  // rows i + q span, q < kFastRpt
+  const int span = rows / kFastRpt;
+  const int runs = kFastThreads / span;
+  const int h = threadIdx.x / span, i = threadIdx.x - h * span;
+  const int nb = kp / kmeans::kL;
+  const int per = (nb + runs - 1) / runs;
+  const int blo = min(nb, h * per), bhi = min(nb, blo + per);
+
+  for (long long t = 0; t < mine; ++t) {
+    if (t > 0) __syncthreads();   // every thread is done with the buffer
+    stage(t);
+    __syncthreads();   // tile t has landed for every thread
+    const long long r0 = (first + t * stride) * rows;
+    const int nr = (int)min((long long)rows, n - r0);
+    const float* xs = tile_at(t);
+
+    float best[kFastRpt];
+    int arg[kFastRpt];
+    const float* xr[kFastRpt];
+#pragma unroll
+    for (int q = 0; q < kFastRpt; ++q) {
+      best[q] = __int_as_float(0x7f800000);   // +inf: an empty run
+      arg[q] = -1;
+      // a row past nr scans row 0 of the tile, and is not written
+      xr[q] = xs + (i + q * span < nr ? i + q * span : 0) * lds;
+    }
+    scan_run<kFastRpt>(xr, CT, cn, d, k, blo, bhi, best, arg);
+    // combine the runs, last to first; run 0 writes the rows' results
+    for (int g = runs - 1; g >= 0; --g) {
+      if (h == g) {
+#pragma unroll
+        for (int q = 0; q < kFastRpt; ++q) {
+          const int r = i + q * span;
+          if (r >= nr) continue;
+          if (g < runs - 1) {
+            const float bl = sbest[r];
+            const int al = sarg[r];
+            if (al >= 0 && bl < best[q]) {
+              best[q] = bl;
+              arg[q] = al;
+            }
+          }
+          if (g > 0) {
+            sbest[r] = best[q];
+            sarg[r] = arg[q];
+          } else {
+            ab[r0 + r] = arg[q];
+            db[r0 + r] = fmaxf(best[q], 0.f);
+          }
+        }
+      }
+      if (g > 0) __syncthreads();
+    }
+  }
+}
+
+// The global variant, for (k, d) whose layout does not fit in shared memory,
+// and the fast kernel's bit oracle: one row per thread, the row and C read
+// through the caches (kmeans::assign_row_global, assign_row's arithmetic in
+// its order).
 __global__ void kmeans_assign_global_kernel(const float* __restrict__ X,
                                             const float* __restrict__ C,
                                             int* __restrict__ assign,
@@ -77,33 +320,40 @@ __global__ void kmeans_assign_global_kernel(const float* __restrict__ X,
 }  // namespace
 
 // X: B (or 1, with x_bstride 0) blocks of (n, d) fp32, row-major; C: B (or
-// 1, with c_bstride 0) blocks of (k, d); assign, d2: (B, n).  `rows` is the
-// tile height the wrapper chose so that the layout fits in shared memory, or
-// 0 for the global variant.
+// 1, with c_bstride 0) blocks of (k, d); assign, d2: (B, n).  `rows` (even,
+// with rows / 2 dividing 128) is the tile height the wrapper chose so that
+// the layout fits in shared memory; rows = 0 runs the global variant.
 REPRO_API int repro_kmeans_assign(const float* X, const float* C, int* assign,
                                   float* d2, int B, long long n, int d, int k,
                                   int rows, long long x_bstride,
                                   long long c_bstride, void* stream) {
-  if (B < 1 || B > 65535 || n < 1 || d < 1 || k < 1 || rows < 0 ||
-      rows > kmeans::kThreads)
+  if (B < 1 || B > 65535 || n < 1 || d < 1 || k < 1 || rows < 0)
     return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (rows == 0) {
     const long long blocks = (n + kmeans::kThreads - 1) / kmeans::kThreads;
     if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
     kmeans_assign_global_kernel<<<dim3((unsigned)blocks, (unsigned)B),
-                                  kmeans::kThreads, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
+                                  kmeans::kThreads, 0, st>>>(
         X, C, assign, d2, n, d, k, x_bstride, c_bstride);
     return (int)cudaGetLastError();
   }
-  const size_t bytes = (size_t)kmeans::common_floats(d, k, rows) * sizeof(float);
-  cudaError_t e = repro_set_smem(kmeans_assign_kernel, bytes);
+  if (rows % kFastRpt != 0 || kFastThreads % (rows / kFastRpt) != 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t bytes = (size_t)fast_floats(d, k, rows) * sizeof(float);
+  cudaError_t e = repro_set_smem(kmeans_assign_fast_kernel, bytes);
   if (e != cudaSuccess) return (int)e;
-  const long long tiles = (n + rows - 1) / rows;
-  if (tiles > 2147483647LL) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)tiles, (unsigned)B);
-  kmeans_assign_kernel<<<grid, kmeans::kThreads, bytes,
-                         static_cast<cudaStream_t>(stream)>>>(
-      X, C, assign, d2, n, d, k, rows, x_bstride, c_bstride);
+  // all of the SM's shared memory, so it holds as many CTAs as it can
+  e = cudaFuncSetAttribute(kmeans_assign_fast_kernel,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return (int)e;
+  unsigned ctas = 0;
+  e = repro_persistent_ctas(kmeans_assign_fast_kernel, kFastThreads, bytes,
+                            (n + rows - 1) / rows, B, &ctas);
+  if (e != cudaSuccess) return (int)e;
+  kmeans_assign_fast_kernel<<<dim3(ctas, (unsigned)B), kFastThreads, bytes,
+                              st>>>(X, C, assign, d2, n, d, k, rows, x_bstride,
+                                    c_bstride);
   return (int)cudaGetLastError();
 }

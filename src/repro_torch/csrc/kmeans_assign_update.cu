@@ -92,19 +92,6 @@ constexpr int kChunks = 4;      // 32-column chunks of a fold task
 // Floats of a staged row: x, w and d2, rounded up to an odd count.
 __host__ __device__ inline int kau_row_stride(int d) { return (d + 2) | 1; }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-// wait until at most N of this thread's groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Entry e of a CTA's (k d + 2 k) partial sums, `s` so far, plus the tile's
 // nr rows of its cluster in row order: entries [0, kd) are csum[l][j] (x
 // row i at xt[i * ld + j]), [kd, kd + k) wsum[l], then ccost[l].  The tile's

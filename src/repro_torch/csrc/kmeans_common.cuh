@@ -1,37 +1,41 @@
 // Distance, argmin and shared-memory staging that the two k-means kernels
 // (kmeans_assign.cu, kmeans_assign_update.cu) share.
 //
-// Shared-memory layout of a CTA, in floats, from the start of the dynamic
-// buffer:
+// The bits, which the kernels' comments call assign_row's arithmetic.  The
+// distance of a row x to center l is
+//   dl = (x2 + cn[l]) - 2 t_l,
+// where x2 = ||x||^2, cn[l] = ||c_l||^2 and t_l = x.c_l are each one fmaf
+// chain over j = 0..d-1; the assignment is the first index of the smallest
+// UNCLAMPED dl (the Pallas kernels' order; a strict < keeps the first index
+// on ties, as jnp.argmin does), and d2 is that minimum clamped at 0.  The
+// fast kernels' scans (kmeans_assign_update.cu's scan_blocks,
+// kmeans_assign.cu's scan_run, over runs of 8-center blocks combined in
+// order) and assign_row_global (the global variants, with C in global
+// memory) compute these bits.
+//
+// A fast kernel's CTA keeps, from the start of its dynamic shared memory:
 //   CT  [d][kp]    the centers transposed, CT[j][l] = C[l][j], zero for
 //                  l >= k (kp = k rounded up to a multiple of 8, so the
 //                  distance loop takes eight centers per two 128-bit loads)
 //   cn  [kp]       ||c_l||^2, summed in column order j = 0..d-1
-//   xs  [rows][ld] a tile of rows of X, ld = d rounded up to an odd number,
-//                  so that thread r reading row r hits distinct banks
-// The kernels put their own arrays after these.  The Python wrappers
-// (kernels/kmeans_assign*.py) compute the same byte counts to decide the
-// tile height; where even the shortest tile does not fit (k d past about
-// 27,000 floats at d = 64, or d past about 1,400 whatever k), they ask for the
-// kernel's global variant, which keeps nothing of C in shared memory.
+// and puts its own arrays and its row tiles after these.  The Python
+// wrappers (kernels/kmeans_assign*.py) compute the same byte counts to plan
+// the tile height (and K2's ring depth); where even the shortest tile does
+// not fit (K2: k d past about 27,000 floats at d = 64, or d past about
+// 1,400 whatever k; K4: k past 856 at d = 64, the earlier one-tile
+// layout's line), they ask for the kernel's global variant, which keeps
+// nothing of C in shared memory.
 #pragma once
 
 #include "common.cuh"
 
 namespace kmeans {
 
-constexpr int kThreads = 128;   // threads per CTA; at most one row each
+constexpr int kThreads = 128;   // threads per CTA of the global variants
 constexpr int kL = 8;           // centers per register block
 
 __host__ __device__ inline int padded_k(int k) { return (k + kL - 1) / kL * kL; }
 __host__ __device__ inline int row_stride(int d) { return d | 1; }
-
-// Floats of the common part of the layout (CT, cn, xs) for a tile of
-// `rows` rows.
-__host__ __device__ inline long long common_floats(int d, int k, int rows) {
-  const int kp = padded_k(k);
-  return (long long)d * kp + kp + (long long)rows * row_stride(d);
-}
 
 // Stage C (k, d) transposed and zero-padded into CT, then ||c||^2 into cn.
 // Every thread of the CTA calls it; it ends with a barrier.
@@ -56,71 +60,12 @@ __device__ inline void load_centers(const float* __restrict__ C, float* CT,
   __syncthreads();
 }
 
-// Copy rows [0, nr) of a row-major (., d) block into xs at row stride ld,
-// with consecutive threads on consecutive addresses.  No barrier.
-__device__ inline void load_tile(const float* __restrict__ src, float* xs,
-                                 int nr, int d) {
-  const int ld = row_stride(d);
-  for (int i = threadIdx.x; i < nr * d; i += blockDim.x) {
-    const int r = i / d, c = i - r * d;
-    xs[r * ld + c] = src[i];
-  }
-}
-
-// The assignment of one row xr (d floats in shared memory): the first index
-// of the smallest d2_l = (||x||^2 + ||c_l||^2) - 2 x.c_l, the TPU kernel's
-// order, and that minimum clamped at 0.  The argmin is taken over the
-// UNCLAMPED distances, as the Pallas kernels do; a strict < keeps the first
-// index on ties, as jnp.argmin does.  All sums are fp32 fmaf chains over
-// j = 0..d-1.
-__device__ inline void assign_row(const float* xr, const float* CT,
-                                  const float* cn, int d, int k, int* arg_out,
-                                  float* d2_out) {
-  const int kp = padded_k(k);
-  float x2 = 0.f;
-  for (int j = 0; j < d; ++j) x2 = fmaf(xr[j], xr[j], x2);
-  float best = 0.f;
-  int arg = 0;
-  for (int l0 = 0; l0 < kp; l0 += kL) {
-    float t[kL];
-#pragma unroll
-    for (int i = 0; i < kL; ++i) t[i] = 0.f;
-    for (int j = 0; j < d; ++j) {
-      const float xj = xr[j];
-      const float4 c0 = *reinterpret_cast<const float4*>(CT + j * kp + l0);
-      const float4 c1 = *reinterpret_cast<const float4*>(CT + j * kp + l0 + 4);
-      t[0] = fmaf(xj, c0.x, t[0]);
-      t[1] = fmaf(xj, c0.y, t[1]);
-      t[2] = fmaf(xj, c0.z, t[2]);
-      t[3] = fmaf(xj, c0.w, t[3]);
-      t[4] = fmaf(xj, c1.x, t[4]);
-      t[5] = fmaf(xj, c1.y, t[5]);
-      t[6] = fmaf(xj, c1.z, t[6]);
-      t[7] = fmaf(xj, c1.w, t[7]);
-    }
-#pragma unroll
-    for (int i = 0; i < kL; ++i) {
-      const int l = l0 + i;
-      if (l < k) {
-        // 2 t is exact, so contracting this into an fma changes no bit
-        const float dl = (x2 + cn[l]) - 2.0f * t[i];
-        if (l == 0 || dl < best) {
-          best = dl;
-          arg = l;
-        }
-      }
-    }
-  }
-  *arg_out = arg;
-  *d2_out = fmaxf(best, 0.f);
-}
-
-// assign_row for the global variants, whose layout does not fit in shared
-// memory: the row xr and C (k, d), row-major, are read from global memory
-// (through L1 and L2), and ||c_l||^2 is summed beside x.c_l in the same pass.
-// Every sum is assign_row's fmaf chain over j = 0..d-1, the centers are taken
-// in ascending order, 8 at a time, and the min and argmin rule is the same,
-// so the result is assign_row's bit for bit.
+// The assignment of one row for the global variants, whose layout does not
+// fit in shared memory: the row xr and C (k, d), row-major, are read from
+// global memory (through L1 and L2), and ||c_l||^2 is summed beside x.c_l in
+// the same pass.  Every sum is the fmaf chain over j = 0..d-1 above, the
+// centers are taken in ascending order, 8 at a time, with the min and
+// argmin rule above.
 __device__ inline void assign_row_global(const float* __restrict__ xr,
                                          const float* __restrict__ C, int d,
                                          int k, int* arg_out, float* d2_out) {

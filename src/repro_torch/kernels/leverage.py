@@ -6,9 +6,20 @@ kernel for CUDA tensors and takes the plain PyTorch version
 (:data:`plain`) for CPU tensors; there is no fallback on the card.
 ``leverage.launches`` counts kernel launches.
 
-Two kernels compute the same function in the same order: one keeps M
-whole in shared memory (s up to :data:`SHARED_M_WIDTH`), the wide one
-reads it through the caches; the wrapper picks by s.
+Three kernels compute the same function with the same arithmetic in the
+same order (``csrc/leverage.cu``'s bit contract), picked by s:
+
+- s up to 32 and not a multiple of 8 (the main path's parties, s = 31):
+  persistent CTAs, as many per party as the card holds at once over the
+  parties (the launcher asks CUDA's occupancy calculator), each staging M
+  once and walking its party's tiles of 256 rows through a ring of two,
+  copied with 16-byte ``cp.async``; every thread keeps the sums of M x
+  for two rows in registers;
+- other s up to :data:`SHARED_M_WIDTH`: M whole in shared memory, one CTA
+  per 128-row tile;
+- wider: the wide kernel, which reads M through the caches.  It runs at
+  any s and is the oracle the card's checks hold the other two to, bit for
+  bit (:func:`_launch` with ``wide=True``).
 """
 
 from __future__ import annotations
@@ -24,9 +35,9 @@ from repro_torch.kernels._build import (MAX_SMEM_BYTES, batch_shape, check,
 #: The plain PyTorch version of the kernel (the CPU path and the oracle).
 plain = ref.leverage
 
-#: Widest party whose (s, s) fp32 M the first kernel keeps whole in a
-#: block's 227 KB of shared memory (238^2 * 4 = 226,576 bytes).  Wider
-#: parties take the wide kernel, which reads M through L1 and L2.
+#: Widest party whose (s, s) fp32 M the shared-memory kernels keep whole in
+#: a block's 227 KB (238^2 * 4 = 226,576 bytes).  Wider parties take the
+#: wide kernel, which reads M through L1 and L2.
 SHARED_M_WIDTH = 238
 #: Shared memory the wide kernel's X tile may take (the static 48 KB, no
 #: opt-in).
@@ -54,13 +65,21 @@ def leverage(X: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
     dev = launch_device(X, M)
     if dev.type == "cpu":
         return plain(X, M)
+    return _launch(X, M)
+
+
+def _launch(X: torch.Tensor, M: torch.Tensor, wide: bool = False) -> torch.Tensor:
+    """The launch on the card: the kernel for s (see the module's
+    docstring), or with ``wide`` the wide kernel at any s (the bit oracle of
+    the card's checks; not a user's switch)."""
+    dev = launch_device(X, M)
     if X.ndim < 2 or M.ndim < 2:
         raise ValueError(f"leverage takes X (..., n, s), M (..., s, s); got "
                          f"{tuple(X.shape)}, {tuple(M.shape)}")
     n, s = X.shape[-2:]
     if M.shape[-2:] != (s, s):
         raise ValueError(f"M must be ({s}, {s}) to match X, got {tuple(M.shape)}")
-    rows = 0 if s <= SHARED_M_WIDTH else wide_rows(s)
+    rows = wide_rows(s) if wide or s > SHARED_M_WIDTH else 0
     batch, xb, mb = batch_shape(X.shape[:-2], M.shape[:-2], "leverage")
     B = math.prod(batch)
     out = torch.empty(batch + (n,), dtype=torch.float32, device=dev)

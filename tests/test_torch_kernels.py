@@ -248,6 +248,40 @@ def test_kmeans_assign_update_layout_planner():
                 assert kkau.layout(k, d)[0] != kka.GLOBAL
 
 
+@pytest.mark.parametrize("k,d,rows", [
+    (10, 90, 128), (10, 30, 128), (425, 64, 128), (856, 64, 32),
+    (19_336, 2, 16), (29_040, 1, 8), (857, 64, kka.GLOBAL),
+    (2000, 64, kka.GLOBAL), (1, 2048, kka.GLOBAL), (10, 2048, kka.GLOBAL),
+    (19_344, 2, kka.GLOBAL), (29_048, 1, kka.GLOBAL)])
+def test_kmeans_assign_layout_planner(k, d, rows):
+    """K4's fast kernel takes the tallest tile of ASSIGN_TILE_ROWS whose
+    layout fits in a block's shared memory: 128 rows at the main-path
+    shapes and at (425, 64), shorter tiles down to 8 rows at the largest k
+    of the earlier one-tile layout, and the global variant past that
+    layout's line (at d = 2048 too, where 8 or 16 rows would fit)."""
+    assert kka.assign_layout(k, d) == rows
+    if rows != kka.GLOBAL:
+        assert kka.assign_bytes(k, d, rows) <= kka.MAX_SMEM_BYTES
+        taller = [r for r in kka.ASSIGN_TILE_ROWS if r > rows]
+        assert all(kka.assign_bytes(k, d, r) > kka.MAX_SMEM_BYTES for r in taller)
+    else:
+        assert kka.tile_rows(k, d) == kka.GLOBAL
+
+
+def test_kmeans_assign_layout_keeps_capacity():
+    """K4's layout: its bytes at (10, 90), tiles the kernel takes (even,
+    half of one dividing its 128 threads), and a shared-memory layout
+    exactly where the one-tile layout of the earlier kernel fitted."""
+    assert kka.assign_bytes(10, 90, 128) == 4 * (90 * 16 + 16 + 2 * 128 + 128 * 91 + 4)
+    assert all(r % 2 == 0 and 128 % (r // 2) == 0 for r in kka.ASSIGN_TILE_ROWS)
+    for k in (1, 2, 9, 10, 33, 200, 424, 425, 600, 857, 2000):
+        for d in (1, 2, 5, 30, 64, 90, 127, 300, 1000, 1400, 2048):
+            rows = kka.assign_layout(k, d)
+            assert (rows == kka.GLOBAL) == (kka.tile_rows(k, d) == kka.GLOBAL)
+            if rows != kka.GLOBAL:
+                assert kka.assign_bytes(k, d, rows) <= kka.MAX_SMEM_BYTES
+
+
 def test_row_split_is_a_function_of_n():
     assert kkau.row_split(1) == (kkau.MIN_ROWS, 1)
     assert kkau.row_split(5000) == (256, 20)
@@ -384,6 +418,59 @@ def test_kmeans_assign_update_equals_its_global_variant(xb, cb, wk, n, k, d):
         assert torch.equal(a, c)
     if wk == "one":
         assert bool((got[0] == 3).all())
+
+
+#: K4's edges beyond KMEANS_CASES: a short last tile over many CTAs, fewer
+#: rows than a tile, k = 9 (a last block of one center), batch on C only,
+#: and each shorter tile (32, 16 and 8 rows).
+K4_EDGES = [((), (), None, 100_003, 10, 90), ((), (), None, 7, 9, 90),
+            ((3,), (), None, 129, 9, 1), ((), (2,), None, 1000, 10, 90),
+            ((), (), None, 300, 856, 64), ((), (), None, 300, 19_336, 2),
+            ((), (), None, 300, 29_040, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("xb,cb,wk,n,k,d", KMEANS_CASES + K4_EDGES)
+def test_kmeans_assign_equals_its_global_variant(xb, cb, wk, n, k, d):
+    """K4's fast kernel gives the global variant's assign and d2 bit for
+    bit (kmeans_common.cuh's bit contract), and two launches agree."""
+    dev = _cuda()
+    X, C, _ = _kmeans_inputs(n * 7 + k + d, xb, cb, wk, n, k, d)
+    Xt, Ct = torch.from_numpy(X).to(dev), torch.from_numpy(C).to(dev)
+    assert kka.assign_layout(k, d) != kka.GLOBAL
+    got = kka.kmeans_assign(Xt, Ct)
+    again = kka.kmeans_assign(Xt, Ct)
+    oracle = kka._launch(Xt, Ct, global_variant=True)
+    for a, b, c in zip(got, again, oracle):
+        assert torch.equal(a, b)
+        assert torch.equal(a, c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("xb,mb,n,d,zero", [c + (None,) for c in LEV_CASES] + [
+    ((3,), (3,), 100_003, 31, None), ((), (), 300, 1, None),
+    ((2,), (), 1000, 8, None), ((), (2,), 2049, 24, None),
+    ((3,), (3,), 4097, 32, None), ((), (), 300, 33, None),
+    ((3,), (), 1001, 30, None), ((), (3,), 1001, 28, None),
+    ((), (), 513, 238, None), ((3,), (3,), 1001, 31, "row"),
+    ((3,), (3,), 1001, 31, "M")])
+def test_leverage_equals_its_wide_variant(xb, mb, n, d, zero):
+    """K1's kernel for each width (the register kernel to s = 31, M in
+    shared memory at s = 8, 24, 32, 33 and up to 238) gives the wide
+    kernel's output bit for bit, also for an all-zero row and an all-zero M,
+    and two launches agree."""
+    dev = _cuda()
+    X, M = _lev_inputs(n + d, xb, mb, n, d)
+    if zero == "row":
+        X[..., n // 2, :] = 0.0
+    if zero == "M":
+        M[...] = 0.0
+    Xt, Mt = torch.from_numpy(X).to(dev), torch.from_numpy(M).to(dev)
+    got = klev.leverage(Xt, Mt)
+    again = klev.leverage(Xt, Mt)
+    oracle = klev._launch(Xt, Mt, wide=True)
+    assert torch.equal(got, again)
+    assert torch.equal(got, oracle)
 
 
 @pytest.mark.gpu
