@@ -40,7 +40,21 @@ and never JAX or the JAX package ``repro``.  Phases, each fatal on failure:
    per-party score sum, the identity coreset at relative error 0 and a
    finite relative error under the gate; the build split into k-means++,
    Lloyd, scoring, DIS draw and health report; then the card against the
-   CPU plain path on a small input.
+   CPU plain path on a small input;
+6. solver grid (the paper's Table 1 left and Figs 6-8): ``solve`` for
+   ridge, linear, lasso and elastic net and ``saga_ridge`` (20,000 steps,
+   automatic step size) on phase 4's data, its vrlr coreset at m = 5000
+   and a uniform coreset at m = 5000, with each solver's time, each
+   sampling's relative error, the exact SAGA bill and K3 launched twice
+   per sampling;
+7. batched engine: ``build_coresets_batched`` for ``vrlr`` (2 seeds x
+   m in {1000, 5000} at full scale, K1 launched once for the grid) and
+   ``vkmc`` (2 seeds x m in {200, 500} at n = 20,001, K2 16 times a
+   seed, first checked at the grid's shape against its plain version and
+   its global variant), each cell at m = m_cap equal to its eager build
+   bit for bit (the vrlr grid's seed 0 is phase 4's key, held to phase
+   4's build), the m < m_cap cells a prefix with a zero tail, every bill
+   exact.
 
 Every path is driven with all four launch counters set to 0 just before
 it and read just after.
@@ -88,6 +102,7 @@ GRAM_TOL = 1e-5            # max|k - p| / max(|X|^T |w| |X|)
 KMEANS_D2_TOL = 1e-5
 KMEANS_SUM_TOL = 1e-4
 K_CLUSTERS, ALPHA, LOCAL_ITERS, FIT_ITERS = 10, 2.0, 15, 25   # Table 1 right
+SAGA_STEPS = 20_000      # benchmarks/vrlr_main.py's fast setting
 
 
 def fail(msg: str) -> None:
@@ -362,8 +377,9 @@ def main() -> None:
     from repro_torch import rng
     from repro_torch.core import (
         CommLedger, CommSchedule, CoresetPipeline, CoresetSpec, VFLDataset,
-        end_to_end, evaluate, fit_kmeans, fit_ridge, full_data_coreset,
-        kmeans_plusplus, lloyd)
+        build_coreset, build_coresets_batched, elastic_cost, end_to_end,
+        evaluate, fit_kmeans, fit_ridge, full_data_coreset, kmeans_plusplus,
+        lasso_cost, lloyd, ridge_cost, saga_ridge, solve, sq_loss)
     from repro_torch.core.api import vkmc_scores, vrlr_scores
     from repro_torch.core.dis import dis_plan_full
     from repro_torch.core.integrity import health_from_masses
@@ -979,7 +995,152 @@ def main() -> None:
     if cs_g.comm_units != cs_c.comm_units:
         fail("small input: vkmc bills differ on the card and the CPU")
 
-    # ---- 6. records -----------------------------------------------------------
+    # ---- 6. the solver grid: paper Table 1 left and Figs 6-8 -----------------
+    # benchmarks/common.py's lambdas at the full n, on three samplings of the
+    # phase 4 data: all rows, phase 4's vrlr coreset at m = 5000 (its key)
+    # and a uniform coreset; each solver's rel_error is the full-data
+    # objective at the sampled theta over the same at the full-data theta,
+    # minus 1
+    m = BUDGETS[-1]
+    lam1, lam2 = 2.0 * N_FULL, 1.0 * N_FULL
+    y_full = ds.y
+    objectives = {
+        "ridge": lambda th: ridge_cost(X_full, y_full, th, lam),
+        "linear": lambda th: sq_loss(X_full, y_full, th),
+        "lasso": lambda th: lasso_cost(X_full, y_full, th, lam1),
+        "elastic": lambda th: elastic_cost(X_full, y_full, th, lam1, lam2),
+        "saga": lambda th: ridge_cost(X_full, y_full, th, lam),
+    }
+    reset_counts()
+    u_cs = build_coreset("uniform", ds, m, key=rng.fold_in(rng.PRNGKey(args.seed + 200), m))
+    samplings = {"full": (X_full, y_full, None),
+                 "coreset": results[m][0].materialize(ds),
+                 "uniform": u_cs.materialize(ds)}
+    saga_key = rng.fold_in(rng.PRNGKey(args.seed + 300), 1)
+    full_cost = {}
+    for sname, (Xs_, ys_, ws_) in samplings.items():
+        row = []
+        for kind in objectives:
+            led = CommLedger()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "saga":
+                theta = saga_ridge(saga_key, Xs_, ys_, lam, ws_, steps=SAGA_STEPS,
+                                   dims=ds.dims, ledger=led)
+            else:
+                theta = solve(kind, Xs_, ys_, ws_, lam=lam, lam1=lam1, lam2=lam2)
+            torch.cuda.synchronize()
+            solve_s = time.perf_counter() - t0
+            cost = float(objectives[kind](theta))
+            if not (bool(torch.isfinite(theta).all()) and math.isfinite(cost)):
+                fail(f"solver grid: {kind} on {sname}: theta or cost not finite")
+            if sname == "full":
+                full_cost[kind] = cost
+            rel = cost / full_cost[kind] - 1.0
+            name_s = "saga_s" if kind == "saga" else "solve_s"
+            row.append(f"{kind} {name_s}={solve_s:.4f} rel_error={rel:.6g}")
+            if kind == "saga" and (led.total, led.by_tag()) != (
+                    2 * SAGA_STEPS * T_PARTIES,
+                    {"saga/partials": SAGA_STEPS * T_PARTIES,
+                     "saga/residuals": SAGA_STEPS * T_PARTIES}):
+                fail(f"solver grid: saga on {sname} billed {led.by_tag()}, not "
+                     f"2 * {SAGA_STEPS} * {T_PARTIES}")
+            if sname == "coreset" and kind != "saga" and not rel < REL_ERROR_GATE:
+                fail(f"solver grid: {kind} on the coreset: rel_error {rel} >= "
+                     f"{REL_ERROR_GATE}")
+        log(f"solver grid {sname} (m={Xs_.shape[0]}): " + "; ".join(row))
+    counts = read_counts()
+    for nm, c in counts.items():
+        launches[nm] += c
+    want = {"leverage": 0, "weighted_gram": 2 * len(samplings), "kmeans_assign": 0,
+            "kmeans_assign_update": 0}
+    log(f"solver grid launches {counts}")
+    if counts != want:
+        fail(f"solver grid: launches {counts}, counted {want} from the code "
+             f"(K3 for ridge and linear on each sampling)")
+    del samplings, u_cs
+
+    # ---- 7. the batched engine -------------------------------------------------
+    # vrlr: a 2-seed x (1000, 5000) grid at full scale, scored once (its
+    # scores do not depend on the key), each cell drawn at capacity 5000;
+    # seed 0 is phase 4's m = 5000 key, so cell (0, 1) is held to that build
+    gkeys = torch.stack([rng.fold_in(rng.PRNGKey(args.seed), BUDGETS[-1]),
+                         rng.fold_in(rng.PRNGKey(args.seed + 400), BUDGETS[-1])])
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grid = build_coresets_batched("vrlr", ds, BUDGETS, keys=gkeys)
+    torch.cuda.synchronize()
+    grid_s = time.perf_counter() - t0
+    counts = read_counts()
+    for nm, c in counts.items():
+        launches[nm] += c
+    log(f"batched vrlr 2 x {BUDGETS}: grid_s={grid_s:.4f} launches {counts}")
+    if counts != {"leverage": 1, "weighted_gram": 0, "kmeans_assign": 0,
+                  "kmeans_assign_update": 0}:
+        fail(f"batched vrlr: launches {counts}; the grid scores once (one K1)")
+    eager = results[BUDGETS[-1]][0]
+    cell = grid.coreset(0, 1)
+    if not (torch.equal(cell.indices, eager.indices)
+            and torch.equal(cell.weights, eager.weights)):
+        fail("batched vrlr: cell (0, 1) differs from phase 4's build at its key")
+    for r in range(2):
+        for i, mb in enumerate(BUDGETS):
+            if grid.schedule(r, i).total != CommSchedule.dis_total(T_PARTIES, mb):
+                fail(f"batched vrlr: cell ({r}, {i}) billed "
+                     f"{grid.schedule(r, i).total}")
+        m0 = BUDGETS[0]
+        w0, i0 = grid.weights[r, 0], grid.indices[r, 0]
+        if not (bool((w0[:m0] > 0).all()) and not bool(w0[m0:].any())
+                and not bool(i0[m0:].any()) and int(grid.counts[r, 0].sum()) == m0):
+            fail(f"batched vrlr: cell ({r}, 0) is not {m0} real entries and a "
+                 f"zero tail")
+    log(f"batched vrlr: cell (0, 1) equals phase 4's build bit for bit "
+        f"(indices_sha256={digest(cell.indices)}); the m={BUDGETS[0]} cells hold "
+        f"{BUDGETS[0]} real entries and a zero tail; every bill dis_total")
+
+    # vkmc: 2 seeds x (200, 500) on the first N_WIDE rows, scored per seed
+    vk_ms = (200, 500)
+    ds_w = VFLDataset.from_dense(X_np[:N_WIDE], None, T=T_PARTIES)
+    vk_params = {"k": K_CLUSTERS, "alpha": ALPHA, "local_iters": LOCAL_ITERS}
+    # K2 at the grid's shape, (3, N_WIDE, 30) x (3, 10, 30) with w = None,
+    # against its plain version and its global variant (outside the count)
+    bw = ds_w.stacked().blocks
+    Cw = bw[:, torch.randperm(N_WIDE, generator=gen)[:K_CLUSTERS].to(dev), :].contiguous()
+    kau_err = max(kau_err, check_kmeans(torch, kref, "kmeans_assign_update",
+                                        kkau.kmeans_assign_update, kkau.plain,
+                                        bw, Cw, fused=True))
+    check_k2_oracle(torch, kkau, bw, Cw)
+    del bw, Cw
+    gkey = rng.PRNGKey(args.seed + 500)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vgrid = build_coresets_batched("vkmc", ds_w, vk_ms, key=gkey, num_seeds=2,
+                                   **vk_params)
+    torch.cuda.synchronize()
+    vgrid_s = time.perf_counter() - t0
+    counts = read_counts()
+    for nm, c in counts.items():
+        launches[nm] += c
+    log(f"batched vkmc 2 x {vk_ms} at n={N_WIDE}: grid_s={vgrid_s:.4f} "
+        f"launches {counts}")
+    if counts != {"leverage": 0, "weighted_gram": 0, "kmeans_assign": 0,
+                  "kmeans_assign_update": 2 * (LOCAL_ITERS + 1)}:
+        fail(f"batched vkmc: launches {counts}; {LOCAL_ITERS + 1} K2 per seed")
+    for r, k in enumerate(rng.split(gkey, 2)):
+        eager = build_coreset("vkmc", ds_w, vk_ms[-1], key=k, **vk_params)
+        cell = vgrid.coreset(r, 1)
+        if not (torch.equal(cell.indices, eager.indices)
+                and torch.equal(cell.weights, eager.weights)):
+            fail(f"batched vkmc: cell ({r}, 1) differs from build_coreset")
+        for i, mb in enumerate(vk_ms):
+            if vgrid.schedule(r, i).total != CommSchedule.dis_total(T_PARTIES, mb):
+                fail(f"batched vkmc: cell ({r}, {i}) billed {vgrid.schedule(r, i).total}")
+    log(f"batched vkmc: the m={vk_ms[-1]} cells equal build_coreset bit for bit")
+    del grid, vgrid, ds_w
+
+    # ---- 8. records -----------------------------------------------------------
     record = {"kernels": [
         {"name": "leverage", "route": "cuda",
          "source": "src/repro_torch/csrc/leverage.cu",

@@ -1,16 +1,19 @@
-"""The CoresetPipeline API for the ported slice (port of
+"""The CoresetPipeline API for the ported engines (port of
 :mod:`repro.core.api`).
 
-Party-local scores -> DIS sampling -> importance weights, on the
-materialized engine with the DIS rounds recorded on a ledger (the
-reference's ``transport is None`` branch of ``_exec_materialized``):
+Party-local scores -> DIS sampling -> importance weights, on two engines:
+the materialized engine with the DIS rounds recorded on a ledger (the
+reference's ``transport is None`` branch of ``_exec_materialized``), and
+the batched engine over a (seeds x budgets) grid, billed lazily per cell:
 
   * :class:`CoresetTask` + :func:`register_task` — the task registry
     (``CORESET_TASKS``); shipped here: ``vrlr`` (Algorithm 2), ``vkmc``
     (Algorithm 3) and ``uniform`` (the U-* baseline).
   * :class:`CoresetPipeline` — ``build(spec)`` compiles a
     :class:`~repro_torch.core.plan.CoresetSpec` and runs it.
-  * :func:`build_coreset` — the shim over a forced materialized spec.
+  * :func:`build_coreset` — the shim over a forced materialized spec;
+    :func:`build_coresets_batched` — the shim over a batched one, which
+    returns a :class:`BatchedCoresets` grid.
 
 Key choreography matches the reference: the ``vrlr`` score function
 passes its key through untouched; ``vkmc`` splits it once per party (the
@@ -22,7 +25,7 @@ card unless the caller passes ``device="cpu"``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple, Union
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -84,8 +87,7 @@ class CoresetTask:
     ``score_fn is None`` marks the uniform baseline: no scores travel, the
     schedule is broadcast-only.  ``deterministic_scores`` says the scores
     do not depend on the key (``vrlr``); ``vkmc`` draws its local seeds.
-    Nothing in the port reads it yet: it is carried for the batched
-    engine, which scores once for all seeds only when it is true.
+    The batched engine scores once for all seeds only when it is true.
     """
 
     name: str
@@ -193,6 +195,101 @@ def _exec_materialized(
                    health=health_from_masses(scores.cpu().numpy()))
 
 
+@dataclasses.dataclass(frozen=True)
+class BatchedCoresets:
+    """A (num_seeds, num_budgets) grid of coresets from one batched build.
+
+    ``indices``/``weights`` are ``(R, M, m_cap)`` with the valid-prefix
+    convention: cell (r, i) holds ``ms[i]`` real samples; the padded tail
+    has index 0 and weight 0.  ``counts`` carries the realised round-2 a_j
+    per cell, so each cell's exact :class:`CommSchedule` is derived after
+    the fact.
+    """
+
+    indices: torch.Tensor            # (R, M, m_cap) int64
+    weights: torch.Tensor            # (R, M, m_cap) float32
+    counts: Optional[torch.Tensor]   # (R, M, T) int64; None for the uniform task
+    ms: Tuple[int, ...]
+    T: int
+    cells: int                       # round-1 mass-table entries per party (n)
+
+    @property
+    def num_seeds(self) -> int:
+        return int(self.indices.shape[0])
+
+    def schedule(self, seed_idx: int, m_idx: int) -> CommSchedule:
+        m = self.ms[m_idx]
+        if self.counts is None:
+            return CommSchedule.uniform(self.T, m)
+        return CommSchedule.dis(
+            self.T, m, counts=self.counts[seed_idx, m_idx].tolist(),
+            round1_payload=WirePayload.of((self.cells,), "float32", "raw_fp32"),
+        )
+
+    def coreset(self, seed_idx: int, m_idx: int = 0,
+                ledger: Optional[CommLedger] = None) -> Coreset:
+        """Extract cell (seed_idx, m_idx) as a plain :class:`Coreset`."""
+        m = self.ms[m_idx]
+        schedule = self.schedule(seed_idx, m_idx).record(ledger)
+        return Coreset(
+            self.indices[seed_idx, m_idx, :m],
+            self.weights[seed_idx, m_idx, :m],
+            schedule.total,
+            comm_bits=schedule.total_bits,
+        )
+
+
+def _exec_batched(
+    spec: CoresetTask, ds: VFLDataset, ms: Tuple[int, ...], keys: torch.Tensor,
+    backend: str, m_cap: int, params: dict,
+) -> BatchedCoresets:
+    """The batched engine: every (seed, budget) cell of the grid, each a
+    :func:`dis_plan_full` at draw capacity ``m_cap`` (the prefix-masking
+    convention).  A cell at ``m == m_cap`` is exactly the eager
+    :func:`_exec_materialized` result for that key.
+
+    A ``deterministic_scores`` task is scored once for the whole grid, if
+    its score function hands the key back unchanged (the contract that
+    lets every seed sample from the same scores); the cells then share
+    the eager per-party totals.  Any other task is scored once per seed.
+    """
+    if spec.needs_labels and ds.y is None:
+        raise ValueError(f"{spec.name} requires labels at party T")
+    if spec.score_fn is None:
+        cells = [[uniform_plan(k, ds.n, m, m_cap=m_cap) for m in ms] for k in keys]
+        return BatchedCoresets(
+            indices=torch.stack([torch.stack([S for S, _ in row]) for row in cells]),
+            weights=torch.stack([torch.stack([w for _, w in row]) for row in cells]),
+            counts=None, ms=ms, T=ds.T, cells=ds.n)
+
+    hoisted = totals = None
+    if spec.deterministic_scores:
+        sc0, dk0 = spec.score_fn(keys[0], ds, backend=backend, **params)
+        if torch.equal(dk0, keys[0]):
+            hoisted = sc0
+    if hoisted is not None:
+        if not bool(hoisted.sum() > 0):
+            raise ValueError("DIS requires a positive total score")
+        # the eager per-party totals, the reduction the materialized engine
+        # runs, so w = G/(m g) matches its builds bit for bit
+        totals = torch.sum(hoisted.to(torch.float32), dim=1)
+    plans = []
+    for k in keys:
+        if hoisted is None:
+            sc, dis_key = spec.score_fn(k, ds, backend=backend, **params)
+        else:
+            sc, dis_key = hoisted, k
+        plans.append([dis_plan_full(dis_key, sc, m, m_cap=m_cap, totals=totals)
+                      for m in ms])
+    S, w, counts = (torch.stack([torch.stack([p[f] for p in row]) for row in plans])
+                    for f in (0, 1, 2))
+    if not bool(torch.all(w[..., 0] > 0)):
+        # w[r, i, 0] = G / (m * g) is positive iff the realised total score G was
+        raise ValueError("DIS requires a positive total score")
+    return BatchedCoresets(indices=S, weights=w, counts=counts, ms=ms,
+                           T=ds.T, cells=ds.n)
+
+
 @dataclasses.dataclass
 class CoresetPipeline:
     """The declarative entry point: ``build(spec)`` compiles the spec into
@@ -208,12 +305,20 @@ class CoresetPipeline:
         self,
         spec: Union[CoresetSpec, ExecutionPlan],
         *,
-        key: rng.Key,
+        key: Optional[rng.Key] = None,
+        keys: Optional[torch.Tensor] = None,
         ledger: Optional[CommLedger] = None,
         device: DeviceLike = "cuda",
-    ) -> Coreset:
+    ) -> Union[Coreset, BatchedCoresets]:
         """Build per the (compiled) spec on ``device`` — the card unless
-        the caller asks for the CPU; the dataset must live there."""
+        the caller asks for the CPU; the dataset must live there.
+
+        Returns a :class:`Coreset` for single-cell plans and a
+        :class:`BatchedCoresets` grid for the batched engine.  ``keys`` (a
+        ``(R, 2)`` key stack) overrides ``key`` + ``spec.num_seeds`` for
+        the batched engine, which bills its cells lazily
+        (``grid.coreset(..., ledger=...)``), so ``ledger`` applies to
+        single-cell engines only."""
         dev = resolve_device(device)
         if self.ds.device != dev:
             raise ValueError(
@@ -232,9 +337,18 @@ class CoresetPipeline:
         else:
             ep = self.plan(spec)
         cspec = ep.spec
-        return _exec_materialized(get_task(cspec.task), self.ds, cspec.budget,
-                                  key.to(dev), ep.backend, ledger,
-                                  cspec.params)
+        task = get_task(cspec.task)
+        if ep.engine == "batched":
+            if keys is None:
+                if key is None:
+                    raise ValueError("pass either `key` (+ num_seeds) or `keys`")
+                keys = rng.split(key, cspec.num_seeds)
+            return _exec_batched(task, self.ds, cspec.budgets, keys.to(dev),
+                                 ep.backend, ep.m_cap, cspec.params)
+        if key is None:
+            raise ValueError(f"the {ep.engine} engine requires `key`")
+        return _exec_materialized(task, self.ds, cspec.budget, key.to(dev),
+                                  ep.backend, ledger, cspec.params)
 
 
 def build_coreset(
@@ -256,3 +370,41 @@ def build_coreset(
                        engine="materialized", backend=backend, params=params)
     return CoresetPipeline(ds).build(spec, key=key, ledger=ledger,
                                      device=device)
+
+
+def build_coresets_batched(
+    task: Union[str, CoresetTask],
+    ds: VFLDataset,
+    ms: Sequence[int],
+    *,
+    key: Optional[rng.Key] = None,
+    num_seeds: int = 1,
+    keys: Optional[torch.Tensor] = None,
+    backend: str = "auto",
+    m_cap: Optional[int] = None,
+    device: DeviceLike = "cuda",
+    **params,
+) -> BatchedCoresets:
+    """Construct coresets for every (seed, budget) pair — the batched
+    engine (shim over ``CoresetSpec(engine="batched")``).
+
+    ``ms`` is the budget grid; seeds come either from ``keys`` (a ``(R, 2)``
+    key stack) or ``rng.split(key, num_seeds)``.  Budgets below
+    ``max(ms)`` use the prefix-masking convention (draws are iid, so a
+    prefix of the capacity draw is a valid m-sample); for ``m == max(ms)``
+    each cell is exactly the :func:`build_coreset` result for that key.
+    ``m_cap`` overrides the draw capacity; every budget must lie in
+    [1, m_cap].
+
+    Unlike the reference, whose default is ``backend="ref"`` (its plain
+    scores are cheapest on a CPU), ``backend`` defaults to ``"auto"``: on
+    the card the grid runs the hand-written kernels, on the CPU the plain
+    versions.
+    """
+    ms = tuple(int(m) for m in ms)
+    if keys is not None:
+        num_seeds = int(keys.shape[0])
+    spec = CoresetSpec(task=task, budgets=ms, num_seeds=num_seeds,
+                       engine="batched", backend=backend, m_cap=m_cap,
+                       params=params)
+    return CoresetPipeline(ds).build(spec, key=key, keys=keys, device=device)

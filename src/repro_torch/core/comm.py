@@ -318,6 +318,15 @@ class CommSchedule:
         return CommSchedule(tuple(ops))
 
 
+def theoretical_dis_cost(m: int, T: int) -> Tuple[int, int]:
+    """(lower, upper) unit bounds for Algorithm 1 given m samples, T parties.
+
+    Round 1: T (G_j up) + T (a_j down); round 2: <=m (indices up) + m*T
+    (S broadcast); round 3: m*T (scores up).  Total in [2T + 2m, 2T + m + 2mT].
+    """
+    return 2 * T + 2 * m, 2 * T + m + 2 * m * T
+
+
 def null_ledger(ledger: Optional[CommLedger]) -> CommLedger:
     """Allow ``ledger=None`` call sites without branching everywhere."""
     return ledger if ledger is not None else CommLedger()

@@ -1,7 +1,10 @@
 """The :class:`Coreset` container (port of :mod:`repro.core.coreset`).
 
 The builders live in :mod:`repro_torch.core.api`.  The merge-and-reduce
-``MaterializedCoreset`` waits for the serving slice.
+``MaterializedCoreset`` waits for the serving slice.  The empirical
+epsilon of a coreset (:func:`vrlr_coreset_ratio`,
+:func:`vkmc_coreset_ratio`) is plain torch, as the reference computes it
+outside any kernel.
 """
 
 from __future__ import annotations
@@ -52,3 +55,32 @@ class Coreset:
         CommSchedule.materialize(ds.T, self.m).record(ledger)
         sub = ds.rows(self.indices.to(ds.device))
         return sub.full(), sub.y, self.weights.to(ds.device)
+
+
+def vrlr_coreset_ratio(ds: VFLDataset, cs: Coreset, thetas: torch.Tensor,
+                       lam: float) -> torch.Tensor:
+    """max_theta |cost^R(S,theta)/cost^R(X,theta) - 1| over a probe set of
+    thetas (P, d) (empirical epsilon; Definition 2.3)."""
+    X, y = ds.full(), ds.y
+    XS, yS, w = cs.materialize(ds)
+    thetas = thetas.to(X.device)
+    reg = lam * torch.sum(thetas * thetas, dim=1)                   # (P,)
+    full = torch.sum((X @ thetas.T - y[:, None]) ** 2, dim=0) + reg
+    sub = torch.sum(w[:, None] * (XS @ thetas.T - yS[:, None]) ** 2, dim=0) + reg
+    return torch.max(torch.abs(sub / full - 1.0))
+
+
+def vkmc_coreset_ratio(ds: VFLDataset, cs: Coreset,
+                       center_sets: torch.Tensor) -> torch.Tensor:
+    """max_C |cost^C(S,C)/cost^C(X,C) - 1| over probe center sets
+    (P, k, d) (empirical epsilon; Definition 2.4)."""
+    X = ds.full()
+    XS, _, w = cs.materialize(ds)
+
+    def min_d2(A: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+        return torch.min(torch.sum((A[:, None, :] - C[None, :, :]) ** 2, dim=-1),
+                         dim=1).values
+
+    ratios = [torch.abs((w * min_d2(XS, C)).sum() / min_d2(X, C).sum() - 1.0)
+              for C in center_sets.to(X.device)]
+    return torch.max(torch.stack(ratios))

@@ -19,18 +19,19 @@ key choreography: ``T + 1`` subkeys from the sequential split chain, the
 first for round 1, one per party for round 2.  The reference draws a
 full-capacity ``(m,)`` candidate stream per party and keeps the first
 a_j; the port computes only those a_j rows of each stream, which are the
-same draws.  The batched (``m_cap``) and blocked variants wait for their
-engines.
+same draws.  The batched engine's ``m_cap`` capacity is supported; the
+blocked variants wait for their engines.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import rng
+from repro_torch.core.comm import CommLedger, CommSchedule
 
 
 def _key_chain(key: rng.Key, num: int) -> torch.Tensor:
@@ -44,37 +45,58 @@ def _key_chain(key: rng.Key, num: int) -> torch.Tensor:
 
 
 class DisPlan(NamedTuple):
-    """The result of one DIS execution, accounting-free."""
+    """The result of one DIS execution, accounting-free.
 
-    indices: torch.Tensor   # (m,) int64  — the sampled multiset S
-    weights: torch.Tensor   # (m,) float32 — w(i) = G / (m * g_i)
+    With ``m_cap`` masking (``m < m_cap``), ``indices``/``weights`` hold the
+    m real samples as a prefix; the padded tail has index 0 and weight 0.
+    """
+
+    indices: torch.Tensor   # (m_cap,) int64  — the sampled multiset S
+    weights: torch.Tensor   # (m_cap,) float32 — w(i) = G / (m * g_i)
     counts: torch.Tensor    # (T,) int64  — realised round-1 a_j (sums to m)
     totals: torch.Tensor    # (T,) float32 — per-party score mass G^(j)
 
 
-def dis_plan_full(key: rng.Key, scores: torch.Tensor, m: int) -> DisPlan:
+def dis_plan_full(key: rng.Key, scores: torch.Tensor, m: int,
+                  m_cap: Optional[int] = None,
+                  totals: Optional[torch.Tensor] = None) -> DisPlan:
     """Run Algorithm 1: scores ``(T, n)`` in, :class:`DisPlan` out.
 
     ``scores`` are the stacked party-local scores g^(j), entries >= 0 with a
     positive total (checked by the callers).  No ledger is touched; derive
     the bill afterwards with ``CommSchedule.dis(T, m, counts=plan.counts)``.
+
+    ``m_cap`` is the draw capacity of the batched engine's budget grid:
+    every stream is drawn at ``cap = m_cap`` (the round-1 draw is ``cap``
+    long and counts its first m; each party's round-2 stream keeps its
+    first a_j), so a cell at ``m < m_cap`` is a prefix of the capacity
+    draw.  The capacity changes the draws themselves (threefry pairs
+    counter p with p + cap * n / 2), so it must be the grid's, not m.
+    ``totals`` replaces the per-party reduction ``sum_i g_i^(j)``: the
+    batched engine passes the eager totals of hoisted scores.  With
+    neither, the plan is the reference's eager one for the same key.
     """
     T, _ = scores.shape
     m = int(m)
+    cap = m if m_cap is None else int(m_cap)
+    if not 0 <= m <= cap:
+        raise ValueError(f"budget m={m} outside [0, m_cap={cap}]")
     scores = scores.to(torch.float32)
     subs = _key_chain(key.to(scores.device), T + 1)
-    G_j = torch.sum(scores, dim=1)                             # (T,)
+    G_j = (torch.sum(scores, dim=1) if totals is None
+           else totals.to(torch.float32))                      # (T,)
     G = G_j.sum()
 
     # ---- round 1: a ~ Multinomial(m, G_j/G), realised as m iid draws --------
-    draws = rng.categorical(subs[0], rng.log(torch.clamp_min(G_j, 1e-30)), m)
+    draws = rng.categorical(subs[0], rng.log(torch.clamp_min(G_j, 1e-30)),
+                            cap, take=m)
     a = torch.bincount(draws, minlength=T)
 
     # ---- round 2: party j draws a_j iid indices ~ g_i^(j)/G^(j) -------------
-    # the head of party j's m-candidate stream, concatenated in party order
+    # the head of party j's cap-candidate stream, concatenated in party order
     logits = rng.log(torch.clamp_min(scores, 1e-30))          # (T, n)
     take = a.tolist()
-    S = torch.cat([rng.categorical(subs[1 + j], logits[j], m, take=take[j])
+    S = torch.cat([rng.categorical(subs[1 + j], logits[j], cap, take=take[j])
                    for j in range(T)])
 
     # ---- round 3: per-sample local scores up, weights at server -------------
@@ -83,7 +105,17 @@ def dis_plan_full(key: rng.Key, scores: torch.Tensor, m: int) -> DisPlan:
     for j in range(T):
         g_sum_S = g_sum_S + scores[j][S]
     w = G / (m * torch.clamp_min(g_sum_S, 1e-30))
+    if cap > m:
+        S = torch.cat([S, S.new_zeros(cap - m)])
+        w = torch.cat([w, w.new_zeros(cap - m)])
     return DisPlan(S, w, a, G_j)
+
+
+def dis_plan(key: rng.Key, scores: torch.Tensor, m: int,
+             m_cap: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The DIS core without its counts: ``(key, scores (T, n), m) -> (S, w)``."""
+    plan = dis_plan_full(key, scores, m, m_cap=m_cap)
+    return plan.indices, plan.weights
 
 
 def split_uploads(indices, counts):
@@ -102,10 +134,55 @@ def split_uploads(indices, counts):
     return np.split(idx, np.cumsum(c)[:-1])
 
 
-def uniform_plan(key: rng.Key, n: int, m: int,
+def uniform_plan(key: rng.Key, n: int, m: int, m_cap: Optional[int] = None,
                  device=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Pure uniform baseline: m server-side uniform indices, weight n/m."""
+    """Pure uniform baseline: m server-side uniform indices, weight n/m.
+    With ``m_cap``, ``cap`` indices are drawn and the tail past m is masked
+    to index 0 and weight 0 (the batched engine's prefix convention)."""
     key = key if device is None else key.to(device)
-    S = rng.randint(key, (int(m),), 0, int(n))
-    return S, torch.full((int(m),), n / m, dtype=torch.float32,
-                         device=key.device)
+    m = int(m)
+    cap = m if m_cap is None else int(m_cap)
+    if not 0 <= m <= cap:
+        raise ValueError(f"budget m={m} outside [0, m_cap={cap}]")
+    S = rng.randint(key, (cap,), 0, int(n))
+    w = torch.full((cap,), n / m, dtype=torch.float32, device=key.device)
+    if cap > m:
+        valid = torch.arange(cap, device=key.device) < m
+        S = torch.where(valid, S, 0)
+        w = torch.where(valid, w, 0.0)
+    return S, w
+
+
+# --------------------------------------------------------------------------
+# The seed API: list-of-scores in, ledger recorded here
+# --------------------------------------------------------------------------
+
+def dis_sample(key: rng.Key, local_scores: List[torch.Tensor], m: int,
+               ledger: Optional[CommLedger] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run Algorithm 1 on a list of per-party score vectors g^(j) (each
+    (n,), entries >= 0 with a positive total) and record the exact bill on
+    ``ledger``; returns ``(indices, weights)``, both (m,)."""
+    scores = torch.stack([torch.as_tensor(g) for g in local_scores])
+    plan = dis_plan_full(key, scores, int(m))
+    if not bool(plan.totals.sum() > 0):
+        raise ValueError("DIS requires a positive total score")
+    CommSchedule.dis(len(local_scores), int(m),
+                     counts=plan.counts.tolist()).record(ledger)
+    return plan.indices, plan.weights
+
+
+def dis_marginals(local_scores: List[torch.Tensor]) -> torch.Tensor:
+    """The exact per-index sampling marginal g_i/G (used by tests)."""
+    g = torch.sum(torch.stack(list(local_scores)), dim=0)
+    return g / g.sum()
+
+
+def uniform_sample(key: rng.Key, n: int, m: int, T: int,
+                   ledger: Optional[CommLedger] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The paper's U-* baseline: the server draws m indices itself and
+    broadcasts them, weight n/m each; the bill is the broadcast, mT."""
+    S, w = uniform_plan(key, n, int(m))
+    CommSchedule.uniform(T, int(m)).record(ledger)
+    return S, w

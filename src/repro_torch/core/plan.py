@@ -1,11 +1,12 @@
-"""CoresetSpec -> ExecutionPlan for the ported slice (the part of
-:mod:`repro.core.plan` the materialized engine needs).
+"""CoresetSpec -> ExecutionPlan for the ported engines (the part of
+:mod:`repro.core.plan` the materialized and batched engines need).
 
-A :class:`CoresetSpec` validates the fields this slice reads; the names
+A :class:`CoresetSpec` validates the fields the port reads; the names
 and values match the reference's, so a spec carries over.
-:func:`compile_plan` resolves it against a dataset: the materialized
-engine is the only one ported, and every other engine raises
-``NotImplementedError`` naming the ROADMAP item that ports it.  The
+:func:`compile_plan` resolves it against a dataset: one budget and one
+seed run on the materialized engine, a (seeds x budgets) grid on the
+batched one, and the streamed and pipelined engines raise
+``NotImplementedError`` naming the ROADMAP item that ports them.  The
 memory model, codec axis, fault policies and plan cache wait for their
 slices.
 """
@@ -13,7 +14,7 @@ slices.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping, Tuple, Union
+from typing import Any, Mapping, Optional, Tuple, Union
 
 import numpy as np
 
@@ -28,7 +29,6 @@ ENGINES = ("materialized", "batched", "streamed", "pipelined")
 
 #: Where each engine the port lacks is scheduled (ROADMAP.md, queue 1).
 _NOT_PORTED = {
-    "batched": "queue 1, item 11 (batched and fused engines)",
     "streamed": "queue 1, item 12 (streamed and pipelined engines)",
     "pipelined": "queue 1, item 12 (streamed and pipelined engines)",
 }
@@ -43,9 +43,10 @@ class CoresetSpec:
     """Frozen declarative description of one coreset construction.
 
     ``budgets`` accepts a single int or an iterable of ints; a grid
-    (``num_seeds > 1`` or several budgets) needs the batched engine, which
-    is not ported yet.  ``params`` carries task-specific score knobs
-    verbatim.  All validation happens here, at construction.
+    (``num_seeds > 1`` or several budgets) compiles to the batched engine,
+    whose draw capacity ``m_cap`` defaults to ``max(budgets)``.
+    ``params`` carries task-specific score knobs verbatim.  All validation
+    happens here, at construction.
     """
 
     task: Union[str, Any] = "vrlr"
@@ -53,6 +54,7 @@ class CoresetSpec:
     num_seeds: int = 1
     engine: str = "auto"
     backend: str = "auto"
+    m_cap: Optional[int] = None           # batched draw capacity override
     params: Mapping[str, Any] = dataclasses.field(default_factory=dict)
 
     def __post_init__(self) -> None:
@@ -83,6 +85,17 @@ class CoresetSpec:
                 f"backend must be 'auto' or one of {SCORE_BACKENDS}, "
                 f"got {self.backend!r}"
             )
+        if self.m_cap is not None:
+            if not _is_int(self.m_cap) or self.m_cap < 1:
+                raise ValueError(
+                    f"m_cap must be a positive int, got {self.m_cap!r}"
+                )
+            over = [b for b in budgets if b > self.m_cap]
+            if over:
+                raise ValueError(
+                    f"budgets {over} outside [1, m_cap={self.m_cap}]; every "
+                    f"budget must be >= 1 and <= the draw capacity"
+                )
         object.__setattr__(self, "params", dict(self.params))
 
     @property
@@ -99,13 +112,17 @@ class CoresetSpec:
             )
         return self.budgets[0]
 
+    def replace(self, **kw) -> "CoresetSpec":
+        return dataclasses.replace(self, **kw)
+
 
 @dataclasses.dataclass(frozen=True)
 class ExecutionPlan:
     """The compiled execution of a :class:`CoresetSpec` on one dataset:
     one concrete engine, the backend resolved from the dataset's device,
-    and the exact predicted bill (Algorithm 1's total does not depend on
-    the realised round-2 counts)."""
+    the (num_seeds, num_budgets) grid with its draw capacity, and the
+    exact predicted bill of every cell together (Algorithm 1's total does
+    not depend on the realised round-2 counts)."""
 
     spec: CoresetSpec
     engine: str
@@ -114,7 +131,26 @@ class ExecutionPlan:
     n: int
     T: int
     dims: Tuple[int, ...]
+    grid: Tuple[int, int]          # (num_seeds, num_budgets)
+    m_cap: int
     predicted_comm_units: int
+
+    @property
+    def is_grid(self) -> bool:
+        return self.grid[0] > 1 or self.grid[1] > 1
+
+    def describe(self) -> str:
+        """Human-readable plan: engine, task, backend, grid, budgets, draw
+        capacity, the data's geometry and the predicted bill."""
+        spec = self.spec
+        return "\n".join([
+            f"ExecutionPlan: engine={self.engine}",
+            f"  task={self.task_name} backend={self.backend} "
+            f"grid={self.grid[0]}x{self.grid[1]} budgets={spec.budgets} "
+            f"m_cap={self.m_cap}",
+            f"  data: n={self.n} T={self.T} dims={self.dims}",
+            f"  predicted comm: {self.predicted_comm_units} units",
+        ])
 
 
 def compile_plan(spec: CoresetSpec, ds: VFLDataset) -> ExecutionPlan:
@@ -125,18 +161,25 @@ def compile_plan(spec: CoresetSpec, ds: VFLDataset) -> ExecutionPlan:
     backend = resolve_backend(spec.backend, ds.device)
     if task.needs_labels and ds.y is None:
         raise ValueError(f"{task.name} requires labels at party T")
-    engine = "batched" if spec.is_grid else spec.engine
-    if engine == "auto":
-        engine = "materialized"
+    R, M = spec.num_seeds, len(spec.budgets)
+    if spec.is_grid:
+        if spec.engine not in ("auto", "batched"):
+            raise ValueError(
+                f"engine={spec.engine!r} builds one coreset per call; a "
+                f"{R}x{M} grid requires engine='batched' (or 'auto')"
+            )
+        engine = "batched"
+    else:
+        engine = "materialized" if spec.engine == "auto" else spec.engine
     if engine in _NOT_PORTED:
         raise NotImplementedError(
             f"the {engine} engine is not ported to PyTorch yet (ROADMAP.md "
-            f"{_NOT_PORTED[engine]}); use engine='materialized' with one "
-            f"budget and one seed"
+            f"{_NOT_PORTED[engine]}); use engine='materialized' or "
+            f"'batched'"
         )
-    m = spec.budget
-    comm = (CommSchedule.uniform(ds.T, m).total if task.score_fn is None
-            else CommSchedule.dis_total(ds.T, m))
+    m_cap = max(spec.budgets) if spec.m_cap is None else spec.m_cap
+    comm = R * sum(CommSchedule.uniform(ds.T, m).total if task.score_fn is None
+                   else CommSchedule.dis_total(ds.T, m) for m in spec.budgets)
     return ExecutionPlan(spec=spec, engine=engine, backend=backend,
                          task_name=task.name, n=ds.n, T=ds.T, dims=ds.dims,
-                         predicted_comm_units=comm)
+                         grid=(R, M), m_cap=m_cap, predicted_comm_units=comm)

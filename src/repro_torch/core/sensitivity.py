@@ -160,6 +160,11 @@ def vkmc_local_scores(Xj: torch.Tensor, centers: torch.Tensor, alpha: float,
     return term1 + term2 + term3
 
 
+def total_sensitivity_bound_vrlr(dims, T: int) -> float:
+    """Thm 4.2: G = sum_j d'_j + T <= d + T + 1 (used by tests)."""
+    return float(sum(dims) + T)
+
+
 def total_sensitivity_bound_vkmc(k: int, T: int, alpha: float) -> float:
     """Lemma F.2: G = 2(k+1) * alpha * T exactly when no local cluster is
     empty (each party's scores sum to 2(k+1) alpha)."""

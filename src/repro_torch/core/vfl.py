@@ -202,3 +202,22 @@ class VFLDataset:
         slices = split_columns(Xt.shape[1], T, sizes)
         return VFLDataset([Xt[:, s].contiguous() for s in slices],
                           None if y is None else _as_tensor(y, dev))
+
+
+def standardize(ds: VFLDataset, eps: float = 1e-8) -> VFLDataset:
+    """Per-feature mean-0 / std-1 normalisation, computed party-locally
+    (no cross-party stats needed — matches the paper's preprocessing).
+    The standard deviation is the population one (``correction=0``), as
+    ``jnp.std`` computes it."""
+    parts = []
+    for p in ds.parts:
+        mu = p.mean(dim=0, keepdim=True)
+        sd = p.std(dim=0, keepdim=True, correction=0)
+        parts.append((p - mu) / torch.clamp_min(sd, eps))
+    return VFLDataset(parts, ds.y)
+
+
+def as_numpy(ds: VFLDataset) -> Tuple[List[np.ndarray], Optional[np.ndarray]]:
+    """The party blocks and labels as host numpy arrays."""
+    return ([p.cpu().numpy() for p in ds.parts],
+            None if ds.y is None else ds.y.cpu().numpy())

@@ -143,19 +143,51 @@ def random_bits(key: Key, shape: Sequence[int]) -> torch.Tensor:
     return _bits_at(key, pos, size).reshape(shape)
 
 
-def randint(key: Key, shape: Sequence[int], minval: int,
-            maxval: int) -> torch.Tensor:
-    """``jax.random.randint`` for int32: two 32-bit draws folded modulo
-    the span with uint32 wrap-around, jax's biased-but-cheap recipe."""
+def _check_int_range(minval: int, maxval: int) -> None:
     if not 0 <= minval <= maxval < 2 ** 31:
         raise ValueError(
             f"randint range [{minval}, {maxval}) must lie in [0, 2**31)")
-    k1, k2 = split(key)
-    hi, lo = random_bits(k1, shape), random_bits(k2, shape)
+
+
+def _fold_randint(hi: torch.Tensor, lo: torch.Tensor, minval: int,
+                  maxval: int) -> torch.Tensor:
+    """jax's int32 ``randint`` from its two 32-bit words: both folded
+    modulo the span with uint32 wrap-around, its biased-but-cheap recipe."""
     span = max(int(maxval) - int(minval), 1)
     mult = ((2 ** 16 % span) ** 2 & MASK) % span
     off = ((((hi % span) * mult) & MASK) + lo % span) & MASK
     return (off % span + int(minval)).to(torch.int64)
+
+
+def randint(key: Key, shape: Sequence[int], minval: int,
+            maxval: int) -> torch.Tensor:
+    """``jax.random.randint`` for int32: two 32-bit draws folded modulo
+    the span with uint32 wrap-around, jax's biased-but-cheap recipe."""
+    _check_int_range(minval, maxval)
+    k1, k2 = split(key)
+    return _fold_randint(random_bits(k1, shape), random_bits(k2, shape),
+                         minval, maxval)
+
+
+def randint_each(keys: torch.Tensor, minval: int, maxval: int) -> torch.Tensor:
+    """One scalar ``randint`` per key of a ``(num, 2)`` key stack, i.e.
+    ``jax.vmap(lambda k: jax.random.randint(k, (), minval, maxval))(keys)``,
+    in a few elementwise launches for the whole stack.
+
+    Per key: ``split`` hashes the counter pairs (0, 2) and (1, 3), giving
+    the two subkeys as lanes 0 and 1; a scalar draw under a subkey is lane
+    0 of the pair (0, 0) (a one-word draw pads its counters with a zero).
+    """
+    if keys.ndim != 2 or keys.shape[1] != 2:
+        raise ValueError(f"a key stack has shape (num, 2), got {tuple(keys.shape)}")
+    _check_int_range(minval, maxval)
+    k = keys.to(torch.int64)
+    pair = torch.arange(4, dtype=torch.int64, device=k.device).reshape(2, 2)
+    sub1, sub2 = _hash(k[:, :1], k[:, 1:], pair[:1], pair[1:])   # (num, 2) each
+    zero = torch.zeros((), dtype=torch.int64, device=k.device)
+    hi, _ = _hash(sub1[:, 0], sub1[:, 1], zero, zero)
+    lo, _ = _hash(sub2[:, 0], sub2[:, 1], zero, zero)
+    return _fold_randint(hi, lo, minval, maxval)
 
 
 def _to_unit(bits: torch.Tensor) -> torch.Tensor:

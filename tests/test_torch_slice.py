@@ -144,10 +144,14 @@ def test_plan_validation_and_unported_engines():
     ep = compile_plan(CoresetSpec(task="vrlr", budgets=10), tds)
     assert (ep.engine, ep.backend, ep.predicted_comm_units) == (
         "materialized", "ref", CommSchedule.dis_total(3, 10))
-    for spec in (CoresetSpec(engine="streamed"), CoresetSpec(engine="pipelined"),
-                 CoresetSpec(budgets=(10, 20)), CoresetSpec(num_seeds=2)):
+    for spec in (CoresetSpec(engine="streamed"), CoresetSpec(engine="pipelined")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             compile_plan(spec, tds)
+    # grids compile to the batched engine
+    for spec, grid in ((CoresetSpec(budgets=(10, 20)), (1, 2)),
+                       (CoresetSpec(budgets=10, num_seeds=2), (2, 1))):
+        ep = compile_plan(spec, tds)
+        assert (ep.engine, ep.grid, ep.m_cap) == ("batched", grid, max(spec.budgets))
     for bad in (dict(budgets=0), dict(engine="fast"), dict(backend="cuda"),
                 dict(num_seeds=0), dict(task=3)):
         with pytest.raises(ValueError):
