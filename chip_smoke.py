@@ -24,15 +24,23 @@ and never JAX or the JAX package ``repro``.  Phases, each fatal on failure:
    of the kernel, the plain version and one PyTorch library call
    computing the same function, beside the card's bound, at the main
    path's shapes and for each general variant; the threefry words past
-   2**32 - 1 counters equal on the card and the CPU, and one timed
-   categorical draw of cap * n just past that limit;
+   2**32 - 1 counters equal on the card and the CPU; the categorical
+   kernel (the DIS draw) equal bit for bit to its plain version over a
+   sweep (a party with no rows, cap = 1, n = 1, odd cap * n, take < cap,
+   both entry shapes) and at the main path's shapes (round 1, round 2 at
+   cap 5000 over three parties with device counts, timed beside its
+   bound, counted from the algorithm's operations per candidate, and the
+   plain version, and a k-means++ pick), and one timed draw
+   of cap * n just past the counter limit, its rows across the block edge
+   held to the plain rows;
 4. main path, ``vrlr``: coreset -> ``fit_ridge`` -> ``evaluate`` at the
    YearPrediction scale (n = 463,715, d = 90, T = 3) for m = 1000 and 5000
    on data made from the seed, with the exact DIS bill, the Theorem 2.5
    +2mT, rising launch counters, a finite relative error under the
    benchmark gate, and the identity coreset reproducing the full solve;
-   the build's time split into scoring, DIS draw and health report; then
-   agreement with the CPU plain path on a small input;
+   the build's time split into scoring, DIS draw (run with CUDA's sync
+   debug mode set to "error": no host copy inside) and health report;
+   then agreement with the CPU plain path on a small input;
 5. main path, ``vkmc``: ``end_to_end(k=10)``'s coreset -> ``fit_kmeans``
    -> ``evaluate`` on the same data (alpha = 2, 15 local Lloyd iterations,
    25 in the fits) for m = 1000 and 5000, with the exact bill and +2mT,
@@ -51,13 +59,23 @@ and never JAX or the JAX package ``repro``.  Phases, each fatal on failure:
    m in {1000, 5000} at full scale, K1 launched once for the grid) and
    ``vkmc`` (2 seeds x m in {200, 500} at n = 20,001, K2 16 times a
    seed, first checked at the grid's shape against its plain version and
-   its global variant), each cell at m = m_cap equal to its eager build
-   bit for bit (the vrlr grid's seed 0 is phase 4's key, held to phase
-   4's build), the m < m_cap cells a prefix with a zero tail, every bill
-   exact.
+   its global variant; K5 first checked bit for bit at each grid's round
+   1, round 2 and k-means++ shapes), each cell at m = m_cap equal to its
+   eager build bit for bit (the vrlr grid's seed 0 is phase 4's key, held
+   to phase 4's build), the m < m_cap cells a prefix with a zero tail,
+   every bill exact; the vkmc grid then split by stage;
+8. fused engine: ``build_coreset_jit`` for ``vrlr``, ``vkmc`` and
+   ``uniform`` at m in {1000, 5000} on phase 4's data: the first call's
+   capture time and the replay's build_s beside an eager build_s, indices
+   equal to the eager build's (and to phases 4 and 5's builds), weights
+   equal bit for bit, the exact bill, the launches each replay adds, and
+   replays with a second key and on a second dataset of the same shapes
+   equal to their eager builds.
 
-Every path is driven with all four launch counters set to 0 just before
-it and read just after.
+Every path is driven with all five launch counters set to 0 just before
+it and read just after.  With the default seed, the drawn indices of
+phases 4, 5 and 7 are also held to the digests recorded before the
+categorical kernel replaced the plain draw.
 
 Its last two lines are the kernels' JSON record and the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -80,6 +98,35 @@ SRC = Path(__file__).resolve().parent / "src"
 # the tensor cores — the bound_ms yardsticks.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+# the operation rates behind them, per second on 132 SMs at the 1.98 GHz
+# boost clock: 128 fp32 operations per SM and clock (the data sheet's
+# 67 TFLOP/s counts an FMA as two), 64 int32 ones (add, logic, shift,
+# compare, select; CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0), and 4 warp schedulers issuing one
+# instruction of 32 threads each per clock.  The categorical kernel is
+# bound by its int32 operations, not by flops or bytes.
+FP32_OPS_PER_S = 132 * 128 * 1.98e9
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+ISSUE_PER_S = 132 * 4 * 32 * 1.98e9
+# The least work of one gumbel-max candidate of the DIS draw, counted from
+# the algorithm (rng._bits_at, rng._gumbel_of, rng.log and the running
+# maximum), each operation on the pipe that runs it; loop control, address
+# arithmetic and moves are not counted.
+#   int32: the counter pair (the position, its compare with the half, the
+#     two offsets and their selects, the odd-size pad's compare and select:
+#     8); threefry2x32 (the first key add on both words, 20 rounds of add,
+#     rotate and xor, 5 key injections of two adds: 2 + 60 + 10) and its
+#     lane select (1); the uniform's mantissa (shift, or: 2); each log's
+#     exponent and mantissa fields (shift, subtract, and-or: 2 x 3); the
+#     running maximum's value and index selects (2): 91
+#   fp32: the uniform (- 1, + tiny, clamp: 3); each log 32 (clamp, the
+#     exponent's conversion and + 1, the sqrt(1/2) compare, t's subtract,
+#     select and add, e's select and subtract, z and t^3, 9 FMAs, e * q1,
+#     0.5 z, three sums, e * q2, and three special cases of a compare and a
+#     select each); + logit, the compare with the maximum and its NaN test
+#     (3): 70
+K5_INT32_OPS = 8 + (2 + 20 * 3 + 5 * 2) + 1 + 2 + 2 * 3 + 2
+K5_FP32_OPS = 3 + 2 * 32 + 3
 
 N_FULL, D_FULL, T_PARTIES = 463_715, 90, 3   # YearPrediction, paper Table 1
 N_WIDE = 20_001          # rows of the timed general-variant shapes
@@ -103,6 +150,11 @@ KMEANS_D2_TOL = 1e-5
 KMEANS_SUM_TOL = 1e-4
 K_CLUSTERS, ALPHA, LOCAL_ITERS, FIT_ITERS = 10, 2.0, 15, 25   # Table 1 right
 SAGA_STEPS = 20_000      # benchmarks/vrlr_main.py's fast setting
+# indices_sha256 of phases 4 and 5 at --seed 0, recorded on the card with
+# the plain draw (PERF.md); phase 7's vrlr cell (0, 1) is phase 4's m = 5000
+# build
+PARENT_DIGESTS = {("vrlr", 1000): "76d59a6faebe9131", ("vrlr", 5000): "b1b04abcb57045c2",
+                  ("vkmc", 1000): "2ffe1edfffb6b0e6", ("vkmc", 5000): "d22065e54e37e4d3"}
 
 
 def fail(msg: str) -> None:
@@ -127,6 +179,30 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def cuda_once(torch, fn):
+    """(fn's result, its milliseconds on the card) for one call."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def categorical_bound_ms(candidates: int, nbytes: float):
+    """(least milliseconds for ``candidates`` gumbel-max candidates, what
+    bounds it): their int32 and fp32 operations (``K5_INT32_OPS``,
+    ``K5_FP32_OPS`` each) over their pipes' rates, all of them over the
+    schedulers' issue rate, or the bytes."""
+    t_ops = max(candidates * K5_INT32_OPS / INT32_OPS_PER_S,
+                candidates * K5_FP32_OPS / FP32_OPS_PER_S,
+                candidates * (K5_INT32_OPS + K5_FP32_OPS) / ISSUE_PER_S) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -377,7 +453,7 @@ def main() -> None:
     from repro_torch import rng
     from repro_torch.core import (
         CommLedger, CommSchedule, CoresetPipeline, CoresetSpec, VFLDataset,
-        build_coreset, build_coresets_batched, elastic_cost, end_to_end,
+        build_coreset, build_coreset_jit, build_coresets_batched, elastic_cost, end_to_end,
         evaluate, fit_kmeans, fit_ridge, full_data_coreset, kmeans_plusplus,
         lasso_cost, lloyd, ridge_cost, saga_ridge, solve, sq_loss)
     from repro_torch.core.api import vkmc_scores, vrlr_scores
@@ -387,14 +463,15 @@ def main() -> None:
         batched_gram_pinv, kmeans_update, total_sensitivity_bound_vkmc,
         vkmc_local_scores)
     from repro_torch.kernels import _build
+    from repro_torch.kernels import categorical as kcat
     from repro_torch.kernels import kmeans_assign as kka
     from repro_torch.kernels import kmeans_assign_update as kkau
     from repro_torch.kernels import leverage as klev
+    from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref as kref
     from repro_torch.kernels import weighted_gram as kwg
 
-    counted = (klev.leverage, kwg.weighted_gram, kka.kmeans_assign,
-               kkau.kmeans_assign_update)
+    from repro_torch.kernels.ops import COUNTED as counted
 
     def reset_counts():
         for fn in counted:
@@ -521,24 +598,82 @@ def main() -> None:
                        rng._bits_at(key.to(dev), pos.to(dev), size).cpu()):
         fail("threefry words past 2**32 - 1 counters differ on the card and the CPU")
     log(f"rng: words at {pos.tolist()} of a {size}-word draw equal on card and CPU")
-    # one draw with cap * n just past the limit, timed like dis_s; its last
-    # row straddles the first block edge and equals the CPU's
-    lg = torch.log(torch.rand(N_FULL, generator=gen) + 0.01)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    idx = rng.categorical(key.to(dev), lg.to(dev), CAP_PAST_LIMIT)
-    torch.cuda.synchronize()
-    cat_s = time.perf_counter() - t0
-    last = CAP_PAST_LIMIT - 1
-    row = last * N_FULL + torch.arange(N_FULL, dtype=torch.int64)
-    want_last = int(torch.argmax(rng._gumbel_of(rng._bits_at(key, row, CAP_PAST_LIMIT * N_FULL)) + lg))
-    if (idx.shape != (CAP_PAST_LIMIT,) or int(idx.min()) < 0 or int(idx.max()) >= N_FULL
-            or int(idx[last]) != want_last):
-        fail(f"categorical past the counter limit: shape {tuple(idx.shape)}, "
-             f"last row {int(idx[last])} against the CPU's {want_last}")
+    # K5, the DIS draw: the kernel against its plain version, bit for bit,
+    # over the sweep (both entry shapes) and at the main path's shapes
+    def check_k5(keys, lg, cap, counts, label):
+        """Both entry shapes against the plain version on the card (party
+        j's one-stream draw against party j's rows of the plain draw); two
+        launches bitwise equal."""
+        a = torch.tensor(counts, dtype=torch.int64, device=dev)
+        got = kops.categorical_parties(keys, lg, cap, a, total=sum(counts))
+        again = kops.categorical_parties(keys, lg, cap, a, total=sum(counts))
+        want = rng.categorical_parties_plain(keys, lg, cap, a)
+        if not (torch.equal(got, again) and torch.equal(got, want)):
+            fail(f"categorical {label}: the kernel's parties draw differs from the "
+                 f"plain version's or from itself")
+        for j, (c, w) in enumerate(zip(counts, torch.split(want, counts))):
+            if not torch.equal(kops.categorical(keys[j], lg[j], cap, take=c), w):
+                fail(f"categorical {label}: party {j}'s one-stream draw differs")
+        log(f"  categorical {label}: T={len(counts)} n={lg.shape[1]} cap={cap} "
+            f"counts={counts}: kernel == plain, bit for bit (both entry shapes)")
+
+    log("categorical (the DIS draw) vs its plain version, bit for bit:")
+    for n, cap, counts in [(37, 20, [5, 0, 15]), (1, 1, [1, 0]), (7, 3, [2]),
+                           (33, 9, [0, 9, 0, 0]), (kcat.ROW_THREAD_MAX, 5, [2, 3]),
+                           (kcat.ROW_THREAD_MAX + 1, 5, [3, 1]), (999, 7, [0, 0, 7]),
+                           (100_003, 3, [1, 2, 0])]:
+        T_ = len(counts)
+        check_k5(rng.split(rng.PRNGKey(n + cap), T_).to(dev),
+                 torch.log(torch.rand(T_, n, generator=gen) + 0.01).to(dev), cap, counts,
+                 "sweep")
+    # the main path's shapes: round 1 (n = T over m rows), a k-means++ pick
+    # over the full rows and over a coreset's, round 2 over the parties
+    m5 = BUDGETS[-1]
+    G_lg = torch.log(torch.rand(1, T_PARTIES, generator=gen) + 0.01).to(dev)
+    k5_keys = rng.split(rng.PRNGKey(args.seed + 12), T_PARTIES).to(dev)
+    check_k5(k5_keys[:1], G_lg, m5, [m5], "round 1")
+    lg3 = torch.log(torch.rand(T_PARTIES, N_FULL, generator=gen) + 0.01).to(dev)
+    check_k5(k5_keys[:1], lg3[:1], 1, [1], "k-means++ pick")
+    check_k5(k5_keys[:1], lg3[:1, :m5].contiguous(), 1, [1], "k-means++ pick at m")
+    draws = kops.categorical(k5_keys[0], G_lg[0], m5)
+    k5_a = torch.zeros(T_PARTIES, dtype=torch.int64, device=dev).scatter_add_(
+        0, draws, torch.ones_like(draws))
+    k5_call = lambda: kops.categorical_parties(k5_keys, lg3, m5, k5_a, total=m5)
+    k5_got = k5_call()
+    want, k5_plain = cuda_once(torch, lambda: rng.categorical_parties_plain(
+        k5_keys, lg3, m5, k5_a))
+    if not (torch.equal(k5_got, want) and torch.equal(k5_got, k5_call())):
+        fail(f"categorical round 2 ({T_PARTIES}, {N_FULL}) cap {m5}: the kernel differs "
+             f"from the plain version or from itself")
+    k5_err = float((k5_got - want).abs().max())
+    k5_ms = cuda_ms(torch, k5_call, iters=5, warmup=1)
+    k5_bound, k5_by = categorical_bound_ms(m5 * N_FULL,
+                                           4 * T_PARTIES * N_FULL + 8 * m5
+                                           + 8 * T_PARTIES + 16 * T_PARTIES)
+    log(f"  categorical round 2 ({T_PARTIES}, {N_FULL}) cap {m5}, counts "
+        f"{k5_a.tolist()} on the device: kernel == plain, bit for bit")
+    log(f"time categorical ({T_PARTIES}, {N_FULL}) cap {m5}: kernel {k5_ms:.4f} ms, "
+        f"plain {k5_plain:.4f} ms, bound {k5_bound:.4f} ms ({k5_by}; "
+        f"{m5 * N_FULL} candidates of {K5_INT32_OPS} int32 and {K5_FP32_OPS} fp32 "
+        f"operations each)")
+    # one draw with cap * n just past the counter limit, timed; its rows
+    # across the first block edge, the head and the last equal the plain rows
+    lg = torch.log(torch.rand(N_FULL, generator=gen) + 0.01).to(dev)
+    kd = key.to(dev)
+    idx, cat_ms = cuda_once(torch, lambda: kops.categorical(kd, lg, CAP_PAST_LIMIT))
+    edge = (2 ** 32 - 1) // N_FULL
+    sample = sorted({0, 1, 2, CAP_PAST_LIMIT // 2, edge - 1, edge, CAP_PAST_LIMIT - 1})
+    cols = torch.arange(N_FULL, dtype=torch.int64, device=dev)
+    for r in sample:
+        row = rng._gumbel_of(rng._bits_at(kd, r * N_FULL + cols, CAP_PAST_LIMIT * N_FULL)) + lg
+        if int(idx[r]) != int(torch.argmax(row)):
+            fail(f"categorical past the counter limit: row {r} is {int(idx[r])}, the "
+                 f"plain row's {int(torch.argmax(row))}")
+    if idx.shape != (CAP_PAST_LIMIT,) or int(idx.min()) < 0 or int(idx.max()) >= N_FULL:
+        fail(f"categorical past the counter limit: malformed draw {tuple(idx.shape)}")
     log(f"rng: categorical cap={CAP_PAST_LIMIT} n={N_FULL} (cap*n = "
-        f"{CAP_PAST_LIMIT * N_FULL} > 2**32 - 1) drew in {cat_s:.4f}s; its last "
-        f"row, across the block edge, equals the CPU's")
+        f"{CAP_PAST_LIMIT * N_FULL} > 2**32 - 1) drew in {cat_ms:.4f} ms; rows "
+        f"{sample} (the first block edge is in row {edge}) equal the plain rows")
 
     # timing at the main path's shapes
     T, n, s = blocks.shape
@@ -745,7 +880,7 @@ def main() -> None:
 
     # the checks' own large tensors go before the main path, so its
     # peak_bytes counts the path's memory and the dataset only
-    del Xw, Mw, Xg, Cg, wg, Xs, Cs, Ms, w, lg, idx
+    del Xw, Mw, Xg, Cg, wg, Xs, Cs, Ms, w, lg, idx, lg3, want, k5_got
     torch.cuda.empty_cache()
 
     # ---- 4. main path: vrlr ---------------------------------------------------
@@ -793,21 +928,32 @@ def main() -> None:
                  f"(leverage {nl}, weighted_gram {nw})")
         if counts["kmeans_assign"] or counts["kmeans_assign_update"]:
             fail(f"m={m}: vrlr launched a k-means kernel: {counts}")
+        if counts["categorical"] != 2:
+            fail(f"m={m}: {counts['categorical']} categorical launches, not 2 (one a "
+                 f"DIS round)")
+        if args.seed == 0 and digest(cs.indices) != PARENT_DIGESTS[("vrlr", m)]:
+            fail(f"m={m}: indices_sha256 {digest(cs.indices)}, recorded "
+                 f"{PARENT_DIGESTS[('vrlr', m)]}")
         if cs.indices.shape != (m,) or not torch.isfinite(cs.weights).all():
             fail(f"m={m}: malformed coreset")
         if not (math.isfinite(rep.rel_error) and rep.rel_error < REL_ERROR_GATE):
             fail(f"m={m}: rel_error {rep.rel_error} not finite or >= {REL_ERROR_GATE}")
 
     # where the build's time goes (outside the counted runs): scoring, the
-    # DIS draw, the host copy of the mass table for the health report
+    # DIS draw, the host copy of the mass table for the health report; the
+    # draw runs with any host synchronisation an error
     m = BUDGETS[-1]
-    key = rng.fold_in(rng.PRNGKey(args.seed), m)
+    key = rng.fold_in(rng.PRNGKey(args.seed), m).to(dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     scores, dis_key = vrlr_scores(key, ds)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    plan = dis_plan_full(dis_key, scores, m)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        plan = dis_plan_full(dis_key, scores, m)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     health_from_masses(scores.cpu().numpy())
@@ -815,7 +961,8 @@ def main() -> None:
     if not torch.equal(plan.indices, results[m][0].indices):
         fail(f"m={m}: rerunning the build's stages drew another coreset")
     log(f"breakdown m={m}: score_s={t1 - t0:.4f} dis_s={t2 - t1:.4f} "
-        f"health_s={t3 - t2:.4f}")
+        f"health_s={t3 - t2:.4f}; dis_plan_full ran under "
+        f"set_sync_debug_mode('error')")
 
     # end_to_end is the staged path above: same key, same draw, same error
     m = BUDGETS[0]
@@ -856,6 +1003,9 @@ def main() -> None:
     # baseline's own objective, cost_opt)
     want_k2 = LOCAL_ITERS + 1 + 2 * FIT_ITERS
     want_k4 = 1 + 3
+    # K5: k picks of local k-means++ per party, the two DIS rounds, and k
+    # picks each for k-means++ on the coreset and on the full data
+    want_k5 = T_PARTIES * K_CLUSTERS + 2 + 2 * K_CLUSTERS
     lemma = total_sensitivity_bound_vkmc(K_CLUSTERS, 1, ALPHA)
     vk_results = {}
     for m in BUDGETS:
@@ -898,9 +1048,13 @@ def main() -> None:
         if led.total - built_units != 2 * m * T_PARTIES:
             fail(f"vkmc m={m}: fit_kmeans billed {led.total - built_units}, "
                  f"Theorem 2.5 says {2 * m * T_PARTIES}")
-        if (counts["kmeans_assign_update"], counts["kmeans_assign"]) != (want_k2, want_k4):
-            fail(f"vkmc m={m}: k-means launches {counts}, counted "
-                 f"{want_k2} and {want_k4} from the code")
+        if (counts["kmeans_assign_update"], counts["kmeans_assign"],
+                counts["categorical"]) != (want_k2, want_k4, want_k5):
+            fail(f"vkmc m={m}: launches {counts}, counted K2 {want_k2}, K4 {want_k4} "
+                 f"and K5 {want_k5} from the code")
+        if args.seed == 0 and digest(cs.indices) != PARENT_DIGESTS[("vkmc", m)]:
+            fail(f"vkmc m={m}: indices_sha256 {digest(cs.indices)}, recorded "
+                 f"{PARENT_DIGESTS[('vkmc', m)]}")
         if cs.indices.shape != (m,) or not torch.isfinite(cs.weights).all():
             fail(f"vkmc m={m}: malformed coreset")
         if fit.params.shape != (K_CLUSTERS, D_FULL) or not torch.isfinite(fit.params).all():
@@ -1053,7 +1207,7 @@ def main() -> None:
     for nm, c in counts.items():
         launches[nm] += c
     want = {"leverage": 0, "weighted_gram": 2 * len(samplings), "kmeans_assign": 0,
-            "kmeans_assign_update": 0}
+            "kmeans_assign_update": 0, "categorical": 0}
     log(f"solver grid launches {counts}")
     if counts != want:
         fail(f"solver grid: launches {counts}, counted {want} from the code "
@@ -1061,6 +1215,29 @@ def main() -> None:
     del samplings, u_cs
 
     # ---- 7. the batched engine -------------------------------------------------
+    # K5 at the grids' own shapes against its plain version, bit for bit
+    # (outside the counts): every cell draws round 1 over T parties and
+    # round 2 at the grid's capacity, m_cap = its largest budget, with the
+    # device counts of a round-1 draw of the cell's budget; each vkmc seed
+    # also picks k-means++ centers over its N_WIDE rows
+    def check_k5_grid(cap, budgets, n, label):
+        keys = rng.split(rng.PRNGKey(args.seed + 13 + cap), T_PARTIES).to(dev)
+        G_lg = torch.log(torch.rand(1, T_PARTIES, generator=gen) + 0.01).to(dev)
+        lg = torch.log(torch.rand(T_PARTIES, n, generator=gen) + 0.01).to(dev)
+        for mb in budgets:
+            check_k5(keys[:1], G_lg, cap, [mb], f"{label} round 1 m={mb}")
+            draws = kops.categorical(keys[0], G_lg[0], cap, take=mb)
+            a = torch.zeros(T_PARTIES, dtype=torch.int64, device=dev).scatter_add_(
+                0, draws, torch.ones_like(draws))
+            check_k5(keys, lg, cap, a.tolist(), f"{label} round 2 m={mb}")
+
+    # (the vrlr grid's m = 5000 cells draw at phase 3's main-path shapes)
+    vk_ms = (200, 500)
+    check_k5_grid(BUDGETS[-1], BUDGETS[:1], N_FULL, "batched vrlr")
+    check_k5_grid(vk_ms[-1], vk_ms, N_WIDE, "batched vkmc")
+    check_k5(rng.split(rng.PRNGKey(args.seed + 14), 1).to(dev),
+             torch.log(torch.rand(1, N_WIDE, generator=gen) + 0.01).to(dev), 1, [1],
+             "batched vkmc k-means++ pick")
     # vrlr: a 2-seed x (1000, 5000) grid at full scale, scored once (its
     # scores do not depend on the key), each cell drawn at capacity 5000;
     # seed 0 is phase 4's m = 5000 key, so cell (0, 1) is held to that build
@@ -1077,8 +1254,9 @@ def main() -> None:
         launches[nm] += c
     log(f"batched vrlr 2 x {BUDGETS}: grid_s={grid_s:.4f} launches {counts}")
     if counts != {"leverage": 1, "weighted_gram": 0, "kmeans_assign": 0,
-                  "kmeans_assign_update": 0}:
-        fail(f"batched vrlr: launches {counts}; the grid scores once (one K1)")
+                  "kmeans_assign_update": 0, "categorical": 2 * 2 * len(BUDGETS)}:
+        fail(f"batched vrlr: launches {counts}; the grid scores once (one K1) and "
+             f"draws twice a cell")
     eager = results[BUDGETS[-1]][0]
     cell = grid.coreset(0, 1)
     if not (torch.equal(cell.indices, eager.indices)
@@ -1099,8 +1277,7 @@ def main() -> None:
         f"(indices_sha256={digest(cell.indices)}); the m={BUDGETS[0]} cells hold "
         f"{BUDGETS[0]} real entries and a zero tail; every bill dis_total")
 
-    # vkmc: 2 seeds x (200, 500) on the first N_WIDE rows, scored per seed
-    vk_ms = (200, 500)
+    # vkmc: 2 seeds x vk_ms on the first N_WIDE rows, scored per seed
     ds_w = VFLDataset.from_dense(X_np[:N_WIDE], None, T=T_PARTIES)
     vk_params = {"k": K_CLUSTERS, "alpha": ALPHA, "local_iters": LOCAL_ITERS}
     # K2 at the grid's shape, (3, N_WIDE, 30) x (3, 10, 30) with w = None,
@@ -1126,8 +1303,10 @@ def main() -> None:
     log(f"batched vkmc 2 x {vk_ms} at n={N_WIDE}: grid_s={vgrid_s:.4f} "
         f"launches {counts}")
     if counts != {"leverage": 0, "weighted_gram": 0, "kmeans_assign": 0,
-                  "kmeans_assign_update": 2 * (LOCAL_ITERS + 1)}:
-        fail(f"batched vkmc: launches {counts}; {LOCAL_ITERS + 1} K2 per seed")
+                  "kmeans_assign_update": 2 * (LOCAL_ITERS + 1),
+                  "categorical": 2 * (T_PARTIES * K_CLUSTERS + 2 * len(vk_ms))}:
+        fail(f"batched vkmc: launches {counts}; {LOCAL_ITERS + 1} K2 per seed, "
+             f"K5 for k-means++ and two a cell")
     for r, k in enumerate(rng.split(gkey, 2)):
         eager = build_coreset("vkmc", ds_w, vk_ms[-1], key=k, **vk_params)
         cell = vgrid.coreset(r, 1)
@@ -1138,9 +1317,118 @@ def main() -> None:
             if vgrid.schedule(r, i).total != CommSchedule.dis_total(T_PARTIES, mb):
                 fail(f"batched vkmc: cell ({r}, {i}) billed {vgrid.schedule(r, i).total}")
     log(f"batched vkmc: the m={vk_ms[-1]} cells equal build_coreset bit for bit")
-    del grid, vgrid, ds_w
+    # the vkmc grid split by stage (outside the counted run), seed by seed
+    # with the grid's keys: the same cells
+    stage = {"kmeanspp_s": 0.0, "lloyd_s": 0.0, "score_s": 0.0, "dis_s": 0.0}
+    bw = ds_w.stacked().blocks
+    for r, k in enumerate(rng.split(gkey, 2).to(dev)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        subs = []
+        for _ in range(T_PARTIES):
+            k, sub = rng.split(k)
+            subs.append(sub)
+        k, dis_key = rng.split(k)
+        init = torch.stack([kmeans_plusplus(sub, Xb, K_CLUSTERS)
+                            for sub, Xb in zip(subs, bw)])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        local_c = lloyd(bw, init, iters=LOCAL_ITERS)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        scores = vkmc_local_scores(bw, local_c, ALPHA)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        plans = [dis_plan_full(dis_key, scores, mb, m_cap=vk_ms[-1]) for mb in vk_ms]
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for i, p in enumerate(plans):
+            if not (torch.equal(p.indices, vgrid.indices[r, i])
+                    and torch.equal(p.weights, vgrid.weights[r, i])):
+                fail(f"batched vkmc: the staged rerun of cell ({r}, {i}) drew another coreset")
+        for nm, dt in zip(stage, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            stage[nm] += dt
+    log("breakdown batched vkmc (2 seeds): " + " ".join(
+        f"{nm}={dt:.4f}" for nm, dt in stage.items()) + "; the staged cells equal the grid's")
+    del grid, vgrid, ds_w, bw
 
-    # ---- 8. records -----------------------------------------------------------
+    # ---- 8. the fused engine ---------------------------------------------------
+    # build_coreset_jit on phase 4's data for both tasks, and the uniform
+    # baseline, at both budgets: the first call captures a CUDA graph (after
+    # an eager warm-up), later calls replay it; each is held to the eager
+    # build of the same key (vrlr and vkmc also to phases 4 and 5), and the
+    # graph is replayed for a second key and on a second dataset of the
+    # same shapes
+    X2_np, y2_np = make_data(args.seed + 7, N_FULL, D_FULL)
+    ds2 = VFLDataset.from_dense(X2_np, y2_np, T=T_PARTIES)
+    del X2_np, y2_np
+    per_replay = {"vrlr": {"leverage": 1, "weighted_gram": 0, "kmeans_assign": 0,
+                           "kmeans_assign_update": 0, "categorical": 2},
+                  "vkmc": {"leverage": 0, "weighted_gram": 0, "kmeans_assign": 0,
+                           "kmeans_assign_update": LOCAL_ITERS + 1,
+                           "categorical": T_PARTIES * K_CLUSTERS + 2},
+                  "uniform": dict.fromkeys(launches, 0)}
+    phase_of = {"vrlr": (4, results), "vkmc": (5, vk_results), "uniform": (8, None)}
+    for task, params, off in (("vrlr", {}, 0), ("vkmc", vk_params, 100),
+                              ("uniform", {}, 200)):
+        phase, eager_results = phase_of[task]
+        for m in BUDGETS:
+            key = rng.fold_in(rng.PRNGKey(args.seed + off), m)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eager = build_coreset(task, ds, m, key=key, **params)
+            torch.cuda.synchronize()
+            eager_s = time.perf_counter() - t0
+            runs = []
+            for _ in range(2):        # the capture (first call), then a replay
+                led = CommLedger()
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                cs_f = build_coreset_jit(task, ds, m, key=key, ledger=led, **params)
+                torch.cuda.synchronize()
+                runs.append((cs_f, led.total, time.perf_counter() - t0, read_counts()))
+            (first, _, capture_s, c_first), (cs_f, units, replay_s, c_replay) = runs
+            for nm, c in c_replay.items():
+                launches[nm] += c
+            want = (CommSchedule.uniform(T_PARTIES, m).total if task == "uniform"
+                    else CommSchedule.dis_total(T_PARTIES, m))
+            held = eager if eager_results is None else eager_results[m][0]
+            for label, got in (("first call", first), ("replay", cs_f)):
+                if not torch.equal(got.indices, held.indices):
+                    fail(f"fused {task} m={m}: the {label}'s indices differ from phase "
+                         f"{phase}'s build")
+                if not torch.equal(got.weights, eager.weights):
+                    fail(f"fused {task} m={m}: the {label}'s weights differ from the "
+                         f"eager build's")
+                if (got.comm_units, got.comm_bits) != (eager.comm_units, eager.comm_bits):
+                    fail(f"fused {task} m={m}: the {label} billed {got.comm_units}")
+            if units != want or eager.comm_units != want or c_replay != per_replay[task]:
+                fail(f"fused {task} m={m}: ledger {units} (dis_total {want}), replay "
+                     f"launches {c_replay}, counted {per_replay[task]}")
+            if c_first != {nm: 2 * c for nm, c in per_replay[task].items()}:
+                fail(f"fused {task} m={m}: first call launched {c_first}; the eager "
+                     f"warm-up and the replay, twice {per_replay[task]}")
+            # a second key, and a second dataset of the same shapes, replay the
+            # same graph and equal their eager builds
+            key2 = rng.fold_in(rng.PRNGKey(args.seed + off + 600), m)
+            for label, ds_, k_ in (("second key", ds, key2), ("second dataset", ds2, key)):
+                got = build_coreset_jit(task, ds_, m, key=k_, **params)
+                ref_ = build_coreset(task, ds_, m, key=k_, **params)
+                if not (torch.equal(got.indices, ref_.indices)
+                        and torch.equal(got.weights, ref_.weights)
+                        and got.comm_units == ref_.comm_units):
+                    fail(f"fused {task} m={m}: the {label}'s replay differs from its "
+                         f"eager build")
+            log(f"fused {task} m={m}: capture_s={capture_s:.4f} (first call: eager "
+                f"warm-up, capture, replay) build_s={replay_s:.4f} (replay) eager "
+                f"build_s={eager_s:.4f}; indices_sha256={digest(cs_f.indices)} equal to "
+                f"phase {phase}'s, weights bitwise equal to the "
+                f"eager build's, comm_units={cs_f.comm_units}, replay launches "
+                f"{c_replay}; second key and second dataset equal their eager builds")
+    del ds2
+
+    # ---- records ----------------------------------------------------------------
     record = {"kernels": [
         {"name": "leverage", "route": "cuda",
          "source": "src/repro_torch/csrc/leverage.cu",
@@ -1172,6 +1460,14 @@ def main() -> None:
          "ms": ka_ms, "plain_ms": ka_plain, "bound_ms": ka_bound,
          "bound_by": ka_by, "library_ms": ka_lib,
          "variants": variants["kmeans_assign"]},
+        # no TPU kernel behind it: the reference's XLA-compiled
+        # jax.random.categorical (DIS round 2); no PyTorch call draws these bits
+        {"name": "categorical", "route": "cuda",
+         "source": "src/repro_torch/csrc/categorical.cu",
+         "replaces": "src/repro/core/dis.py:196",
+         "launches": launches["categorical"], "max_abs_err": k5_err,
+         "ms": k5_ms, "plain_ms": k5_plain, "bound_ms": k5_bound,
+         "bound_by": k5_by, "library_ms": None},
     ]}
     print(json.dumps(record))
     for line in smi:

@@ -1,6 +1,7 @@
 """repro_torch.core — the coreset/VFL core of the port: the ``vrlr`` and
-``vkmc`` tasks on the materialized and batched engines, Algorithm 1 and
-its seed API, and the regression and k-means solvers."""
+``vkmc`` tasks on the materialized engine (eager or fused) and the batched
+engine, Algorithm 1 and its seed API, and the regression and k-means
+solvers."""
 
 from repro_torch.core.api import (
     CORESET_TASKS,
@@ -8,6 +9,7 @@ from repro_torch.core.api import (
     CoresetPipeline,
     CoresetTask,
     build_coreset,
+    build_coreset_jit,
     build_coresets_batched,
     get_task,
     register_task,
@@ -69,6 +71,7 @@ __all__ = [
     "as_numpy",
     "BatchedCoresets",
     "build_coreset",
+    "build_coreset_jit",
     "build_coresets_batched",
     "central_comm_cost",
     "CommLedger",

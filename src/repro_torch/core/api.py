@@ -3,8 +3,10 @@
 
 Party-local scores -> DIS sampling -> importance weights, on two engines:
 the materialized engine with the DIS rounds recorded on a ledger (the
-reference's ``transport is None`` branch of ``_exec_materialized``), and
-the batched engine over a (seeds x budgets) grid, billed lazily per cell:
+reference's ``transport is None`` branch of ``_exec_materialized``), with
+its fused fast path (``jit=True``: one CUDA graph per shape on the card),
+and the batched engine over a (seeds x budgets) grid, billed lazily per
+cell:
 
   * :class:`CoresetTask` + :func:`register_task` — the task registry
     (``CORESET_TASKS``); shipped here: ``vrlr`` (Algorithm 2), ``vkmc``
@@ -12,6 +14,7 @@ the batched engine over a (seeds x budgets) grid, billed lazily per cell:
   * :class:`CoresetPipeline` — ``build(spec)`` compiles a
     :class:`~repro_torch.core.plan.CoresetSpec` and runs it.
   * :func:`build_coreset` — the shim over a forced materialized spec;
+    :func:`build_coreset_jit` — the same with ``jit=True``;
     :func:`build_coresets_batched` — the shim over a batched one, which
     returns a :class:`BatchedCoresets` grid.
 
@@ -32,7 +35,7 @@ import torch
 from repro_torch import rng
 from repro_torch.core.comm import CommLedger, CommSchedule
 from repro_torch.core.coreset import Coreset
-from repro_torch.core.dis import dis_plan_full, uniform_plan
+from repro_torch.core.dis import DisPlan, dis_plan_full, uniform_plan
 from repro_torch.core.integrity import health_from_masses
 from repro_torch.core.plan import (
     SCORE_BACKENDS,
@@ -43,12 +46,14 @@ from repro_torch.core.plan import (
 from repro_torch.core.sensitivity import (
     norm_scores,
     vkmc_local_scores,
-    vrlr_scores_stacked,
+    vrlr_leverage_stacked,
+    vrlr_pinv_stacked,
 )
 from repro_torch.core.vfl import VFLDataset
 from repro_torch.core.vkmc import kmeans_plusplus, lloyd
 from repro_torch.core.wire import WirePayload
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.ops import COUNTED
 from repro_torch.utils.registry import Registry
 
 CORESET_TASKS = Registry("coreset_task")
@@ -88,6 +93,14 @@ class CoresetTask:
     schedule is broadcast-only.  ``deterministic_scores`` says the scores
     do not depend on the key (``vrlr``); ``vkmc`` draws its local seeds.
     The batched engine scores once for all seeds only when it is true.
+
+    ``capture_split`` serves the fused engine on the card, for a score
+    function with a step that a CUDA graph cannot hold: a pair
+    ``(prologue, body)`` with ``prologue(ds, backend=..., **params)`` ->
+    a tuple of tensors, run eagerly on every call, and ``body(key,
+    tensors, backend=..., **params)`` -> ``(scores, dis_key)``, captured;
+    ``score_fn(key, ds, ...)`` is ``body(key, prologue(ds, ...), ...)``.
+    Without it the whole score function is captured.
     """
 
     name: str
@@ -95,6 +108,7 @@ class CoresetTask:
     needs_labels: bool = False
     deterministic_scores: bool = True
     description: str = ""
+    capture_split: Optional[Tuple[Callable, Callable]] = None
 
 
 def register_task(name: str, **spec_kwargs):
@@ -115,7 +129,27 @@ def get_task(task: Union[str, CoresetTask]) -> CoresetTask:
     return CORESET_TASKS.get(task)
 
 
+def _vrlr_prologue(ds: VFLDataset, backend: str = "pallas"):
+    """``vrlr``'s steps before the leverage sweep: the stacked view and,
+    but for ``norm``, its Gram pseudo-inverses (``eigh``, which reads its
+    error flag on the host and so stays out of a CUDA graph)."""
+    st = ds.stacked(with_labels=True)
+    if backend == "norm":
+        return (st.blocks,)
+    return vrlr_pinv_stacked(st.blocks)
+
+
+def _vrlr_body(key, tensors, backend: str = "pallas"):
+    """``vrlr``'s capturable rest: the leverage sweep (or the norms)."""
+    if backend == "norm":
+        (blocks,) = tensors
+        return norm_scores(blocks) + 1.0 / blocks.shape[1], key
+    f, M = tensors
+    return vrlr_leverage_stacked(f, M, use_kernel=_use_kernel(backend)), key
+
+
 @register_task("vrlr", needs_labels=True,
+               capture_split=(_vrlr_prologue, _vrlr_body),
                description="Algorithm 2: per-party ridge-leverage scores + DIS")
 def vrlr_scores(key, ds: VFLDataset, backend: str = "pallas"):
     """Algorithm 2 lines 2-3: g_i^(j) = ||u_i^(j)||^2 + 1/n per party, with
@@ -124,10 +158,7 @@ def vrlr_scores(key, ds: VFLDataset, backend: str = "pallas"):
     stacked view: batched Gram + eigh, then ONE party-batched ``leverage``
     kernel launch.
     """
-    st = ds.stacked(with_labels=True)
-    if backend == "norm":
-        return norm_scores(st.blocks) + 1.0 / ds.n, key
-    return vrlr_scores_stacked(st.blocks, use_kernel=_use_kernel(backend)), key
+    return _vrlr_body(key, _vrlr_prologue(ds, backend), backend)
 
 
 @register_task("vkmc", deterministic_scores=False,
@@ -167,15 +198,26 @@ CORESET_TASKS.register("uniform")(
 
 def _exec_materialized(
     spec: CoresetTask, ds: VFLDataset, m: int, key, backend: str,
-    ledger: Optional[CommLedger], params: dict,
+    ledger: Optional[CommLedger], params: dict, fused: bool = False,
 ) -> Coreset:
     """The eager engine: scores computed at once, DIS on the full (T, n)
     matrix, the exact per-round bill derived from the realised plan and
-    recorded on ``ledger``."""
+    recorded on ``ledger``.
+
+    ``fused`` (``jit=True``) is its fast path: the draw (scoring +
+    :func:`dis_plan_full`, or the uniform plan) goes through the builder
+    cached for its shapes (:func:`_fused_plan`), one CUDA graph on the
+    card, and there is no health report, as in the reference's
+    ``_exec_fused``.  The bill is the same."""
     if spec.needs_labels and ds.y is None:
         raise ValueError(f"{spec.name} requires labels at party T")
     if spec.score_fn is None:
-        S, w = uniform_plan(key, ds.n, m, device=ds.device)
+        if fused:
+            n = ds.n
+            S, w = _fused_builder((spec, n, m, ds.device),
+                                  lambda k, _: uniform_plan(k, n, m), key, ())(key, ())
+        else:
+            S, w = uniform_plan(key, ds.n, m, device=ds.device)
         schedule = CommSchedule.uniform(ds.T, m)
         schedule.record(ledger)
         return Coreset(S, w, schedule.total, comm_bits=schedule.total_bits)
@@ -183,16 +225,128 @@ def _exec_materialized(
     # the round-1 G_j upload physically carries the per-row mass table —
     # one float32 entry per row on this engine
     r1_payload = WirePayload.of((ds.n,), "float32", "raw_fp32")
-    scores, dis_key = spec.score_fn(key, ds, backend=backend, **params)
-    plan = dis_plan_full(dis_key, scores, m)
+    health = None
+    if fused:
+        plan = _fused_plan(spec, ds, m, key, backend, params)
+    else:
+        scores, dis_key = spec.score_fn(key, ds, backend=backend, **params)
+        plan = dis_plan_full(dis_key, scores, m)
+        health = health_from_masses(scores.cpu().numpy())
     if not bool(plan.totals.sum() > 0):
         raise ValueError("DIS requires a positive total score")
     schedule = CommSchedule.dis(ds.T, m, counts=plan.counts.tolist(),
                                 round1_payload=r1_payload)
     schedule.record(ledger)
     return Coreset(plan.indices, plan.weights, schedule.total,
-                   comm_bits=schedule.total_bits,
-                   health=health_from_masses(scores.cpu().numpy()))
+                   comm_bits=schedule.total_bits, health=health)
+
+
+# (task, dims, labeled?, n, m, backend, params, device, input dtypes) ->
+# the cached builder; the uniform task's key is (task, n, m, device)
+_JIT_BUILDERS: dict = {}
+
+
+def _launch_counts() -> Tuple[int, ...]:
+    return tuple(fn.launches for fn in COUNTED)
+
+
+class _CapturedBuild:
+    """One build's capturable steps as a CUDA graph, with static buffers
+    for its key and input tensors and the launches it holds.
+
+    Made on the first call for a cache key: the body runs once eagerly on
+    a side stream (it loads the kernel library and warms cuBLAS and the
+    caching allocator), then once under capture into the graph's private
+    pool.  Every call copies its key and inputs into the static buffers,
+    replays, and returns copies of the outputs (the next replay overwrites
+    the static ones).  The kernel wrappers count Python calls, which a
+    replay does not make: the launches the capture recorded are taken off
+    the counters after the capture (it launched nothing) and added back on
+    every replay.  A body that cannot be captured raises."""
+
+    def __init__(self, body: Callable, key: torch.Tensor,
+                 inputs: Tuple[torch.Tensor, ...]):
+        self.key = key.clone()
+        self.inputs = tuple(t.clone() for t in inputs)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            body(self.key, self.inputs)
+        torch.cuda.current_stream().wait_stream(side)
+        before = _launch_counts()
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(self.graph):
+                self.outputs = tuple(body(self.key, self.inputs))
+        except RuntimeError as e:
+            raise RuntimeError(
+                "the fused build could not be captured in a CUDA graph (a "
+                "step of it synchronises with the host or is not "
+                "capturable); build_coreset runs it eagerly") from e
+        finally:
+            captured = _launch_counts()
+            for fn, c in zip(COUNTED, before):
+                fn.launches = c
+        self.launches = tuple(a - b for a, b in zip(captured, before))
+
+    def __call__(self, key: torch.Tensor, inputs: Tuple[torch.Tensor, ...]):
+        self.key.copy_(key)
+        for buf, t in zip(self.inputs, inputs):
+            buf.copy_(t)
+        self.graph.replay()
+        for fn, c in zip(COUNTED, self.launches):
+            fn.launches += c
+        return tuple(t.clone() for t in self.outputs)
+
+
+def _fused_builder(cache_key, body: Callable, key: torch.Tensor,
+                   inputs: Tuple[torch.Tensor, ...]) -> Callable:
+    """The cached builder for ``cache_key``, made on first use: a
+    :class:`_CapturedBuild` on the card, the eager body on the CPU (as
+    ``jax.jit`` runs one compiled program there)."""
+    fn = _JIT_BUILDERS.get(cache_key)
+    if fn is None:
+        fn = _CapturedBuild(body, key, inputs) if key.is_cuda else body
+        _JIT_BUILDERS[cache_key] = fn
+    return fn
+
+
+def _fused_plan(spec: CoresetTask, ds: VFLDataset, m: int, key, backend: str,
+                params: dict) -> DisPlan:
+    """Scoring + :func:`dis_plan_full` through the builder cached per
+    ``(task, shapes, backend, params)``: on the card one CUDA graph,
+    replayed on every later call (the reference's one jitted dispatch).
+
+    Outside the graph, eagerly: a task's ``capture_split`` prologue before
+    the replay (``vrlr``: the stacked view and its Gram pseudo-inverses,
+    since ``torch.linalg.eigh`` on the card reads its error flag on the
+    host, which a capture refuses), and, in the caller, the positive-total
+    check and the bill's ``counts.tolist()`` after it.  Everything else is
+    in the graph: ``vrlr``'s leverage sweep (K1); ``vkmc``'s k-means++ (its
+    picks by the categorical kernel), Lloyd and scores (K2); both DIS
+    rounds (the categorical kernel) and the weights.
+    """
+    if spec.capture_split is not None:
+        prologue, split_body = spec.capture_split
+        inputs = tuple(prologue(ds, backend=backend, **params))
+
+        def body(k, tensors):
+            scores, dis_key = split_body(k, tensors, backend=backend, **params)
+            return dis_plan_full(dis_key, scores, m)
+    else:
+        T = ds.T
+        inputs = tuple(ds.parts) + (() if ds.y is None else (ds.y,))
+
+        def body(k, tensors):
+            y = tensors[T] if len(tensors) > T else None
+            ds_t = VFLDataset(list(tensors[:T]), y, validate=False)
+            scores, dis_key = spec.score_fn(k, ds_t, backend=backend, **params)
+            return dis_plan_full(dis_key, scores, m)
+
+    cache_key = (spec, ds.dims, ds.y is not None, ds.n, m, backend,
+                 tuple(sorted(params.items())), ds.device,
+                 tuple(t.dtype for t in inputs))
+    return DisPlan(*_fused_builder(cache_key, body, key, inputs)(key, inputs))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -348,7 +502,8 @@ class CoresetPipeline:
         if key is None:
             raise ValueError(f"the {ep.engine} engine requires `key`")
         return _exec_materialized(task, self.ds, cspec.budget, key.to(dev),
-                                  ep.backend, ledger, cspec.params)
+                                  ep.backend, ledger, cspec.params,
+                                  fused=cspec.jit)
 
 
 def build_coreset(
@@ -368,6 +523,31 @@ def build_coreset(
     versions on the CPU."""
     spec = CoresetSpec(task=task, budgets=int(budget),
                        engine="materialized", backend=backend, params=params)
+    return CoresetPipeline(ds).build(spec, key=key, ledger=ledger,
+                                     device=device)
+
+
+def build_coreset_jit(
+    task: Union[str, CoresetTask],
+    ds: VFLDataset,
+    budget: int,
+    *,
+    key: rng.Key,
+    backend: str = "auto",
+    ledger: Optional[CommLedger] = None,
+    device: DeviceLike = "cuda",
+    **params,
+) -> Coreset:
+    """One-dispatch :func:`build_coreset` — the materialized engine's fused
+    fast path (shim over ``CoresetSpec(engine="materialized", jit=True)``):
+    on the card scoring + DIS replay as one CUDA graph, captured on the
+    first call for each ``(task, shapes, backend, params)`` and cached (see
+    :func:`_fused_plan` for the steps that stay outside it); on the CPU the
+    same steps run eagerly.  Indices equal the eager build's; the
+    reference holds the weights to fp tolerance."""
+    spec = CoresetSpec(task=task, budgets=int(budget),
+                       engine="materialized", jit=True, backend=backend,
+                       params=params)
     return CoresetPipeline(ds).build(spec, key=key, ledger=ledger,
                                      device=device)
 

@@ -19,8 +19,10 @@ key choreography: ``T + 1`` subkeys from the sequential split chain, the
 first for round 1, one per party for round 2.  The reference draws a
 full-capacity ``(m,)`` candidate stream per party and keeps the first
 a_j; the port computes only those a_j rows of each stream, which are the
-same draws.  The batched engine's ``m_cap`` capacity is supported; the
-blocked variants wait for their engines.
+same draws.  On the card both rounds are the hand-written categorical
+kernel, and the counts a_j stay on the device between them (no host copy,
+so a CUDA graph can hold the whole plan).  The batched engine's ``m_cap``
+capacity is supported; the blocked variants wait for their engines.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import torch
 
 from repro_torch import rng
 from repro_torch.core.comm import CommLedger, CommSchedule
+from repro_torch.kernels import ops as kops
 
 
 def _key_chain(key: rng.Key, num: int) -> torch.Tensor:
@@ -88,16 +91,17 @@ def dis_plan_full(key: rng.Key, scores: torch.Tensor, m: int,
     G = G_j.sum()
 
     # ---- round 1: a ~ Multinomial(m, G_j/G), realised as m iid draws --------
-    draws = rng.categorical(subs[0], rng.log(torch.clamp_min(G_j, 1e-30)),
+    draws = kops.categorical(subs[0], rng.log(torch.clamp_min(G_j, 1e-30)),
                             cap, take=m)
-    a = torch.bincount(draws, minlength=T)
+    # the reference's .at[draws].add, counted on the device
+    a = torch.zeros((T,), dtype=torch.int64, device=scores.device).scatter_add_(
+        0, draws, torch.ones_like(draws))
 
     # ---- round 2: party j draws a_j iid indices ~ g_i^(j)/G^(j) -------------
-    # the head of party j's cap-candidate stream, concatenated in party order
+    # the head of party j's cap-candidate stream, concatenated in party
+    # order; a sums to m, which sizes S without reading a on the host
     logits = rng.log(torch.clamp_min(scores, 1e-30))          # (T, n)
-    take = a.tolist()
-    S = torch.cat([rng.categorical(subs[1 + j], logits[j], cap, take=take[j])
-                   for j in range(T)])
+    S = kops.categorical_parties(subs[1:], logits, cap, a, total=m)
 
     # ---- round 3: per-sample local scores up, weights at server -------------
     # sequential per-party accumulation, the reference's scan order

@@ -6,9 +6,11 @@ and values match the reference's, so a spec carries over.
 :func:`compile_plan` resolves it against a dataset: one budget and one
 seed run on the materialized engine, a (seeds x budgets) grid on the
 batched one, and the streamed and pipelined engines raise
-``NotImplementedError`` naming the ROADMAP item that ports them.  The
-memory model, codec axis, fault policies and plan cache wait for their
-slices.
+``NotImplementedError`` naming the ROADMAP item that ports them.
+``jit=True`` selects the materialized engine's fused path (one CUDA graph
+per shape on the card); the batched engine accepts it and runs as
+without it.  The memory model, codec axis, fault policies and plan cache
+wait for their slices.
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ class CoresetSpec:
     num_seeds: int = 1
     engine: str = "auto"
     backend: str = "auto"
+    jit: bool = False                     # materialized fast path: one fused dispatch
     m_cap: Optional[int] = None           # batched draw capacity override
     params: Mapping[str, Any] = dataclasses.field(default_factory=dict)
 
@@ -84,6 +87,13 @@ class CoresetSpec:
             raise ValueError(
                 f"backend must be 'auto' or one of {SCORE_BACKENDS}, "
                 f"got {self.backend!r}"
+            )
+        if not isinstance(self.jit, bool):
+            raise ValueError(f"jit must be a bool, got {self.jit!r}")
+        if self.jit and self.engine not in ("auto", "materialized", "batched"):
+            raise ValueError(
+                f"jit=True is the materialized/batched fused path; it cannot "
+                f"combine with engine={self.engine!r}"
             )
         if self.m_cap is not None:
             if not _is_int(self.m_cap) or self.m_cap < 1:
@@ -144,7 +154,8 @@ class ExecutionPlan:
         capacity, the data's geometry and the predicted bill."""
         spec = self.spec
         return "\n".join([
-            f"ExecutionPlan: engine={self.engine}",
+            f"ExecutionPlan: engine={self.engine}"
+            + (" (jit)" if spec.jit and self.engine == "materialized" else ""),
             f"  task={self.task_name} backend={self.backend} "
             f"grid={self.grid[0]}x{self.grid[1]} budgets={spec.budgets} "
             f"m_cap={self.m_cap}",

@@ -98,12 +98,26 @@ def vrlr_scores_stacked(blocks: torch.Tensor, rcond: float = 1e-6,
     appended to party T's block).  Returns (T, n) scores.  The O(T n s^2)
     row sweep is ONE party-batched ``leverage`` kernel launch.
     """
+    f, M = vrlr_pinv_stacked(blocks, rcond)
+    return vrlr_leverage_stacked(f, M, use_kernel)
+
+
+def vrlr_pinv_stacked(blocks: torch.Tensor, rcond: float = 1e-6):
+    """The first half of :func:`vrlr_scores_stacked`: ``(f, M)``, the
+    float32 stack and the pseudo-inverses of its batched Gram.  ``eigh``
+    on the card reads its error flag on the host, so the fused engine runs
+    this half eagerly."""
     f = blocks.to(torch.float32)
-    n = f.shape[1]
     G = f.transpose(1, 2) @ f                              # (T, s, s)
-    M = batched_gram_pinv(G, rcond)
+    return f, batched_gram_pinv(G, rcond)
+
+
+def vrlr_leverage_stacked(f: torch.Tensor, M: torch.Tensor,
+                          use_kernel: bool = True) -> torch.Tensor:
+    """The second half of :func:`vrlr_scores_stacked`: the leverage sweep
+    over ``(f, M)``, clipped to [0, 1], plus 1/n."""
     lev = kops.leverage(f, M, use_kernel)                  # (T, n)
-    return torch.clamp(lev, 0.0, 1.0) + 1.0 / n
+    return torch.clamp(lev, 0.0, 1.0) + 1.0 / f.shape[1]
 
 
 # --------------------------------------------------------------------------

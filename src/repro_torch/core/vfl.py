@@ -184,8 +184,10 @@ class VFLDataset:
             blocks[j, :, :p.shape[1]] = p
         if with_labels:
             blocks[self.T - 1, :, self.dims[-1]] = self.y.to(dtype)
-        mask = torch.arange(s, device=self.device)[None, :] < torch.tensor(
-            widths, device=self.device)[:, None]
+        # from the shapes alone: no host-to-device copy, so a CUDA graph
+        # can capture the view
+        cols = torch.arange(s, device=self.device)
+        mask = torch.stack([cols < w for w in widths])
         return StackedParts(blocks, mask, widths)
 
     def rows(self, idx: torch.Tensor) -> "VFLDataset":

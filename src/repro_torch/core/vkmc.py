@@ -26,6 +26,7 @@ from repro_torch import rng
 from repro_torch.core.comm import CommLedger, null_ledger
 from repro_torch.core.sensitivity import kmeans_assignment, kmeans_update
 from repro_torch.core.vfl import VFLDataset
+from repro_torch.kernels import ops as kops
 
 
 def kmeans_cost(X: torch.Tensor, centers: torch.Tensor,
@@ -42,9 +43,10 @@ def kmeans_plusplus(key: rng.Key, X: torch.Tensor, k: int,
     Distances use the cached-norm expansion ``||x||^2 - 2 x.c + ||c||^2``,
     clamped at 0, as the reference does.  Each pick is
     ``jax.random.categorical(key, log(p))`` with no shape, which is
-    :func:`rng.categorical` with ``cap=1``; the logits go through the
-    bit-exact :func:`rng.log`.  Key use: one ``split`` for the first pick,
-    then ``split(key, k - 1)`` for the rest."""
+    :func:`~repro_torch.kernels.ops.categorical` with ``cap=1``; the
+    logits go through the bit-exact :func:`rng.log`.  Key use: one
+    ``split`` for the first pick, then ``split(key, k - 1)`` for the
+    rest."""
     n, d = X.shape
     key = key.to(X.device)
     ww = (torch.ones((n,), dtype=torch.float32, device=X.device) if w is None
@@ -54,15 +56,20 @@ def kmeans_plusplus(key: rng.Key, X: torch.Tensor, k: int,
     def d2_to(c):
         return torch.clamp_min(x2 - 2.0 * (X @ c) + torch.sum(c * c), 0.0)
 
+    def row(key_l, logits):
+        # the picked row, gathered by a (1,) device index: indexing with a
+        # 0-d tensor would read it on the host, which a CUDA graph refuses
+        return torch.index_select(X, 0, kops.categorical(key_l, logits, 1))[0]
+
     k0, key = rng.split(key)
-    first = rng.categorical(k0, rng.log(torch.clamp_min(ww, 1e-30)), 1)[0]
+    first = row(k0, rng.log(torch.clamp_min(ww, 1e-30)))
     centers = torch.zeros((k, d), dtype=X.dtype, device=X.device)
-    centers[0] = X[first]
-    d2 = d2_to(X[first])
+    centers[0] = first
+    d2 = d2_to(first)
     if k > 1:
         for l, key_l in enumerate(rng.split(key, k - 1), start=1):
             probs = torch.clamp_min(ww * d2, 1e-30)
-            c_new = X[rng.categorical(key_l, rng.log(probs), 1)[0]]
+            c_new = row(key_l, rng.log(probs))
             centers[l] = c_new
             d2 = torch.minimum(d2, d2_to(c_new))
     return centers

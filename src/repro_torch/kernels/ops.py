@@ -6,6 +6,10 @@ raises, on a CPU tensor the wrapper takes the plain version.
 ``use_kernel=False`` (``backend="ref"``) runs the plain PyTorch version on
 any device.  There is no environment switch: the plain version is reached
 only by asking for ``"ref"`` or by placing the data on the CPU.
+
+The DIS draw (:func:`categorical`, :func:`categorical_parties`) has no
+``use_kernel``: it follows the device of the logits alone, as the
+reference's ``jax.random.categorical`` has no backend switch.
 """
 
 from __future__ import annotations
@@ -15,12 +19,17 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.categorical import categorical, categorical_parties
 from repro_torch.kernels.kmeans_assign import kmeans_assign as _kmeans_assign
 from repro_torch.kernels.kmeans_assign_update import (
     kmeans_assign_update as _kmeans_assign_update,
 )
 from repro_torch.kernels.leverage import leverage as _leverage
 from repro_torch.kernels.weighted_gram import weighted_gram as _weighted_gram
+
+#: Every kernel wrapper, each with its ``launches`` counter.
+COUNTED = (_leverage, _weighted_gram, _kmeans_assign, _kmeans_assign_update,
+           categorical)
 
 
 def leverage(X: torch.Tensor, M: torch.Tensor, use_kernel: bool = True) -> torch.Tensor:

@@ -9,7 +9,7 @@ is ``threefry_2x32(key, iota(size))``, which hashes the counter pair
 ``(p, p + half)`` for flat position ``p < half`` and keeps lane 0, and
 serves position ``p >= half`` from lane 1 of the pair ``(p - half, p)``
 (``half = ceil(size / 2)``; an odd ``size`` pads the counter array with
-one zero).  That pairing is what lets :func:`categorical` compute any row
+one zero).  That pairing is what lets :func:`categorical_plain` compute any row
 of a ``(cap, n)`` gumbel draw from its own flat positions alone.
 
 torch has few ``uint32`` operations, so every word is an ``int64`` tensor
@@ -27,12 +27,12 @@ import torch
 
 MASK = 0xFFFFFFFF
 
-#: Rows of the ``(cap, n)`` candidate grid that :func:`categorical` hashes
-#: at once.  Peak memory per chunk at n = 463,715 (YearPrediction): 32 rows
-#: are 14.8M positions; at its peak a position holds about 130 B (int64
-#: counters and hash words, the log's float32 steps, and the float64
-#: temporaries of its emulated fused multiply-adds), so one chunk peaks
-#: near 14.8M * 130 B = 1.9 GB, whatever the budget m.
+#: Rows of the ``(cap, n)`` candidate grid that :func:`categorical_plain`
+#: hashes at once.  Peak memory per chunk at n = 463,715 (YearPrediction):
+#: 32 rows are 14.8M positions; at its peak a position holds about 130 B
+#: (int64 counters and hash words, the log's float32 steps, and the float64
+#: temporaries of its emulated fused multiply-adds), so one chunk of the
+#: plain version peaks near 14.8M * 130 B = 1.9 GB, whatever the budget m.
 CATEGORICAL_CHUNK_ROWS = 32
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -111,6 +111,18 @@ def _bits_at(key: Key, pos: torch.Tensor, size: int) -> torch.Tensor:
     x2 = torch.where(x2 >= bsize, torch.zeros_like(x2), x2)   # odd-size pad
     a, b = _hash(k1, k2, x1, x2)
     return torch.where(lo, a, b)
+
+
+def block_keys(keys: torch.Tensor, size: int) -> torch.Tensor:
+    """The per-block keys of a ``size``-word draw under each key of a
+    ``(T, 2)`` stack, as ``(T, nblocks + 1, 2)`` int64 words: the key
+    itself below 2**32 - 1 words (``nblocks == 0``), else
+    ``split(key, nblocks + 1)`` (see :func:`_bits_at`), on its device."""
+    k = keys.to(torch.int64)
+    nblocks = int(size) // MASK
+    if nblocks == 0:
+        return k[:, None, :]
+    return torch.stack([split(kj, nblocks + 1) for kj in k])
 
 
 def PRNGKey(seed: int, device: Union[str, torch.device] = "cpu") -> Key:
@@ -280,17 +292,18 @@ def gumbel(key: Key, shape: Sequence[int]) -> torch.Tensor:
     return _gumbel_of(random_bits(key, shape))
 
 
-def categorical(key: Key, logits: torch.Tensor, cap: int,
-                take: Optional[int] = None) -> torch.Tensor:
+def categorical_plain(key: Key, logits: torch.Tensor, cap: int,
+                      take: Optional[int] = None) -> torch.Tensor:
     """The first ``take`` (default all) entries of
     ``jax.random.categorical(key, logits, shape=(cap,))`` for 1-D
     ``logits`` of length n: row r is ``argmax_c(gumbel[r, c] + logits[c])``
-    over the ``(cap, n)`` gumbel draw.
+    over the ``(cap, n)`` gumbel draw, each row computed from its own flat
+    counter positions, so the rows past ``take`` are never computed.
 
-    Rows are hashed :data:`CATEGORICAL_CHUNK_ROWS` at a time from their own
-    flat counter positions, so the ``(cap, n)`` tensor never exists and the
-    rows past ``take`` are never computed; each row equals the full draw's.
-    """
+    The plain PyTorch version of the categorical kernel
+    (:func:`repro_torch.kernels.ops.categorical` dispatches between them):
+    rows are hashed :data:`CATEGORICAL_CHUNK_ROWS` at a time, so the
+    ``(cap, n)`` tensor never exists; each row equals the full draw's."""
     if logits.ndim != 1:
         raise ValueError(f"categorical takes 1-D logits, got {tuple(logits.shape)}")
     n = logits.shape[0]
@@ -309,3 +322,17 @@ def categorical(key: Key, logits: torch.Tensor, cap: int,
         g = _gumbel_of(_bits_at(key, pos, size))
         out[r0:r1] = torch.argmax(g + lg[None, :], dim=1)
     return out
+
+
+def categorical_parties_plain(keys: torch.Tensor, logits: torch.Tensor, cap: int,
+                              counts: torch.Tensor) -> torch.Tensor:
+    """Party j's first ``counts[j]`` entries of
+    ``jax.random.categorical(keys[j], logits[j], shape=(cap,))`` for every
+    party of a ``(T, 2)`` key stack and ``(T, n)`` logits, concatenated in
+    party order.  The plain version of the kernel's party entry
+    (:func:`repro_torch.kernels.ops.categorical_parties`): one
+    :func:`categorical_plain` head per party, the counts read on the
+    host."""
+    takes = [int(a) for a in counts.tolist()]
+    return torch.cat([categorical_plain(keys[j], logits[j], cap, take=takes[j])
+                      for j in range(len(takes))])

@@ -164,7 +164,7 @@ def test_categorical_indices(seed, cap, n):
     lg = np.log(np.random.default_rng(seed).uniform(0.01, 1.0, n)).astype(np.float32)
     kj, kt = jax.random.PRNGKey(seed), rng.PRNGKey(seed)
     want = np.asarray(jax.random.categorical(kj, jnp.asarray(lg), shape=(cap,)))
-    got = rng.categorical(kt, torch.from_numpy(lg), cap)
+    got = rng.categorical_plain(kt, torch.from_numpy(lg), cap)
     np.testing.assert_array_equal(want, got.numpy())
 
 
@@ -178,15 +178,15 @@ def test_categorical_head_and_chunking(monkeypatch, take):
     full = np.asarray(jax.random.categorical(kj, jnp.asarray(lg), shape=(cap,)))
     for chunk in (1, 3, 64):
         monkeypatch.setattr(rng, "CATEGORICAL_CHUNK_ROWS", chunk)
-        got = rng.categorical(kt, torch.from_numpy(lg), cap, take=take)
+        got = rng.categorical_plain(kt, torch.from_numpy(lg), cap, take=take)
         np.testing.assert_array_equal(full[:take], got.numpy())
 
 
 def test_categorical_rejects_bad_arguments():
     kt = rng.PRNGKey(0)
     with pytest.raises(ValueError):
-        rng.categorical(kt, torch.zeros(2, 3), 4)
+        rng.categorical_plain(kt, torch.zeros(2, 3), 4)
     with pytest.raises(ValueError):
-        rng.categorical(kt, torch.zeros(3), 4, take=5)
+        rng.categorical_plain(kt, torch.zeros(3), 4, take=5)
     with pytest.raises(ValueError):
         rng.PRNGKey(-1)
