@@ -70,7 +70,34 @@ and never JAX or the JAX package ``repro``.  Phases, each fatal on failure:
    equal to the eager build's (and to phases 4 and 5's builds), weights
    equal bit for bit, the exact bill, the launches each replay adds, and
    replays with a second key and on a second dataset of the same shapes
-   equal to their eager builds.
+   equal to their eager builds;
+9. streamed engine: a host-resident copy of phase 4's data (CPU tensors),
+   block_size 65,536 (8 blocks, the last with 4,963 valid rows): each
+   kernel first at the streamed shapes against its plain version (K3 and
+   K1 on a full and the ragged last (3, 65536, 31) block with the row-valid
+   mask as weights, K2 and K4 at (3, 65536, 30) x (3, 10, 30) and K2 on a
+   (16384, 30) subsample, each fast kernel bit for bit to its oracle, K5
+   bit for bit at round 1 over 24 cells and round 2 over a full and the
+   ragged block with its -inf tail); then ``CoresetPipeline(host
+   dataset).build(engine="streamed")`` on the card for ``vrlr`` and
+   ``vkmc`` (k = 10, alpha = 2, 15 local iterations on a 16,384-row
+   subsample) at m in {1000, 5000}, fit and evaluated on the card dataset:
+   the exact bill with an nb-float round-1 payload, the launches counted
+   from the code (touched blocks included), the staged host-to-device
+   bytes (two block passes and the touched blocks), data_passes, a finite
+   relative error under the gate, the build's own peak device memory
+   (above what was allocated before it) under four staged blocks, printed
+   beside phases 4 and 5's peaks; the build split by stage (pass 1, the
+   mass pass, round 1, round 2) and held to the counted build bit for bit;
+   ``vrlr``'s streamed scores and block masses against the materialized
+   scores; ``vkmc``'s block masses against the plain stats and score
+   bodies on the same local centers, Lemma F.2, and the coreset's weighted
+   cost within a few percent of the full data's at the fit's and the
+   baseline's centers; a plan compiled for the host dataset's device
+   refused by a build on the card; the ``norm`` backend at one block,
+   from the host copy and from the card dataset, and the ``uniform``
+   task from the host copy, equal to their materialized builds bit for
+   bit.
 
 Every path is driven with all five launch counters set to 0 just before
 it and read just after.  With the default seed, the drawn indices of
@@ -150,6 +177,26 @@ KMEANS_D2_TOL = 1e-5
 KMEANS_SUM_TOL = 1e-4
 K_CLUSTERS, ALPHA, LOCAL_ITERS, FIT_ITERS = 10, 2.0, 15, 25   # Table 1 right
 SAGA_STEPS = 20_000      # benchmarks/vrlr_main.py's fast setting
+BLOCK_SIZE = 65_536      # the streamed engine's block, the reference's default
+CENTER_SAMPLE = 16_384   # vkmc_local_centers' row subsample, the reference's default
+# streamed vrlr scores and block masses against phase 4's materialized ones:
+# two fp32 pseudo-inverses of the party Grams (condition numbers up to 905
+# at --seed 0), one Gram the block-scan K3 sums (4.3e-8 from the float64
+# Gram), the other one cuBLAS product over all n rows (1.6e-4 from it); at
+# --seed 0 the scores differ by 8.3e-4 of the largest, the materialized ones
+# 8.5e-4 and the streamed ones 4.1e-4 from the scores of a float64 Gram and
+# pseudo-inverse (PERF.md, section 6). The streamed scores and block masses are
+# held to both, the materialized and the float64 ones.
+STREAM_SCORE_TOL = 2e-3  # max |streamed - other| / max |float64 scores|
+# the streamed build's own device memory: at most four staged blocks
+STREAM_PEAK_BLOCKS = 4
+# the streamed vkmc block masses against the plain stats and score bodies
+# on the same (bit-equal) local centers: max |kernel - plain| / plain
+STREAM_MASS_TOL = 1e-4
+# the streamed vkmc coreset's weighted cost against the full data's at the
+# fit's and the baseline's centers, |cost_S / cost_X - 1|: at --seed 0 and
+# m = 1000 0.20% / 0.31%, phase 5's coreset 1.04% / 0.41% (PERF.md)
+STREAM_COST_GATE = 0.05
 # indices_sha256 of phases 4 and 5 at --seed 0, recorded on the card with
 # the plain draw (PERF.md); phase 7's vrlr cell (0, 1) is phase 4's m = 5000
 # build
@@ -434,6 +481,370 @@ def library_assign_update(torch, X, C, w=None):
     wsum = torch.zeros(B * k, device=X.device).index_add_(0, flat, ww)
     ccost = torch.zeros(B * k, device=X.device).index_add_(0, flat, ww * d2.reshape(-1))
     return a, d2, csum, wsum, ccost
+
+
+def streamed_phase(torch, dev, seed, X_np, y_np, ds, lam, launches, mat_peaks, mat_coresets,
+                   check_k5, reset_counts, read_counts):
+    """Phase 9, the streamed engine from a host-resident copy of the main
+    path's data; returns the largest kernel-vs-plain error it saw, by
+    kernel.  ``ds`` is the same data on the card, ``launches`` the running
+    totals it adds the counted builds and fits to, ``mat_peaks`` and
+    ``mat_coresets`` phases 4 and 5's peak device memory and coresets by
+    (task, m)."""
+    import numpy as np
+
+    from repro_torch import rng
+    from repro_torch.core import (
+        CommLedger, CommSchedule, CoresetPipeline, CoresetSpec, VFLDataset, build_coreset,
+        dis_plan_streamed, evaluate, fit_kmeans, fit_ridge, full_data_coreset, kmeans_cost,
+        make_stream_scorer, vkmc_local_centers)
+    from repro_torch.core import streaming as cst
+    from repro_torch.core.api import vrlr_scores
+    from repro_torch.core.dis import _key_chain
+    from repro_torch.core.sensitivity import batched_gram_pinv
+    from repro_torch.core.wire import WirePayload
+    from repro_torch.kernels import kmeans_assign as kka
+    from repro_torch.kernels import kmeans_assign_update as kkau
+    from repro_torch.kernels import leverage as klev
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import weighted_gram as kwg
+
+    T = T_PARTIES
+    phase_t0 = time.perf_counter()
+    ds_host = VFLDataset.from_dense(X_np, y_np, T=T, device="cpu")
+    nb, bs = ds_host.block_geometry(BLOCK_SIZE)
+    last = N_FULL - (nb - 1) * bs
+    log(f"streamed: host-resident copy n={ds_host.n} dims={ds_host.dims} on "
+        f"{ds_host.device}; block_size={BLOCK_SIZE}: {nb} blocks of {bs} rows, the "
+        f"last with {last} valid")
+    gen = torch.Generator(device="cpu").manual_seed(seed + 9)
+    errs = dict.fromkeys(("leverage", "weighted_gram", "kmeans_assign_update",
+                          "kmeans_assign"), 0.0)
+    lev_scale = lambda X, M: klev.plain(X, M).abs().max().item()
+    gram_scale = lambda X, w: kwg.plain(X.abs(), w.abs()).max().item()
+
+    # -- each kernel at the streamed shapes against its plain version (outside
+    #    the counts): a full block and the ragged last one, staged from the host
+    log("kernels at the streamed shapes vs plain:")
+    for b in (0, nb - 1):
+        blk, nv = ds_host.block(b, BLOCK_SIZE, with_labels=True, device=dev)  # (3, bs, 31)
+        wv = cst._row_valid(bs, nv, dev).expand(T, bs)
+        errs["weighted_gram"] = max(errs["weighted_gram"], check_kernel(
+            torch, "weighted_gram", kwg.weighted_gram, kwg.plain, (blk, wv), gram_scale,
+            GRAM_TOL))
+        G = kwg.weighted_gram(blk, wv)
+        if not torch.equal(G, G.transpose(-1, -2)):
+            fail(f"weighted_gram at block {b}: G is not exactly symmetric")
+        M = batched_gram_pinv(G)
+        errs["leverage"] = max(errs["leverage"], check_kernel(
+            torch, "leverage", klev.leverage, klev.plain, (blk, M), lev_scale, LEVERAGE_TOL))
+        check_k1_oracle(torch, klev, blk, M)
+        kb, _ = ds_host.block(b, BLOCK_SIZE, device=dev)                       # (3, bs, 30)
+        Cb = kb[:, torch.randperm(nv, generator=gen)[:K_CLUSTERS].to(dev)].contiguous()
+        errs["kmeans_assign_update"] = max(errs["kmeans_assign_update"], check_kmeans(
+            torch, kref, "kmeans_assign_update", kkau.kmeans_assign_update, kkau.plain,
+            kb, Cb, wv, fused=True))
+        check_k2_oracle(torch, kkau, kb, Cb, wv)
+        errs["kmeans_assign"] = max(errs["kmeans_assign"], check_kmeans(
+            torch, kref, "kmeans_assign", kka.kmeans_assign, kka.plain, kb, Cb))
+        check_k4_oracle(torch, kka, kb, Cb)
+        del blk, kb
+    # K2 on one party's k-means subsample, 2-D, as the local Lloyd runs it
+    Xs = ds_host.parts[0][torch.randperm(N_FULL, generator=gen)[:CENTER_SAMPLE]].to(dev)
+    Cs = Xs[:K_CLUSTERS].contiguous()
+    errs["kmeans_assign_update"] = max(errs["kmeans_assign_update"], check_kmeans(
+        torch, kref, "kmeans_assign_update", kkau.kmeans_assign_update, kkau.plain, Xs, Cs,
+        fused=True))
+    check_k2_oracle(torch, kkau, Xs, Cs)
+    # K5: round 1 over the T * nb cells, round 2 over a full block and over the
+    # ragged last block with its -inf tail (the counter layout is the padded
+    # block's), and a k-means++ pick over the subsample
+    keys = rng.split(rng.PRNGKey(seed + 15), T).to(dev)
+    cell_lg = torch.log(torch.rand(1, T * nb, generator=gen) + 0.01).to(dev)
+    row_lg = torch.log(torch.rand(T, bs, generator=gen) + 0.01).to(dev)
+    tail_lg = row_lg.clone()
+    tail_lg[:, last:] = -float("inf")
+    for m in BUDGETS:
+        per = m // (T * nb)
+        check_k5(keys[:1], cell_lg, m, [m], f"streamed round 1 m={m}")
+        check_k5(keys, row_lg, m, [per] * T, f"streamed round 2 m={m}")
+        check_k5(keys, tail_lg, m, [per, 0, 2 * per], f"streamed round 2, ragged block, m={m}")
+    check_k5(keys[:1], torch.log(torch.rand(1, CENTER_SAMPLE, generator=gen) + 0.01).to(dev),
+             1, [1], "streamed k-means++ pick")
+    del Xs, Cs, row_lg, tail_lg
+
+    # -- the builds: CoresetPipeline(host dataset).build(engine="streamed") on the
+    #    card, counted, then fit and evaluated on the card dataset; then the
+    #    same build split by stage (outside the counts) and held to it
+    pipe = CoresetPipeline(ds_host)
+    # a plan resolves its backend and engine for one device: compiled where
+    # the host dataset lives, it is refused by a build on the card (before
+    # any work is done)
+    try:
+        pipe.build(pipe.plan(CoresetSpec(engine="streamed", block_size=BLOCK_SIZE)),
+                   key=rng.PRNGKey(seed))
+    except ValueError as e:
+        if "compiled for a build on cpu" not in str(e):
+            raise
+    else:
+        fail("a plan compiled for the CPU ran on the card")
+    vk_params = {"k": K_CLUSTERS, "alpha": ALPHA, "local_iters": LOCAL_ITERS,
+                 "center_sample": CENTER_SAMPLE}
+    r1_payload = WirePayload.of((nb,), "float32", "raw_fp32")
+    mat_vrlr = None
+    for task, params, off in (("vrlr", {}, 0), ("vkmc", vk_params, 100)):
+        with_labels = task == "vrlr"
+        widths, s = ds_host.stacked_widths(with_labels)
+        one_block = 4 * T * bs * s
+        passes = 2 if task == "vrlr" else 3
+        for m in BUDGETS:
+            spec = CoresetSpec(task=task, budgets=m, engine="streamed", block_size=BLOCK_SIZE,
+                               params=params)
+            key = rng.fold_in(rng.PRNGKey(seed + off), m)
+            led = CommLedger()
+            staged0 = ds_host.staged_bytes
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            cs = pipe.build(spec, key=key, ledger=led)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            counts = read_counts()
+            peak = torch.cuda.max_memory_allocated() - before
+            staged = ds_host.staged_bytes - staged0
+            reset_counts()
+            if task == "vrlr":
+                fit = fit_ridge(ds, cs, lam)
+                rep = evaluate(ds, fit)
+            else:
+                sk = rng.fold_in(key, 1)
+                fit = fit_kmeans(ds, cs, K_CLUSTERS, key=sk, iters=FIT_ITERS)
+                rep = evaluate(ds, fit, key=sk, iters=FIT_ITERS)
+            torch.cuda.synchronize()
+            fit_counts = read_counts()
+            for nm in launches:
+                launches[nm] += counts[nm] + fit_counts[nm]
+            idx = cs.indices.tolist()
+            touched = len({i // bs for i in idx})
+            want_launches = (
+                {"leverage": nb + touched, "weighted_gram": nb, "kmeans_assign": 0,
+                 "kmeans_assign_update": 0, "categorical": 1 + touched}
+                if task == "vrlr" else
+                {"leverage": 0, "weighted_gram": 0, "kmeans_assign": nb + touched,
+                 "kmeans_assign_update": T * LOCAL_ITERS + nb,
+                 "categorical": T * K_CLUSTERS + 1 + touched})
+            if counts != want_launches:
+                fail(f"streamed {task} m={m}: launches {counts}, counted {want_launches} "
+                     f"from the code ({nb} blocks, {touched} touched)")
+            if staged != (2 * nb + touched) * one_block:
+                fail(f"streamed {task} m={m}: staged {staged} bytes, not two passes of "
+                     f"{nb} blocks and {touched} touched blocks of {one_block}")
+            if cs.indices.shape != (m,) or not (bool((cs.weights > 0).all())
+                                                and bool(torch.isfinite(cs.weights).all())):
+                fail(f"streamed {task} m={m}: malformed coreset")
+            if min(idx) < 0 or max(idx) >= N_FULL:
+                fail(f"streamed {task} m={m}: an index outside [0, {N_FULL})")
+            if not (math.isfinite(rep.rel_error) and rep.rel_error < REL_ERROR_GATE):
+                fail(f"streamed {task} m={m}: rel_error {rep.rel_error} not finite or >= "
+                     f"{REL_ERROR_GATE}")
+            if peak > STREAM_PEAK_BLOCKS * one_block:
+                fail(f"streamed {task} m={m}: the build's peak device memory {peak} bytes "
+                     f"above {STREAM_PEAK_BLOCKS} staged blocks ({STREAM_PEAK_BLOCKS * one_block})")
+
+            # the same build by stage, with the build's key: the local centers,
+            # pass 1 (Gram or stats) and the mass pass by a synchronising probe
+            # after each step; round 1 alone (its key chain timed apart); round 2
+            # the rest of the draw
+            stamps = []
+
+            def probe():
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scorer = make_stream_scorer(task, key, ds_host, BLOCK_SIZE, "pallas", probe=probe,
+                                        device=dev, **params)
+            stamps.insert(0, t0)
+            if task == "vkmc":
+                centers_s = stamps[1] - stamps[0]
+                del stamps[0]
+            pass1_s, mass_s = stamps[nb] - stamps[0], stamps[2 * nb] - stamps[nb]
+            t0 = time.perf_counter()
+            subs = _key_chain(scorer.dis_key, T * nb + 1)
+            torch.cuda.synchronize()
+            chain_s = time.perf_counter() - t0
+            draws = kops.categorical(subs[0], rng.log(torch.clamp_min(
+                scorer.masses.reshape(-1), 1e-30)), m)
+            a_cells = np.bincount(draws.cpu().numpy(), minlength=T * nb)
+            t1 = time.perf_counter()
+            plan = dis_plan_streamed(scorer, m)
+            torch.cuda.synchronize()
+            round1_s, round2_s = t1 - t0, time.perf_counter() - t1 - (t1 - t0)
+            if not (torch.equal(plan.indices, cs.indices)
+                    and torch.equal(plan.weights, cs.weights)):
+                fail(f"streamed {task} m={m}: the staged rerun drew another coreset")
+            if scorer.data_passes != passes or int(plan.counts.sum()) != m:
+                fail(f"streamed {task} m={m}: data_passes {scorer.data_passes} (want "
+                     f"{passes}), counts {plan.counts.tolist()}")
+            if not np.array_equal(a_cells.reshape(T, nb).sum(1), plan.counts.cpu().numpy()):
+                fail(f"streamed {task} m={m}: round 1 alone drew other cells")
+            bill = CommSchedule.dis(T, m, counts=plan.counts.tolist(), round1_payload=r1_payload)
+            if (cs.comm_units, cs.comm_bits, led.total, led.total_bits) != (
+                    bill.total, bill.total_bits, bill.total, bill.total_bits):
+                fail(f"streamed {task} m={m}: billed {cs.comm_units} units / {cs.comm_bits} "
+                     f"bits, CommSchedule.dis says {bill.total} / {bill.total_bits}")
+            extra = ""
+            if task == "vrlr":
+                # every block's scores and the block masses against phase 4's
+                # materialized scores, sliced or summed per block, and both
+                # against the scores of a float64 Gram and pseudo-inverse
+                if mat_vrlr is None:
+                    mat_vrlr = vrlr_scores(key.to(dev), ds)[0]
+                    f32 = ds.stacked(with_labels=True).blocks
+                    f64 = f32.double()
+                    G64 = f64.transpose(1, 2) @ f64
+                    M64 = batched_gram_pinv(G64)
+                    exact = torch.clamp(((f64 @ M64) * f64).sum(-1), 0.0, 1.0) + 1.0 / N_FULL
+                    # the two Grams behind the two scores, against the float64 one
+                    G_k3 = torch.zeros_like(G64, dtype=torch.float32)
+                    for _, blk, nv in ds_host.blocks(BLOCK_SIZE, True, device=dev):
+                        G_k3 = cst._gram_body(G_k3, blk, nv, True)
+                    gram_errs = [float((G - G64).abs().max() / G64.abs().max())
+                                 for G in (f32.transpose(1, 2) @ f32, G_k3)]
+                    del f32, f64, G64, G_k3
+                    per_block = lambda t: torch.nn.functional.pad(
+                        t.double(), (0, nb * bs - N_FULL)).reshape(T, nb, bs)
+                    mat_blocks, exact_blocks = per_block(mat_vrlr), per_block(exact)
+                    scale = float(exact.abs().max())
+                streamed = torch.stack([scorer.score_block(b) for b in range(nb)], 1).double()
+                gap = lambda a, b: float((a - b).abs().max()) / scale
+                mgap = lambda a, b: float(((a - b).abs() / b).max())
+                sc = (gap(streamed, mat_blocks), gap(streamed, exact_blocks),
+                      gap(mat_blocks, exact_blocks))
+                ms = (mgap(scorer.masses.double(), mat_blocks.sum(2)),
+                      mgap(scorer.masses.double(), exact_blocks.sum(2)),
+                      mgap(mat_blocks.sum(2), exact_blocks.sum(2)))
+                if max(sc[:2] + ms[:2]) > STREAM_SCORE_TOL:
+                    fail(f"streamed vrlr m={m}: scores / block masses {sc[0]:.3e} / "
+                         f"{ms[0]:.3e} from the materialized (tol {STREAM_SCORE_TOL:g}), "
+                         f"{sc[1]:.3e} / {ms[1]:.3e} from float64, the materialized "
+                         f"{sc[2]:.3e} / {ms[2]:.3e}")
+                conds = [f"{c:.4g}" for c in scorer.gram_conds.tolist()]
+                extra = (f"; scores / block masses vs materialized {sc[0]:.3e} / {ms[0]:.3e} "
+                         f"(tol {STREAM_SCORE_TOL:g}), vs float64 {sc[1]:.3e} / {ms[1]:.3e}, "
+                         f"materialized vs float64 {sc[2]:.3e} / {ms[2]:.3e}; Gram conds {conds}; "
+                         f"Gram vs float64: cuBLAS over n rows (materialized) "
+                         f"{gram_errs[0]:.3e}, K3 block sums (streamed) {gram_errs[1]:.3e}")
+                split = f"gram_s={pass1_s:.4f} mass_s={mass_s:.4f} (with the pinv)"
+            else:
+                # Lemma F.2 on the streamed masses, with the global cluster sizes
+                centers, _ = vkmc_local_centers(key, ds_host, k=K_CLUSTERS,
+                                                local_iters=LOCAL_ITERS,
+                                                center_sample=CENTER_SAMPLE, device=dev)
+                csize = sum(cst._vkmc_stats_body(blk, centers, nv, True)[0]
+                            for _, blk, nv in ds_host.blocks(BLOCK_SIZE, device=dev))
+                # the block masses against the plain stats and score bodies on
+                # the same centers (the local k-means is deterministic)
+                csize_p = ccost_p = 0.0
+                for _, blk, nv in ds_host.blocks(BLOCK_SIZE, device=dev):
+                    ws, cc = cst._vkmc_stats_body(blk, centers, nv, False)
+                    csize_p, ccost_p = csize_p + ws, ccost_p + cc
+                    del blk
+                plain_masses = []
+                for _, blk, nv in ds_host.blocks(BLOCK_SIZE, device=dev):
+                    plain_masses.append(cst._vkmc_score_body(
+                        blk, centers, csize_p, ccost_p, nv, float(ALPHA), False).sum(1))
+                    del blk
+                plain_masses = torch.stack(plain_masses, 1).double()
+                mass_gap = float(((scorer.masses.double() - plain_masses).abs()
+                                  / plain_masses).max())
+                if not mass_gap <= STREAM_MASS_TOL:
+                    fail(f"streamed vkmc m={m}: block masses {mass_gap:.3e} from the plain "
+                         f"bodies' on the same centers (tol {STREAM_MASS_TOL:g})")
+                sums = scorer.masses.sum(1).double()
+                lemma = 2.0 * (K_CLUSTERS + 1) * ALPHA
+                if bool((csize > 0).all()) and not torch.allclose(
+                        sums, torch.full_like(sums, lemma), rtol=1e-4, atol=0.0):
+                    fail(f"streamed vkmc m={m}: party mass totals {sums.tolist()} != "
+                         f"Lemma F.2's {lemma}")
+                # the coreset's own quality, the fit's luck aside: its weighted
+                # cost against the full data's at the fit's and the baseline's
+                # centers, beside phase 5's coreset of the same key
+                X_full = ds.full()
+                base = fit_kmeans(ds, full_data_coreset(ds), K_CLUSTERS, key=sk,
+                                  iters=FIT_ITERS).params      # evaluate's baseline
+                cost_err = lambda c, C: float(abs(kmeans_cost(X_full[c.indices], C, c.weights)
+                                                  / kmeans_cost(X_full, C) - 1.0))
+                errs_c = [(cost_err(c, fit.params), cost_err(c, base))
+                          for c in (cs, mat_coresets[(task, m)])]
+                del X_full, base
+                if not max(errs_c[0]) <= STREAM_COST_GATE:
+                    fail(f"streamed vkmc m={m}: the coreset's weighted cost is "
+                         f"{errs_c[0][0]:.4g} / {errs_c[0][1]:.4g} from the full data's at "
+                         f"the fit's / the baseline's centers (gate {STREAM_COST_GATE:g})")
+                best_rel = rep.cost_fit / min(rep.cost_fit, rep.cost_opt) - 1.0
+                extra = (f"; block masses vs plain bodies {mass_gap:.3e} (tol "
+                         f"{STREAM_MASS_TOL:g}); party mass totals {sums.tolist()} "
+                         f"(Lemma F.2: {lemma}), "
+                         f"smallest global cluster {int(csize.min())}; rel_error_vs_best="
+                         f"{best_rel:.6g}; coreset cost error at the fit's / the baseline's "
+                         f"centers {errs_c[0][0]:.4g} / {errs_c[0][1]:.4g}, phase 5's coreset "
+                         f"{errs_c[1][0]:.4g} / {errs_c[1][1]:.4g} (gate {STREAM_COST_GATE:g})")
+                split = (f"centers_s={centers_s:.4f} stats_s={pass1_s:.4f} "
+                         f"mass_s={mass_s:.4f}")
+            h2d_sub = 0 if task == "vrlr" else 4 * CENTER_SAMPLE * sum(ds_host.dims)
+            log(f"streamed {task} m={m}: build_s={build_s:.4f} rel_error={rep.rel_error:.6g} "
+                f"indices_sha256={digest(cs.indices)} comm_units={cs.comm_units} "
+                f"comm_bits={cs.comm_bits} touched={touched}/{nb} h2d_bytes={staged + h2d_sub} "
+                f"(blocks {staged}, subsample {h2d_sub}) peak_bytes={peak} (limit "
+                f"{STREAM_PEAK_BLOCKS * one_block}; materialized phase {4 if task == 'vrlr' else 5}: "
+                f"{mat_peaks[(task, m)]}) launches {counts}, fit+evaluate {fit_counts}")
+            log(f"breakdown streamed {task} m={m}: {split} round1_s={round1_s:.4f} (the "
+                f"{T * nb + 1}-key chain {chain_s:.4f}) round2_s={round2_s:.4f} ({touched} "
+                f"touched blocks; probes synchronise){extra}")
+            del scorer, plan, cs, fit, rep
+
+    # -- identity: the norm backend at one block is the materialized norm build,
+    #    from the host copy (staged) and from the card dataset (sliced in place)
+    m = BUDGETS[0]
+    for task, params in (("vrlr", {}), ("vkmc", {"k": K_CLUSTERS})):
+        key = rng.fold_in(rng.PRNGKey(seed + 900), m)
+        mat = build_coreset(task, ds, m, key=key, backend="norm", **params)
+        for label, d_ in (("host", ds_host), ("card", ds)):
+            st = CoresetPipeline(d_).build(
+                CoresetSpec(task=task, budgets=m, engine="streamed", backend="norm",
+                            block_size=N_FULL, params=params), key=key)
+            if not (torch.equal(st.indices, mat.indices) and torch.equal(st.weights, mat.weights)):
+                fail(f"streamed norm {task} ({label} dataset, one block): differs from the "
+                     f"materialized norm build")
+            if (st.comm_units, st.comm_bits) != (mat.comm_units,
+                                                 mat.comm_bits - T * (N_FULL - 1) * 32):
+                fail(f"streamed norm {task} ({label}): billed {st.comm_units} / "
+                     f"{st.comm_bits}, the materialized {mat.comm_units} / {mat.comm_bits}")
+        log(f"streamed norm {task} m={m}, block_size=n: host-resident and card-resident "
+            f"builds equal the materialized norm build bit for bit "
+            f"(indices_sha256={digest(mat.indices)}), comm_units={mat.comm_units}; bits "
+            f"{mat.comm_bits} - T (n - 1) 32 (round 1 carries one float per block)")
+    # the uniform task on the streamed engine from the host copy: the
+    # materialized engine's indices and weights, bit for bit, and its bill
+    key = rng.fold_in(rng.PRNGKey(seed + 200), m)
+    mat = build_coreset("uniform", ds, m, key=key)
+    st = CoresetPipeline(ds_host).build(
+        CoresetSpec(task="uniform", budgets=m, engine="streamed", block_size=BLOCK_SIZE),
+        key=key)
+    if not (torch.equal(st.indices, mat.indices) and torch.equal(st.weights, mat.weights)
+            and (st.comm_units, st.comm_bits) == (mat.comm_units, mat.comm_bits)
+            and st.comm_units == CommSchedule.uniform(T, m).total):
+        fail(f"streamed uniform m={m}: differs from the materialized uniform build")
+    log(f"streamed uniform m={m} from the host copy: equal to the materialized build bit "
+        f"for bit (indices_sha256={digest(st.indices)}), comm_units={st.comm_units}")
+    del ds_host
+    log(f"phase 9 took {time.perf_counter() - phase_t0:.1f} s")
+    return errs
 
 
 def main() -> None:
@@ -885,6 +1296,7 @@ def main() -> None:
 
     # ---- 4. main path: vrlr ---------------------------------------------------
     launches = {fn.__name__: 0 for fn in counted}
+    mat_peaks = {}
     pipeline = CoresetPipeline(ds)
     results = {}
     for m in BUDGETS:
@@ -908,6 +1320,7 @@ def main() -> None:
         counts = read_counts()
         nl, nw = counts["leverage"], counts["weighted_gram"]
         peak = torch.cuda.max_memory_allocated()
+        mat_peaks[("vrlr", m)] = peak
         for nm, c in counts.items():
             launches[nm] += c
         results[m] = (cs, rep)
@@ -1031,6 +1444,7 @@ def main() -> None:
         t3 = time.perf_counter()
         counts = read_counts()
         peak = torch.cuda.max_memory_allocated()
+        mat_peaks[("vkmc", m)] = peak
         for nm, c in counts.items():
             launches[nm] += c
         vk_results[m] = (cs, rep, fit)
@@ -1427,6 +1841,16 @@ def main() -> None:
                 f"eager build's, comm_units={cs_f.comm_units}, replay launches "
                 f"{c_replay}; second key and second dataset equal their eager builds")
     del ds2
+
+    # ---- 9. the streamed engine ---------------------------------------------------
+    mat_coresets = {(task, m): res[m][0] for task, res in (("vrlr", results),
+                                                           ("vkmc", vk_results)) for m in BUDGETS}
+    errs = streamed_phase(torch, dev, args.seed, X_np, y_np, ds, lam, launches, mat_peaks,
+                          mat_coresets, check_k5, reset_counts, read_counts)
+    lev_err = max(lev_err, errs["leverage"])
+    gram_err = max(gram_err, errs["weighted_gram"])
+    kau_err = max(kau_err, errs["kmeans_assign_update"])
+    ka_err = max(ka_err, errs["kmeans_assign"])
 
     # ---- records ----------------------------------------------------------------
     record = {"kernels": [

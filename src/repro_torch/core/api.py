@@ -1,12 +1,14 @@
 """The CoresetPipeline API for the ported engines (port of
 :mod:`repro.core.api`).
 
-Party-local scores -> DIS sampling -> importance weights, on two engines:
-the materialized engine with the DIS rounds recorded on a ledger (the
-reference's ``transport is None`` branch of ``_exec_materialized``), with
-its fused fast path (``jit=True``: one CUDA graph per shape on the card),
-and the batched engine over a (seeds x budgets) grid, billed lazily per
-cell:
+Party-local scores -> DIS sampling -> importance weights, on three
+engines: the materialized engine with the DIS rounds recorded on a ledger
+(the reference's ``transport is None`` branch of ``_exec_materialized``),
+with its fused fast path (``jit=True``: one CUDA graph per shape on the
+card); the batched engine over a (seeds x budgets) grid, billed lazily per
+cell; and the streamed engine (block-scan scoring + hierarchical DIS from
+a dataset that may stay in host memory, :mod:`repro_torch.core.streaming`;
+the ``transport is None`` branch of the reference's ``_exec_streaming``):
 
   * :class:`CoresetTask` + :func:`register_task` — the task registry
     (``CORESET_TASKS``); shipped here: ``vrlr`` (Algorithm 2), ``vkmc``
@@ -16,7 +18,10 @@ cell:
   * :func:`build_coreset` — the shim over a forced materialized spec;
     :func:`build_coreset_jit` — the same with ``jit=True``;
     :func:`build_coresets_batched` — the shim over a batched one, which
-    returns a :class:`BatchedCoresets` grid.
+    returns a :class:`BatchedCoresets` grid;
+    :func:`build_coreset_streaming` — the shim over a pipelined one,
+    which the planner lowers to the streamed engine at
+    ``chunk_blocks=1, prefetch=False``.
 
 Key choreography matches the reference: the ``vrlr`` score function
 passes its key through untouched; ``vkmc`` splits it once per party (the
@@ -43,6 +48,7 @@ from repro_torch.core.plan import (
     ExecutionPlan,
     compile_plan,
 )
+from repro_torch.core.streaming import dis_plan_streamed, make_stream_scorer
 from repro_torch.core.sensitivity import (
     norm_scores,
     vkmc_local_scores,
@@ -444,16 +450,53 @@ def _exec_batched(
                            T=ds.T, cells=ds.n)
 
 
+def _exec_streaming(
+    spec: CoresetTask, ds: VFLDataset, m: int, key, backend: str,
+    ledger: Optional[CommLedger], probe: Optional[Callable[[], None]],
+    block_size: int, params: dict, device: torch.device,
+) -> Coreset:
+    """The streamed engine: block-scan scoring + hierarchical (party,
+    block) DIS on ``device``, from ``ds`` on the CPU or on ``device``.
+    The exact per-round bill is recorded on ``ledger``; the round-1 upload
+    is the (T, nb) block-mass table, one raw float32 per block per party.
+    Nothing crosses a wire on this path; transports, codecs and
+    checkpoints come with ROADMAP.md queue 1, item 14."""
+    if spec.needs_labels and ds.y is None:
+        raise ValueError(f"{spec.name} requires labels at party T")
+    if spec.score_fn is None:
+        S, w = uniform_plan(key, ds.n, m)
+        schedule = CommSchedule.uniform(ds.T, m)
+        schedule.record(ledger)
+        return Coreset(S, w, schedule.total, comm_bits=schedule.total_bits)
+    nb = ds.block_geometry(int(block_size))[0]
+    r1_payload = WirePayload.of((nb,), "float32", "raw_fp32")
+    scorer = make_stream_scorer(spec.name, key, ds, int(block_size), backend,
+                                probe=probe, device=device, **params)
+    conds = None if scorer.gram_conds is None else scorer.gram_conds.cpu().numpy()
+    health = health_from_masses(scorer.masses.cpu().numpy(), gram_conds=conds)
+    if not bool(scorer.masses.sum() > 0):
+        raise ValueError("DIS requires a positive total score")
+    plan = dis_plan_streamed(scorer, m, probe=probe)
+    schedule = CommSchedule.dis(ds.T, m, counts=plan.counts.tolist(),
+                                round1_payload=r1_payload)
+    schedule.record(ledger)
+    return Coreset(plan.indices, plan.weights, schedule.total,
+                   comm_bits=schedule.total_bits, health=health)
+
+
 @dataclasses.dataclass
 class CoresetPipeline:
     """The declarative entry point: ``build(spec)`` compiles the spec into
     an :class:`~repro_torch.core.plan.ExecutionPlan` and runs its engine.
-    ``build`` also accepts a pre-compiled plan."""
+    ``build`` also accepts a plan pre-compiled for its dataset and device."""
 
     ds: VFLDataset
 
-    def plan(self, spec: CoresetSpec) -> ExecutionPlan:
-        return compile_plan(spec, self.ds)
+    def plan(self, spec: CoresetSpec,
+             device: Optional[DeviceLike] = None) -> ExecutionPlan:
+        """``spec`` compiled for a build on ``device`` (default: where the
+        dataset lives).  ``build`` runs the plan only on that device."""
+        return compile_plan(spec, self.ds, device)
 
     def build(
         self,
@@ -462,23 +505,22 @@ class CoresetPipeline:
         key: Optional[rng.Key] = None,
         keys: Optional[torch.Tensor] = None,
         ledger: Optional[CommLedger] = None,
+        probe: Optional[Callable[[], None]] = None,
         device: DeviceLike = "cuda",
     ) -> Union[Coreset, BatchedCoresets]:
         """Build per the (compiled) spec on ``device`` — the card unless
-        the caller asks for the CPU; the dataset must live there.
+        the caller asks for the CPU.  The streamed engine takes a dataset
+        on the CPU or on ``device`` and computes on ``device``; every
+        other engine needs the dataset on ``device``.
 
         Returns a :class:`Coreset` for single-cell plans and a
         :class:`BatchedCoresets` grid for the batched engine.  ``keys`` (a
         ``(R, 2)`` key stack) overrides ``key`` + ``spec.num_seeds`` for
         the batched engine, which bills its cells lazily
         (``grid.coreset(..., ledger=...)``), so ``ledger`` applies to
-        single-cell engines only."""
+        single-cell engines only.  ``probe`` (if given) runs after every
+        block of the streamed engine's passes and redraw."""
         dev = resolve_device(device)
-        if self.ds.device != dev:
-            raise ValueError(
-                f"the dataset lives on {self.ds.device}, the build was asked "
-                f"to run on {dev}; build the dataset with device={str(dev)!r}"
-            )
         if isinstance(spec, ExecutionPlan):
             ep = spec
             if (ep.n, ep.dims) != (self.ds.n, self.ds.dims):
@@ -488,8 +530,23 @@ class CoresetPipeline:
                     f"n={self.ds.n}, dims={self.ds.dims} — recompile with "
                     f"plan(spec)"
                 )
+            if ep.device != dev:
+                # the backend, the prefetch default and the engine's
+                # lowering were resolved for the plan's device
+                raise ValueError(
+                    f"plan was compiled for a build on {ep.device}; this "
+                    f"build runs on {dev} — recompile with "
+                    f"plan(spec, device={str(dev)!r})"
+                )
         else:
-            ep = self.plan(spec)
+            ep = self.plan(spec, dev)
+        host_stream = ep.engine == "streamed" and self.ds.device.type == "cpu"
+        if self.ds.device != dev and not host_stream:
+            raise ValueError(
+                f"the dataset lives on {self.ds.device}, the build was asked "
+                f"to run on {dev}; build the dataset with device={str(dev)!r}"
+                f" (only the streamed engine reads a dataset from the CPU)"
+            )
         cspec = ep.spec
         task = get_task(cspec.task)
         if ep.engine == "batched":
@@ -501,6 +558,10 @@ class CoresetPipeline:
                                  ep.backend, ep.m_cap, cspec.params)
         if key is None:
             raise ValueError(f"the {ep.engine} engine requires `key`")
+        if ep.engine == "streamed":
+            return _exec_streaming(task, self.ds, cspec.budget, key.to(dev),
+                                   ep.backend, ledger, probe, ep.block_size,
+                                   cspec.params, dev)
         return _exec_materialized(task, self.ds, cspec.budget, key.to(dev),
                                   ep.backend, ledger, cspec.params,
                                   fused=cspec.jit)
@@ -549,6 +610,43 @@ def build_coreset_jit(
                        engine="materialized", jit=True, backend=backend,
                        params=params)
     return CoresetPipeline(ds).build(spec, key=key, ledger=ledger,
+                                     device=device)
+
+
+def build_coreset_streaming(
+    task: Union[str, CoresetTask],
+    ds: VFLDataset,
+    budget: int,
+    *,
+    key: rng.Key,
+    block_size: int = 65536,
+    chunk_blocks: Optional[int] = None,
+    prefetch: Optional[bool] = None,
+    backend: str = "auto",
+    ledger: Optional[CommLedger] = None,
+    probe: Optional[Callable[[], None]] = None,
+    device: DeviceLike = "cuda",
+    **params,
+) -> Coreset:
+    """Build one coreset with n as a streaming dimension (shim over
+    ``CoresetSpec(engine="pipelined")``, as in the reference).
+
+    The planner lowers ``chunk_blocks=1, prefetch=False`` to the streamed
+    engine: block-scan scoring and the hierarchical (party, block) DIS
+    sampler, one (T, bs, s) block on the card at a time, from ``ds`` on
+    the CPU or on ``device``.  The defaults (``chunk_blocks`` from
+    :data:`~repro_torch.core.plan.DEFAULT_CHUNK_BLOCKS`, ``prefetch``
+    from :data:`~repro_torch.core.plan.PREFETCH_DEFAULT`) plan the
+    pipelined engine, which raises ``NotImplementedError`` until it is
+    ported (ROADMAP.md queue 1, item 12, the pipelined half).  With
+    ``block_size >= ds.n`` the draws equal :func:`build_coreset`'s bit for
+    bit when the blockwise scores do (the row-local ``norm`` backend).
+    """
+    spec = CoresetSpec(task=task, budgets=int(budget), engine="pipelined",
+                       backend=backend, block_size=block_size,
+                       chunk_blocks=chunk_blocks, prefetch=prefetch,
+                       params=params)
+    return CoresetPipeline(ds).build(spec, key=key, ledger=ledger, probe=probe,
                                      device=device)
 
 

@@ -22,7 +22,12 @@ a_j; the port computes only those a_j rows of each stream, which are the
 same draws.  On the card both rounds are the hand-written categorical
 kernel, and the counts a_j stay on the device between them (no host copy,
 so a CUDA graph can hold the whole plan).  The batched engine's ``m_cap``
-capacity is supported; the blocked variants wait for their engines.
+capacity is supported.
+
+:func:`dis_plan_blocked` is Algorithm 1 applied to (party, row-block)
+cells, the in-memory oracle of the streamed engine's sampler
+(:func:`repro_torch.core.streaming.dis_plan_streamed`);
+:func:`dis_blocked_marginals` is its exact marginal in float64.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch
 
 from repro_torch import rng
 from repro_torch.core.comm import CommLedger, CommSchedule
+from repro_torch.core.vfl import block_geometry
 from repro_torch.kernels import ops as kops
 
 
@@ -113,6 +119,94 @@ def dis_plan_full(key: rng.Key, scores: torch.Tensor, m: int,
         S = torch.cat([S, S.new_zeros(cap - m)])
         w = torch.cat([w, w.new_zeros(cap - m)])
     return DisPlan(S, w, a, G_j)
+
+
+def blocked_geometry(n: int, block_size: int) -> Tuple[int, int]:
+    """(num_blocks nb, rows-per-block bs) for a ``block_size`` row chunking
+    — :func:`repro_torch.core.vfl.block_geometry`, so the sampler's cell
+    grid and ``VFLDataset.block``'s chunking cannot drift apart.
+    ``block_size >= n`` is ONE unpadded block, the regime where
+    :func:`dis_plan_blocked` equals :func:`dis_plan_full` bit for bit."""
+    return block_geometry(n, block_size)
+
+
+def dis_plan_blocked(key: rng.Key, scores: torch.Tensor, m: int,
+                     block_size: int, m_cap: Optional[int] = None) -> DisPlan:
+    """Hierarchical (two-level) DIS: Algorithm 1 applied to (party,
+    row-block) cells.
+
+    Round 1 draws cells (j, b) from the block masses
+    G^(j,b) = sum_{i in block b} g_i^(j); round 2 draws a row within each
+    chosen cell ~ g_i^(j)/G^(j,b).  The induced marginal telescopes to the
+    flat plan's g_i^(j)/G (:func:`dis_blocked_marginals`).  This in-memory
+    variant takes the full ``(T, n)`` scores: it is the oracle of the
+    streamed sampler.
+
+    :func:`dis_plan_full`'s structure with cells in place of parties: a
+    ``T*nb + 1`` key chain (cells party-major, c = j*nb + b); round 1 one
+    categorical draw over the log cell masses; the cell counts by
+    ``scatter_add_`` on the device; round 2 one
+    :func:`~repro_torch.kernels.ops.categorical_parties` over the
+    ``(T*nb, bs)`` cell logits (padded rows -inf, so the counter layout is
+    the padded block's), giving the cell-major union; round 3 the
+    party-ordered scan.  With ``block_size >= n`` it equals
+    :func:`dis_plan_full` bit for bit.
+    """
+    T, n = scores.shape
+    m = int(m)
+    cap = m if m_cap is None else int(m_cap)
+    if not 0 <= m <= cap:
+        raise ValueError(f"budget m={m} outside [0, m_cap={cap}]")
+    scores = scores.to(torch.float32)
+    dev = scores.device
+    nb, bs = blocked_geometry(n, block_size)
+    npad = nb * bs
+    sp = torch.nn.functional.pad(scores, (0, npad - n)).reshape(T, nb, bs)
+    row_ok = (torch.arange(npad, device=dev) < n).reshape(nb, bs)
+    ncells = T * nb
+    subs = _key_chain(key.to(dev), ncells + 1)
+    masses = torch.sum(sp, dim=2)                                # (T, nb)
+    G = masses.sum()
+
+    # ---- round 1: cells ~ Multinomial(m, G_jb/G) ----------------------------
+    draws = kops.categorical(subs[0],
+                             rng.log(torch.clamp_min(masses.reshape(-1), 1e-30)),
+                             cap, take=m)
+    a_cells = torch.zeros((ncells,), dtype=torch.int64, device=dev).scatter_add_(
+        0, draws, torch.ones_like(draws))
+
+    # ---- round 2: within-cell rows, the union in cell order -----------------
+    cell_logits = torch.where(row_ok[None], rng.log(torch.clamp_min(sp, 1e-30)),
+                              -float("inf")).reshape(ncells, bs)
+    local = kops.categorical_parties(subs[1:], cell_logits, cap, a_cells, total=m)
+    base = (torch.arange(nb, device=dev) * bs).repeat(T)          # cell -> row 0
+    S = local + torch.repeat_interleave(base, a_cells, output_size=m)
+
+    # ---- round 3: per-sample combined scores, party-ordered -----------------
+    g_sum_S = torch.zeros((m,), dtype=scores.dtype, device=dev)
+    for j in range(T):
+        g_sum_S = g_sum_S + scores[j][S]
+    w = G / (m * torch.clamp_min(g_sum_S, 1e-30))
+    if cap > m:
+        S = torch.cat([S, S.new_zeros(cap - m)])
+        w = torch.cat([w, w.new_zeros(cap - m)])
+    return DisPlan(S, w, a_cells.reshape(T, nb).sum(dim=1), masses.sum(dim=1))
+
+
+def dis_blocked_marginals(local_scores: List, block_size: int) -> np.ndarray:
+    """The exact per-index marginal induced by :func:`dis_plan_blocked`,
+    computed WITHOUT algebraic simplification (float64): sum over cells of
+    P(cell) * P(i | cell)."""
+    g = np.stack([np.asarray(torch.as_tensor(x).cpu(), np.float64)
+                  for x in local_scores])                           # (T, n)
+    T, n = g.shape
+    nb, bs = blocked_geometry(n, block_size)
+    gp = np.pad(g, ((0, 0), (0, nb * bs - n))).reshape(T, nb, bs)
+    masses = gp.sum(axis=2)                                          # (T, nb)
+    G = masses.sum()
+    within = gp / np.maximum(masses[:, :, None], np.finfo(np.float64).tiny)
+    per_cell = (masses[:, :, None] / G) * within                     # (T, nb, bs)
+    return per_cell.reshape(T, -1)[:, :n].sum(axis=0)
 
 
 def dis_plan(key: rng.Key, scores: torch.Tensor, m: int,

@@ -5,12 +5,14 @@ A :class:`CoresetSpec` validates the fields the port reads; the names
 and values match the reference's, so a spec carries over.
 :func:`compile_plan` resolves it against a dataset: one budget and one
 seed run on the materialized engine, a (seeds x budgets) grid on the
-batched one, and the streamed and pipelined engines raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+batched one, and a forced ``streamed`` engine runs block at a time
+(``chunk_blocks`` 1, no prefetch).  ``pipelined`` at ``chunk_blocks=1``
+without prefetch is lowered to ``streamed``; above that it raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 ``jit=True`` selects the materialized engine's fused path (one CUDA graph
 per shape on the card); the batched engine accepts it and runs as
-without it.  The memory model, codec axis, fault policies and plan cache
-wait for their slices.
+without it.  ``engine="auto"`` picks the materialized engine: the memory
+model, codec axis, fault policies and plan cache wait for their slices.
 """
 
 from __future__ import annotations
@@ -19,9 +21,11 @@ import dataclasses
 from typing import Any, Mapping, Optional, Tuple, Union
 
 import numpy as np
+import torch
 
 from repro_torch.core.comm import CommSchedule
-from repro_torch.core.vfl import VFLDataset
+from repro_torch.core.vfl import VFLDataset, block_geometry
+from repro_torch.device import DeviceLike, resolve_device
 
 #: Score backends, named as in the reference so specs carry over: in the
 #: port ``"pallas"`` means the hand-written CUDA kernels.
@@ -31,9 +35,18 @@ ENGINES = ("materialized", "batched", "streamed", "pipelined")
 
 #: Where each engine the port lacks is scheduled (ROADMAP.md, queue 1).
 _NOT_PORTED = {
-    "streamed": "queue 1, item 12 (streamed and pipelined engines)",
-    "pipelined": "queue 1, item 12 (streamed and pipelined engines)",
+    "pipelined": "queue 1, item 12, the pipelined half",
 }
+
+# superchunk width when chunk_blocks is not given (the reference's)
+DEFAULT_CHUNK_BLOCKS = 8
+
+#: Prefetch default per device type when ``prefetch`` is not given.  The
+#: CPU value is the reference's measured winner (the staging thread competes
+#: with the compute it overlaps); the CUDA value is the reference's
+#: accelerator default, not yet measured on an H100 (ROADMAP.md queue 1,
+#: item 12).
+PREFETCH_DEFAULT = {"cpu": False, "cuda": True}
 
 
 def _is_int(x) -> bool:
@@ -57,6 +70,9 @@ class CoresetSpec:
     engine: str = "auto"
     backend: str = "auto"
     jit: bool = False                     # materialized fast path: one fused dispatch
+    block_size: int = 65536
+    chunk_blocks: Optional[int] = None    # None -> DEFAULT_CHUNK_BLOCKS (planner)
+    prefetch: Optional[bool] = None       # None -> PREFETCH_DEFAULT (planner)
     m_cap: Optional[int] = None           # batched draw capacity override
     params: Mapping[str, Any] = dataclasses.field(default_factory=dict)
 
@@ -95,6 +111,17 @@ class CoresetSpec:
                 f"jit=True is the materialized/batched fused path; it cannot "
                 f"combine with engine={self.engine!r}"
             )
+        if not _is_int(self.block_size) or self.block_size < 1:
+            raise ValueError(
+                f"block_size must be a positive int, got {self.block_size!r}"
+            )
+        if self.chunk_blocks is not None and (
+                not _is_int(self.chunk_blocks) or self.chunk_blocks < 1):
+            raise ValueError(
+                f"chunk_blocks must be a positive int, got {self.chunk_blocks!r}"
+            )
+        if self.prefetch is not None and not isinstance(self.prefetch, bool):
+            raise ValueError(f"prefetch must be a bool, got {self.prefetch!r}")
         if self.m_cap is not None:
             if not _is_int(self.m_cap) or self.m_cap < 1:
                 raise ValueError(
@@ -129,10 +156,12 @@ class CoresetSpec:
 @dataclasses.dataclass(frozen=True)
 class ExecutionPlan:
     """The compiled execution of a :class:`CoresetSpec` on one dataset:
-    one concrete engine, the backend resolved from the dataset's device,
-    the (num_seeds, num_budgets) grid with its draw capacity, and the
-    exact predicted bill of every cell together (Algorithm 1's total does
-    not depend on the realised round-2 counts)."""
+    one concrete engine, the device the build computes on and the backend
+    resolved from it, the (num_seeds, num_budgets) grid with its draw capacity,
+    the streaming knobs (``chunk_blocks`` clamped to the block count),
+    the exact predicted bill of every cell together (Algorithm 1's total
+    does not depend on the realised round-2 counts), and ``notes``, the
+    planner's decisions (lowerings, clamps)."""
 
     spec: CoresetSpec
     engine: str
@@ -144,6 +173,11 @@ class ExecutionPlan:
     grid: Tuple[int, int]          # (num_seeds, num_budgets)
     m_cap: int
     predicted_comm_units: int
+    device: torch.device           # where the build computes
+    block_size: int = 65536
+    chunk_blocks: int = 1
+    prefetch: bool = False
+    notes: Tuple[str, ...] = ()
 
     @property
     def is_grid(self) -> bool:
@@ -153,26 +187,47 @@ class ExecutionPlan:
         """Human-readable plan: engine, task, backend, grid, budgets, draw
         capacity, the data's geometry and the predicted bill."""
         spec = self.spec
-        return "\n".join([
+        nb, bs = block_geometry(self.n, self.block_size)
+        lines = [
             f"ExecutionPlan: engine={self.engine}"
             + (" (jit)" if spec.jit and self.engine == "materialized" else ""),
             f"  task={self.task_name} backend={self.backend} "
             f"grid={self.grid[0]}x{self.grid[1]} budgets={spec.budgets} "
             f"m_cap={self.m_cap}",
-            f"  data: n={self.n} T={self.T} dims={self.dims}",
-            f"  predicted comm: {self.predicted_comm_units} units",
-        ])
+            f"  data: n={self.n} T={self.T} dims={self.dims} "
+            f"blocks: {nb} x {bs} rows (block_size={self.block_size})",
+        ]
+        if self.engine in ("streamed", "pipelined"):
+            lines.append(
+                f"  streaming knobs: chunk_blocks={self.chunk_blocks} "
+                f"prefetch={'on' if self.prefetch else 'off'}"
+            )
+        lines.append(f"  predicted comm: {self.predicted_comm_units} units")
+        for note in self.notes:
+            lines.append(f"  note: {note}")
+        return "\n".join(lines)
 
 
-def compile_plan(spec: CoresetSpec, ds: VFLDataset) -> ExecutionPlan:
-    """Compile ``spec`` against ``ds`` — pure planning, no scoring work."""
+def compile_plan(spec: CoresetSpec, ds: VFLDataset,
+                 device: Optional[DeviceLike] = None) -> ExecutionPlan:
+    """Compile ``spec`` against ``ds`` — pure planning, no scoring work.
+    ``device`` is where the build computes (default: where ``ds`` lives);
+    ``backend="auto"`` and the prefetch default resolve from it."""
     from repro_torch.core.api import get_task, resolve_backend
 
+    dev = ds.device if device is None else resolve_device(device)
     task = get_task(spec.task)
-    backend = resolve_backend(spec.backend, ds.device)
+    backend = resolve_backend(spec.backend, dev)
     if task.needs_labels and ds.y is None:
         raise ValueError(f"{task.name} requires labels at party T")
     R, M = spec.num_seeds, len(spec.budgets)
+    nb, _ = block_geometry(ds.n, spec.block_size)
+    notes = []
+    chunk_req = (DEFAULT_CHUNK_BLOCKS if spec.chunk_blocks is None
+                 else int(spec.chunk_blocks))
+    chunk = min(chunk_req, nb)
+    prefetch = (PREFETCH_DEFAULT.get(dev.type, True) if spec.prefetch is None
+                else spec.prefetch)
     if spec.is_grid:
         if spec.engine not in ("auto", "batched"):
             raise ValueError(
@@ -182,15 +237,36 @@ def compile_plan(spec: CoresetSpec, ds: VFLDataset) -> ExecutionPlan:
         engine = "batched"
     else:
         engine = "materialized" if spec.engine == "auto" else spec.engine
+    # the streamed engine IS the pipelined engine at C=1 without prefetch —
+    # normalize both directions so dispatch is unambiguous
+    lowered_from_pipelined = False
+    if engine == "streamed":
+        chunk, prefetch = 1, False
+    elif engine == "pipelined" and chunk == 1 and not prefetch:
+        engine = "streamed"
+        lowered_from_pipelined = True
+        notes.append(
+            "pipelined at chunk_blocks=1 without prefetch IS the "
+            "block-at-a-time engine -> lowered to streamed"
+        )
+    if chunk_req > nb and (engine == "pipelined" or lowered_from_pipelined):
+        notes.append(
+            f"chunk_blocks clamped {chunk_req} -> {nb}: n={ds.n} at "
+            f"block_size={spec.block_size} has only {nb} blocks "
+            f"(one full-span superchunk)"
+        )
     if engine in _NOT_PORTED:
         raise NotImplementedError(
-            f"the {engine} engine is not ported to PyTorch yet (ROADMAP.md "
-            f"{_NOT_PORTED[engine]}); use engine='materialized' or "
-            f"'batched'"
+            f"the {engine} engine (chunk_blocks={chunk}, prefetch={prefetch}) "
+            f"is not ported to PyTorch yet (ROADMAP.md {_NOT_PORTED[engine]}); "
+            f"use engine='streamed', or chunk_blocks=1 with prefetch=False"
         )
     m_cap = max(spec.budgets) if spec.m_cap is None else spec.m_cap
     comm = R * sum(CommSchedule.uniform(ds.T, m).total if task.score_fn is None
                    else CommSchedule.dis_total(ds.T, m) for m in spec.budgets)
     return ExecutionPlan(spec=spec, engine=engine, backend=backend,
                          task_name=task.name, n=ds.n, T=ds.T, dims=ds.dims,
-                         grid=(R, M), m_cap=m_cap, predicted_comm_units=comm)
+                         grid=(R, M), m_cap=m_cap, predicted_comm_units=comm,
+                         device=dev,
+                         block_size=spec.block_size, chunk_blocks=chunk,
+                         prefetch=prefetch, notes=tuple(notes))

@@ -2,9 +2,11 @@
 feature columns split across T parties; labels (if any) live at party
 T-1 (0-indexed; the paper's "party T").
 
-Port of :mod:`repro.core.vfl` for the materialized engine.  Every block
-lives on one device, the one :meth:`VFLDataset.from_dense` was given.
-The row-block views of the streaming engines wait for that slice.
+Port of :mod:`repro.core.vfl`.  Every party's block lives on one device,
+the one :meth:`VFLDataset.from_dense` was given.  The row-block view
+(:meth:`VFLDataset.block`, :meth:`VFLDataset.blocks`) is the streamed
+engine's substrate: a dataset held in host memory hands the card one
+(T, bs, s) block at a time, staged through a pinned host buffer.
 """
 
 from __future__ import annotations
@@ -43,6 +45,21 @@ class StackedParts(NamedTuple):
         return int(self.blocks.shape[1])
 
 
+def block_geometry(n: int, block_size: int) -> Tuple[int, int]:
+    """(num_blocks nb, rows-per-block bs) for a ``block_size`` row chunking
+    of n rows — the geometry shared by :meth:`VFLDataset.block` and the
+    hierarchical DIS sampler (``repro_torch.core.dis.blocked_geometry``
+    delegates here).
+
+    bs clamps to n, so ``block_size >= n`` is exactly one unpadded block;
+    the last block is zero-padded up to bs.
+    """
+    if block_size < 1:
+        raise ValueError(f"block_size must be >= 1, got {block_size}")
+    bs = min(int(block_size), int(n))
+    return -(-int(n) // bs), bs
+
+
 def split_columns(d: int, T: int, sizes: Optional[Sequence[int]] = None) -> List[slice]:
     """Column slices for T parties. ``sizes`` overrides the near-even split."""
     if sizes is None:
@@ -71,11 +88,20 @@ class VFLDataset:
     """X (n, d) vertically partitioned; y optional, held by the last party.
 
     ``parts`` are tensors on one device; ``y`` lives on the same device.
+    CPU-resident parts are the host-resident substrate of the streamed
+    engine: :meth:`block` assembles one (T, bs, s) block on the host and
+    only that block goes to the card.  ``staged_bytes`` counts the bytes
+    :meth:`block` has copied from the host to another device.
     """
 
     parts: List[torch.Tensor]           # party j's local block (n, d_j)
     y: Optional[torch.Tensor] = None    # (n,), stored at party T-1
     validate: bool = True               # NaN/Inf screen at construction
+    staged_bytes: int = dataclasses.field(default=0, init=False, compare=False)
+    # (shape, dtype, pinned) -> [host staging buffer, the event recorded
+    # after the last copy out of it, or None]
+    _staging: dict = dataclasses.field(default_factory=dict, init=False,
+                                       repr=False, compare=False)
 
     def __post_init__(self) -> None:
         if not self.parts:
@@ -166,6 +192,10 @@ class VFLDataset:
             widths[-1] += 1
         return tuple(widths), max(widths)
 
+    def _stacked_dtype(self) -> torch.dtype:
+        return functools.reduce(torch.promote_types,
+                                [p.dtype for p in self.parts])
+
     def stacked(self, with_labels: bool = False) -> StackedParts:
         """Padded (T, n, s) stacking of the party blocks for one batched
         scoring call.
@@ -176,8 +206,7 @@ class VFLDataset:
         change, not a protocol change.
         """
         widths, s = self.stacked_widths(with_labels)
-        dtype = functools.reduce(torch.promote_types,
-                                 [p.dtype for p in self.parts])
+        dtype = self._stacked_dtype()
         blocks = torch.zeros((self.T, self.n, s), dtype=dtype,
                              device=self.device)
         for j, p in enumerate(self.parts):
@@ -189,6 +218,91 @@ class VFLDataset:
         cols = torch.arange(s, device=self.device)
         mask = torch.stack([cols < w for w in widths])
         return StackedParts(blocks, mask, widths)
+
+    # -- chunked row-block view (the streamed engine's substrate) ----------
+
+    def block_geometry(self, block_size: int) -> Tuple[int, int]:
+        """:func:`block_geometry` of this dataset's n rows."""
+        return block_geometry(self.n, block_size)
+
+    def _fill_block(self, out: torch.Tensor, lo: int, hi: int,
+                    with_labels: bool) -> None:
+        """Write rows [lo, hi) of every party into ``out`` (T, bs, s) in
+        :meth:`stacked`'s layout, and zero the rest of it: the padded
+        columns of each party and the rows past ``hi - lo``."""
+        nv = hi - lo
+        for j, p in enumerate(self.parts):
+            col = p.shape[1]
+            out[j, :nv, :col] = p[lo:hi]
+            if with_labels and j == self.T - 1:
+                out[j, :nv, col] = self.y[lo:hi]
+                col += 1
+            out[j, :nv, col:] = 0
+        out[:, nv:, :] = 0
+
+    def _staging_buffer(self, shape, dtype: torch.dtype, pin: bool) -> list:
+        """The host staging buffer for blocks of ``shape``, once the copy
+        out of it that was last issued has finished."""
+        entry = self._staging.get((shape, dtype, pin))
+        if entry is None:
+            entry = [torch.empty(shape, dtype=dtype, pin_memory=pin), None]
+            self._staging[(shape, dtype, pin)] = entry
+        elif entry[1] is not None:
+            entry[1].synchronize()
+            entry[1] = None
+        return entry
+
+    def block(self, b: int, block_size: int, with_labels: bool = False,
+              device: Optional[DeviceLike] = None) -> Tuple[torch.Tensor, int]:
+        """Padded (T, bs, s) stacked view of row block ``b`` on ``device``
+        (default: the dataset's own) + its valid-row count.
+
+        Rows [b*bs, b*bs + bs) of every party, laid out exactly as the
+        matching slice of :meth:`stacked` (labels appended to party T,
+        columns zero-padded to the common width); rows past n are zero.
+
+        A dataset on the card is sliced there.  A dataset in host memory
+        assembles the block on the host in a staging buffer (pinned when
+        the target is CUDA; a CPU-only torch cannot pin), which is copied
+        to ``device`` with ``non_blocking=True``; the buffer is written
+        again only after an event shows that copy has finished, so one
+        block's assembly overlaps the card's work on the one before.
+        """
+        _, s = self.stacked_widths(with_labels)
+        nb, bs = self.block_geometry(block_size)
+        if not 0 <= b < nb:
+            raise IndexError(f"block {b} out of range [0, {nb})")
+        lo = b * bs
+        hi = min(lo + bs, self.n)
+        dev = self.device if device is None else resolve_device(device)
+        shape, dtype = (self.T, bs, s), self._stacked_dtype()
+        if self.device.type != "cpu":
+            out = torch.empty(shape, dtype=dtype, device=self.device)
+            self._fill_block(out, lo, hi, with_labels)
+            return out.to(dev), hi - lo
+        entry = self._staging_buffer(shape, dtype, pin=dev.type == "cuda")
+        buf = entry[0]
+        self._fill_block(buf, lo, hi, with_labels)
+        out = torch.empty(shape, dtype=dtype, device=dev)
+        out.copy_(buf, non_blocking=True)
+        if dev.type == "cuda":
+            entry[1] = torch.cuda.Event()
+            entry[1].record(torch.cuda.current_stream(dev))
+        if dev != self.device:
+            self.staged_bytes += buf.numel() * buf.element_size()
+        return out, hi - lo
+
+    def blocks(self, block_size: int, with_labels: bool = False,
+               device: Optional[DeviceLike] = None):
+        """Iterate ``(b, block (T, bs, s), nvalid)`` over the row chunking.
+        The generator drops its own reference to a block before it stages
+        the next, so a consumer that drops its own (``del blk``) keeps one
+        block resident."""
+        nb, _ = self.block_geometry(block_size)
+        for b in range(nb):
+            blk, nvalid = self.block(b, block_size, with_labels, device=device)
+            yield b, blk, nvalid
+            del blk
 
     def rows(self, idx: torch.Tensor) -> "VFLDataset":
         y = None if self.y is None else self.y[idx]

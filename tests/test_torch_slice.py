@@ -144,9 +144,11 @@ def test_plan_validation_and_unported_engines():
     ep = compile_plan(CoresetSpec(task="vrlr", budgets=10), tds)
     assert (ep.engine, ep.backend, ep.predicted_comm_units) == (
         "materialized", "ref", CommSchedule.dis_total(3, 10))
-    for spec in (CoresetSpec(engine="streamed"), CoresetSpec(engine="pipelined")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            compile_plan(spec, tds)
+    # the streamed engine compiles; the pipelined one above one block a
+    # superchunk is not ported yet
+    assert compile_plan(CoresetSpec(engine="streamed"), tds).engine == "streamed"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        compile_plan(CoresetSpec(engine="pipelined", block_size=10), tds)
     # grids compile to the batched engine
     for spec, grid in ((CoresetSpec(budgets=(10, 20)), (1, 2)),
                        (CoresetSpec(budgets=10, num_seeds=2), (2, 1))):
