@@ -97,7 +97,26 @@ and never JAX or the JAX package ``repro``.  Phases, each fatal on failure:
    refused by a build on the card; the ``norm`` backend at one block,
    from the host copy and from the card dataset, and the ``uniform``
    task from the host copy, equal to their materialized builds bit for
-   bit.
+   bit;
+10. pipelined engine, from the same host copy: each kernel first at the
+   superchunk shapes (C = 8 blocks of 65,536 and of 16,384 rows, the
+   first and the ragged last superchunk) against its plain version and,
+   bit for bit, against the streamed engine's per-block launches on the
+   same blocks (K3's Grams, K1's scores, K2's cluster sizes and costs,
+   K4's assignments, each block's mass), with the batched launch timed
+   against the per-block ones; K5 at round 1 over the T nb cells and at
+   a redraw group's 3 C cells; then (a) ``build_coreset_streaming`` with
+   its defaults (block 65,536, one superchunk, the card's prefetch
+   default) for ``vrlr`` and ``vkmc`` at m in {1000, 5000} with phase 9's
+   keys, equal bit for bit to phase 9's streamed builds (indices,
+   weights, block masses, bill and ledger); (b) block 16,384 (29 blocks,
+   superchunks of 8, 8, 8 and 5) at m = 5000, prefetch on and off, equal
+   bit for bit to a streamed build of this phase; each build with the
+   launches counted from the code (one per superchunk and per redraw
+   group), the staged bytes equal to the streamed engine's and its own
+   peak device memory under 2.5 superchunks, split by stage; (c) the
+   prefetch ablation, ``vrlr`` at block 4,096 (114 blocks, 15
+   superchunks), m = 1000, three runs each way after a warm-up.
 
 Every path is driven with all five launch counters set to 0 just before
 it and read just after.  With the default seed, the drawn indices of
@@ -197,6 +216,14 @@ STREAM_MASS_TOL = 1e-4
 # fit's and the baseline's centers, |cost_S / cost_X - 1|: at --seed 0 and
 # m = 1000 0.20% / 0.31%, phase 5's coreset 1.04% / 0.41% (PERF.md)
 STREAM_COST_GATE = 0.05
+# the pipelined engine (phase 10): its block sizes, and the bound on a build's
+# own device memory, in superchunks of DEFAULT_CHUNK_BLOCKS blocks (the
+# reference's PIPELINED_PEAK_FACTOR: two staging slots and half of one for
+# the work)
+PIPE_BLOCK = 16_384      # nb = 29: superchunks of 8, 8, 8 and 5 blocks
+ABLATION_BLOCK = 4_096   # nb = 114: 15 superchunks, the prefetch ablation's
+ABLATION_RUNS = 3
+PIPE_PEAK_FACTOR = 2.5
 # indices_sha256 of phases 4 and 5 at --seed 0, recorded on the card with
 # the plain draw (PERF.md); phase 7's vrlr cell (0, 1) is phase 4's m = 5000
 # build
@@ -293,6 +320,11 @@ def make_data(seed: int, n: int, d: int, k_clusters: int = 8):
     theta = rng.standard_normal(d).astype(np.float32)
     y = X @ theta + 0.1 * rng.standard_normal(n).astype(np.float32)
     return X, y
+
+
+def row_valid(torch, bs: int, nvalid: int, dev):
+    """(bs,) float32 0/1 weights: the first ``nvalid`` rows of a block."""
+    return (torch.arange(bs, device=dev) < nvalid).to(torch.float32)
 
 
 def digest(indices) -> str:
@@ -483,19 +515,20 @@ def library_assign_update(torch, X, C, w=None):
     return a, d2, csum, wsum, ccost
 
 
-def streamed_phase(torch, dev, seed, X_np, y_np, ds, lam, launches, mat_peaks, mat_coresets,
+def streamed_phase(torch, dev, seed, ds_host, ds, lam, launches, mat_peaks, mat_coresets,
                    check_k5, reset_counts, read_counts):
-    """Phase 9, the streamed engine from a host-resident copy of the main
-    path's data; returns the largest kernel-vs-plain error it saw, by
-    kernel.  ``ds`` is the same data on the card, ``launches`` the running
-    totals it adds the counted builds and fits to, ``mat_peaks`` and
-    ``mat_coresets`` phases 4 and 5's peak device memory and coresets by
-    (task, m)."""
+    """Phase 9, the streamed engine from ``ds_host``, a host-resident copy
+    of the main path's data; returns the largest kernel-vs-plain error it
+    saw, by kernel, and its counted builds by (task, m): indices, weights,
+    block masses, bill and staged bytes.  ``ds`` is the same data on the
+    card, ``launches`` the running totals it adds the counted builds and
+    fits to, ``mat_peaks`` and ``mat_coresets`` phases 4 and 5's peak
+    device memory and coresets by (task, m)."""
     import numpy as np
 
     from repro_torch import rng
     from repro_torch.core import (
-        CommLedger, CommSchedule, CoresetPipeline, CoresetSpec, VFLDataset, build_coreset,
+        CommLedger, CommSchedule, CoresetPipeline, CoresetSpec, build_coreset,
         dis_plan_streamed, evaluate, fit_kmeans, fit_ridge, full_data_coreset, kmeans_cost,
         make_stream_scorer, vkmc_local_centers)
     from repro_torch.core import streaming as cst
@@ -512,7 +545,6 @@ def streamed_phase(torch, dev, seed, X_np, y_np, ds, lam, launches, mat_peaks, m
 
     T = T_PARTIES
     phase_t0 = time.perf_counter()
-    ds_host = VFLDataset.from_dense(X_np, y_np, T=T, device="cpu")
     nb, bs = ds_host.block_geometry(BLOCK_SIZE)
     last = N_FULL - (nb - 1) * bs
     log(f"streamed: host-resident copy n={ds_host.n} dims={ds_host.dims} on "
@@ -529,7 +561,7 @@ def streamed_phase(torch, dev, seed, X_np, y_np, ds, lam, launches, mat_peaks, m
     log("kernels at the streamed shapes vs plain:")
     for b in (0, nb - 1):
         blk, nv = ds_host.block(b, BLOCK_SIZE, with_labels=True, device=dev)  # (3, bs, 31)
-        wv = cst._row_valid(bs, nv, dev).expand(T, bs)
+        wv = row_valid(torch, bs, nv, dev).expand(T, bs)
         errs["weighted_gram"] = max(errs["weighted_gram"], check_kernel(
             torch, "weighted_gram", kwg.weighted_gram, kwg.plain, (blk, wv), gram_scale,
             GRAM_TOL))
@@ -593,6 +625,7 @@ def streamed_phase(torch, dev, seed, X_np, y_np, ds, lam, launches, mat_peaks, m
                  "center_sample": CENTER_SAMPLE}
     r1_payload = WirePayload.of((nb,), "float32", "raw_fp32")
     mat_vrlr = None
+    builds = {}
     for task, params, off in (("vrlr", {}, 0), ("vkmc", vk_params, 100)):
         with_labels = task == "vrlr"
         widths, s = ds_host.stacked_widths(with_labels)
@@ -711,8 +744,9 @@ def streamed_phase(torch, dev, seed, X_np, y_np, ds, lam, launches, mat_peaks, m
                     exact = torch.clamp(((f64 @ M64) * f64).sum(-1), 0.0, 1.0) + 1.0 / N_FULL
                     # the two Grams behind the two scores, against the float64 one
                     G_k3 = torch.zeros_like(G64, dtype=torch.float32)
-                    for _, blk, nv in ds_host.blocks(BLOCK_SIZE, True, device=dev):
-                        G_k3 = cst._gram_body(G_k3, blk, nv, True)
+                    for b, blk, _ in ds_host.blocks(BLOCK_SIZE, True, device=dev):
+                        G_k3 = cst._gram_chunk(G_k3, blk[None],
+                                               cst._rows_ok(b, 1, bs, N_FULL, dev), True)
                     gram_errs = [float((G - G64).abs().max() / G64.abs().max())
                                  for G in (f32.transpose(1, 2) @ f32, G_k3)]
                     del f32, f64, G64, G_k3
@@ -745,19 +779,21 @@ def streamed_phase(torch, dev, seed, X_np, y_np, ds, lam, launches, mat_peaks, m
                 centers, _ = vkmc_local_centers(key, ds_host, k=K_CLUSTERS,
                                                 local_iters=LOCAL_ITERS,
                                                 center_sample=CENTER_SAMPLE, device=dev)
-                csize = sum(cst._vkmc_stats_body(blk, centers, nv, True)[0]
-                            for _, blk, nv in ds_host.blocks(BLOCK_SIZE, device=dev))
-                # the block masses against the plain stats and score bodies on
-                # the same centers (the local k-means is deterministic)
-                csize_p = ccost_p = 0.0
-                for _, blk, nv in ds_host.blocks(BLOCK_SIZE, device=dev):
-                    ws, cc = cst._vkmc_stats_body(blk, centers, nv, False)
-                    csize_p, ccost_p = csize_p + ws, ccost_p + cc
+                # and, for the block masses, the plain stats and score bodies
+                # on the same centers (the local k-means is deterministic)
+                csize = ccost = csize_p = ccost_p = 0.0
+                for b, blk, _ in ds_host.blocks(BLOCK_SIZE, device=dev):
+                    ok = cst._rows_ok(b, 1, bs, N_FULL, dev)
+                    csize, ccost = cst._vkmc_stats_chunk(csize, ccost, blk[None], centers,
+                                                         ok, True)
+                    csize_p, ccost_p = cst._vkmc_stats_chunk(csize_p, ccost_p, blk[None],
+                                                             centers, ok, False)
                     del blk
                 plain_masses = []
-                for _, blk, nv in ds_host.blocks(BLOCK_SIZE, device=dev):
-                    plain_masses.append(cst._vkmc_score_body(
-                        blk, centers, csize_p, ccost_p, nv, float(ALPHA), False).sum(1))
+                for b, blk, _ in ds_host.blocks(BLOCK_SIZE, device=dev):
+                    plain_masses.append(cst._vkmc_scores(
+                        blk[None], centers, csize_p, ccost_p,
+                        cst._rows_ok(b, 1, bs, N_FULL, dev), float(ALPHA), False)[0].sum(1))
                     del blk
                 plain_masses = torch.stack(plain_masses, 1).double()
                 mass_gap = float(((scorer.masses.double() - plain_masses).abs()
@@ -806,6 +842,10 @@ def streamed_phase(torch, dev, seed, X_np, y_np, ds, lam, launches, mat_peaks, m
             log(f"breakdown streamed {task} m={m}: {split} round1_s={round1_s:.4f} (the "
                 f"{T * nb + 1}-key chain {chain_s:.4f}) round2_s={round2_s:.4f} ({touched} "
                 f"touched blocks; probes synchronise){extra}")
+            builds[(task, m)] = {"indices": cs.indices, "weights": cs.weights,
+                                 "masses": scorer.masses, "ledger": led.by_tag(),
+                                 "bill": (cs.comm_units, cs.comm_bits), "h2d": staged,
+                                 "build_s": build_s}
             del scorer, plan, cs, fit, rep
 
     # -- identity: the norm backend at one block is the materialized norm build,
@@ -842,8 +882,417 @@ def streamed_phase(torch, dev, seed, X_np, y_np, ds, lam, launches, mat_peaks, m
         fail(f"streamed uniform m={m}: differs from the materialized uniform build")
     log(f"streamed uniform m={m} from the host copy: equal to the materialized build bit "
         f"for bit (indices_sha256={digest(st.indices)}), comm_units={st.comm_units}")
-    del ds_host
     log(f"phase 9 took {time.perf_counter() - phase_t0:.1f} s")
+    return errs, builds
+
+
+
+def pipelined_phase(torch, dev, seed, ds_host, launches, streamed, check_k5, reset_counts,
+                    read_counts):
+    """Phase 10, the pipelined engine from the host-resident copy of the main
+    path's data; returns the largest kernel-vs-plain error it saw, by kernel.
+    ``streamed`` holds phase 9's counted builds by (task, m), ``launches``
+    the running totals it adds its counted builds to."""
+    import numpy as np
+
+    from repro_torch import rng
+    from repro_torch.core import (
+        CommLedger, CommSchedule, CoresetPipeline, CoresetSpec, build_coreset_streaming,
+        dis_plan_streamed, dis_plan_streamed_batched, make_stream_scorer)
+    from repro_torch.core import streaming as cst
+    from repro_torch.core.dis import _key_chain
+    from repro_torch.core.plan import DEFAULT_CHUNK_BLOCKS, PREFETCH_DEFAULT
+    from repro_torch.core.sensitivity import batched_gram_pinv
+    from repro_torch.core.wire import WirePayload
+    from repro_torch.kernels import kmeans_assign as kka
+    from repro_torch.kernels import kmeans_assign_update as kkau
+    from repro_torch.kernels import leverage as klev
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import weighted_gram as kwg
+
+    T, n = T_PARTIES, N_FULL
+    phase_t0 = time.perf_counter()
+    gen = torch.Generator(device="cpu").manual_seed(seed + 10)
+    errs = dict.fromkeys(("leverage", "weighted_gram", "kmeans_assign_update",
+                          "kmeans_assign"), 0.0)
+    lev_scale = lambda X, M: klev.plain(X, M).abs().max().item()
+    gram_scale = lambda X, w: kwg.plain(X.abs(), w.abs()).max().item()
+    vk_params = {"k": K_CLUSTERS, "alpha": ALPHA, "local_iters": LOCAL_ITERS,
+                 "center_sample": CENTER_SAMPLE}
+    offsets = {"vrlr": 0, "vkmc": 100}                 # phase 9's keys
+    C = DEFAULT_CHUNK_BLOCKS
+    log(f"pipelined: superchunks of {C} blocks (DEFAULT_CHUNK_BLOCKS); PREFETCH_DEFAULT="
+        f"{PREFETCH_DEFAULT}")
+
+    # -- each kernel at the superchunk shapes against its plain version and, bit
+    #    for bit, against the streamed engine's per-block launches (outside the
+    #    counts): the first superchunk and the ragged last one at each block size
+    log("kernels at the superchunk shapes vs plain, and one batched launch vs per-block:")
+    for bsz in (BLOCK_SIZE, PIPE_BLOCK):
+        nb, bs = ds_host.block_geometry(bsz)
+        Cb = min(C, nb)
+        for b0 in sorted({0, (nb - 1) // Cb * Cb}):
+            ids = list(range(b0, min(b0 + Cb, nb)))
+            cnt = len(ids)
+            ok = cst._rows_ok(b0, cnt, bs, n, dev)
+            X, nvs = ds_host.gather_blocks(ids, bsz, True, device=dev)    # (cnt, 3, bs, 31)
+            w = cst._row_weights(ok, X.shape, dev)
+            w_blk = [row_valid(torch, bs, int(nv), dev).expand(T, bs) for nv in nvs]
+            # K3 against float64 and the plain version: the fp32 cuBLAS products of
+            # the plain version sum 16,384- to 65,536-row columns in long chains
+            # and land up to 1.7e-5 (scaled) from float64 at these shapes, where
+            # K3's fixed row split stays near 1e-7; so the kernel is held within
+            # GRAM_TOL of float64, and within the plain version's own distance
+            # from float64 plus GRAM_TOL of the plain version (block by block,
+            # as phase 9 holds it)
+            Gb = kwg.weighted_gram(X, w)
+            if not torch.equal(Gb, kwg.weighted_gram(X, w)):
+                fail(f"weighted_gram {tuple(X.shape)}: two launches on the same input differ")
+            if not torch.equal(Gb, Gb.transpose(-1, -2)):
+                fail(f"weighted_gram {tuple(X.shape)}: G is not exactly symmetric")
+            if not all(torch.equal(Gb[i], kwg.weighted_gram(X[i], w_blk[i]))
+                       for i in range(cnt)):
+                fail(f"weighted_gram {tuple(X.shape)}: a block's Gram differs from its "
+                     f"own launch")
+            want = torch.stack([kwg.plain(X[i], w_blk[i]) for i in range(cnt)])
+            X64 = X.double()
+            G64 = (X64 * w.double()[..., None]).transpose(-1, -2) @ X64
+            scale = max(gram_scale(X[i], w_blk[i]) for i in range(cnt))
+            err = float((Gb - want).abs().max())
+            e64 = [float((G - G64).abs().max()) / scale
+                   for G in (Gb, want, kwg.plain(X, w))]
+            del X64, G64
+            log(f"  weighted_gram {tuple(X.shape)} {tuple(w.shape)}: max_abs_err={err:.3e} "
+                f"scaled={err / scale:.3e} against the plain version block by block "
+                f"(tol {GRAM_TOL:g} + the plain version's own gap); from float64, scaled: "
+                f"kernel {e64[0]:.3e} (tol {GRAM_TOL:g}), plain block by block "
+                f"{e64[1]:.3e}, plain over the batch {e64[2]:.3e}")
+            if e64[0] > GRAM_TOL or err / scale > e64[1] + GRAM_TOL:
+                fail(f"weighted_gram {tuple(X.shape)}: scaled error {e64[0]:.3e} from "
+                     f"float64, {err / scale:.3e} from the plain version (its own gap "
+                     f"{e64[1]:.3e}), above {GRAM_TOL:g}")
+            errs["weighted_gram"] = max(errs["weighted_gram"], err)
+            M = batched_gram_pinv(Gb.sum(0))
+            Mb = M.expand(cnt, *M.shape)
+            errs["leverage"] = max(errs["leverage"], check_kernel(
+                torch, "leverage", klev.leverage, klev.plain, (X, Mb), lev_scale,
+                LEVERAGE_TOL))
+            check_k1_oracle(torch, klev, X, Mb)
+            lev = klev.leverage(X, Mb)
+            if not all(torch.equal(lev[i], klev.leverage(X[i], M)) for i in range(cnt)):
+                fail(f"leverage {tuple(X.shape)}: a block's scores differ from its own launch")
+            # the block masses: each block's (T, bs) slice summed as the streamed
+            # engine sums a block; whether one sum over the batch gives the same
+            # bits is printed, not relied on
+            sc = cst._vrlr_scores(X, M, ok, n, True)
+            per = torch.stack([torch.sum(cst._vrlr_scores(
+                X[i][None], M, cst._rows_ok(ids[i], 1, bs, n, dev), n, True)[0], dim=1)
+                for i in range(cnt)], dim=1)
+            if not torch.equal(cst._block_masses(sc), per):
+                fail(f"block masses {tuple(sc.shape)}: differ from the per-block sums")
+            one_sum = torch.equal(torch.sum(sc, dim=2).T, per)
+            log(f"  block masses {tuple(sc.shape)}: == per-block sums, bit for bit (one "
+                f"torch.sum over the batch: {'the same bits' if one_sum else 'other bits'})")
+            del X, Gb, lev, sc
+            Xk, _ = ds_host.gather_blocks(ids, bsz, False, device=dev)      # (cnt, 3, bs, 30)
+            Ck = Xk[0][:, torch.randperm(bs, generator=gen)[:K_CLUSTERS].to(dev)].contiguous()
+            Ckb = Ck.expand(cnt, *Ck.shape)
+            wk = cst._row_weights(ok, Xk.shape, dev)
+            errs["kmeans_assign_update"] = max(errs["kmeans_assign_update"], check_kmeans(
+                torch, kref, "kmeans_assign_update", kkau.kmeans_assign_update, kkau.plain,
+                Xk, Ckb, wk, fused=True))
+            check_k2_oracle(torch, kkau, Xk, Ckb, wk)
+            _, _, _, ws, cc = kkau.kmeans_assign_update(Xk, Ckb, wk)
+            for i in range(cnt):
+                _, _, _, ws_i, cc_i = kkau.kmeans_assign_update(Xk[i], Ck, w_blk[i])
+                if not (torch.equal(ws[i], ws_i) and torch.equal(cc[i], cc_i)):
+                    fail(f"kmeans_assign_update {tuple(Xk.shape)}: a block's sizes or "
+                         f"costs differ from its own launch")
+            errs["kmeans_assign"] = max(errs["kmeans_assign"], check_kmeans(
+                torch, kref, "kmeans_assign", kka.kmeans_assign, kka.plain, Xk, Ckb))
+            check_k4_oracle(torch, kka, Xk, Ckb)
+            a, d2 = kka.kmeans_assign(Xk, Ckb)
+            for i in range(cnt):
+                a_i, d2_i = kka.kmeans_assign(Xk[i], Ck)
+                if not (torch.equal(a[i], a_i) and torch.equal(d2[i], d2_i)):
+                    fail(f"kmeans_assign {tuple(Xk.shape)}: a block differs from its own "
+                         f"launch")
+            log(f"  blocks {ids[0]}..{ids[-1]} at block_size {bsz}: K3, K1, K2 and K4 over "
+                f"the batch == their per-block launches, bit for bit")
+            if b0 == 0 and bsz == PIPE_BLOCK:
+                # one batched launch against the streamed engine's per-block ones
+                per_ms = lambda f: cuda_ms(torch, lambda: [f(i) for i in range(cnt)])
+                Xf, _ = ds_host.gather_blocks(ids, bsz, True, device=dev)
+                t = [(cuda_ms(torch, lambda: kwg.weighted_gram(Xf, w)),
+                      per_ms(lambda i: kwg.weighted_gram(Xf[i], w_blk[i]))),
+                     (cuda_ms(torch, lambda: klev.leverage(Xf, Mb)),
+                      per_ms(lambda i: klev.leverage(Xf[i], M))),
+                     (cuda_ms(torch, lambda: kkau.kmeans_assign_update(Xk, Ckb, wk)),
+                      per_ms(lambda i: kkau.kmeans_assign_update(Xk[i], Ck, w_blk[i]))),
+                     (cuda_ms(torch, lambda: kka.kmeans_assign(Xk, Ckb)),
+                      per_ms(lambda i: kka.kmeans_assign(Xk[i], Ck)))]
+                log("  one launch over the superchunk vs " + str(cnt) + " per-block launches "
+                    "(ms): " + ", ".join(f"{nm} {a_:.4f} vs {b_:.4f}" for nm, (a_, b_) in
+                                        zip(("K3", "K1", "K2", "K4"), t)))
+                del Xf
+            del Xk, a, d2
+        # K5: round 1 over the T * nb cells, and a redraw group: 3 C cells of which
+        # every other one drawn, over a full block's rows and the ragged one's
+        keys = rng.split(rng.PRNGKey(seed + 16 + bsz), T * Cb).to(dev)
+        m = BUDGETS[-1]
+        per = m // (T * nb)
+        check_k5(keys[:1], torch.log(torch.rand(1, T * nb, generator=gen) + 0.01).to(dev), m,
+                 [m], f"pipelined round 1, block_size {bsz}, m={m}")
+        lg = torch.log(torch.rand(T * Cb, bs, generator=gen) + 0.01).to(dev)
+        lg[T * Cb // 2:, n - (nb - 1) * bs:] = -float("inf")
+        check_k5(keys, lg, m, [per * (i % 2) for i in range(T * Cb)],
+                 f"pipelined redraw group, block_size {bsz}, m={m}")
+        del lg
+
+    # -- the builds, counted: (a) the shim's defaults against phase 9's streamed
+    #    builds; (b) block 16,384 against a streamed build of this phase
+    def run(fn, ds):
+        """(result, build_s, launches, peak bytes above the start, staged bytes)."""
+        staged0 = ds.staged_bytes
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        counts = read_counts()
+        reset_counts()
+        return (out, build_s, counts, torch.cuda.max_memory_allocated() - before,
+                ds.staged_bytes - staged0)
+
+    def add(counts):
+        for nm in launches:
+            launches[nm] += counts[nm]
+
+    def want_launches(task, nchunks, groups):
+        if task == "vrlr":
+            return {"leverage": nchunks + groups, "weighted_gram": nchunks,
+                    "kmeans_assign": 0, "kmeans_assign_update": 0, "categorical": 1 + groups}
+        return {"leverage": 0, "weighted_gram": 0, "kmeans_assign": nchunks + groups,
+                "kmeans_assign_update": T * LOCAL_ITERS + nchunks,
+                "categorical": T * K_CLUSTERS + 1 + groups}
+
+    def breakdown(task, key, bsz, m, chunk, prefetch, params):
+        """The build again by stage, a synchronising probe after every superchunk:
+        (scorer, plan, split text)."""
+        nb, _ = ds_host.block_geometry(bsz)
+        nch = -(-nb // chunk)
+        stamps = []
+
+        def probe():
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        scorer = make_stream_scorer(task, key, ds_host, bsz, "pallas", probe=probe,
+                                    device=dev, chunk_blocks=chunk, prefetch=prefetch,
+                                    **params)
+        split = ""
+        if task == "vkmc":
+            split = f"centers_s={stamps[1] - stamps[0]:.4f} "
+            del stamps[0]
+        split += (f"{'gram' if task == 'vrlr' else 'stats'}_s={stamps[nch] - stamps[0]:.4f} "
+                  f"mass_s={stamps[2 * nch] - stamps[nch]:.4f}")
+        t0 = time.perf_counter()
+        subs = _key_chain(scorer.dis_key, T * nb + 1)
+        draws = kops.categorical(subs[0], rng.log(torch.clamp_min(
+            scorer.masses.reshape(-1), 1e-30)), m)
+        np.bincount(draws.cpu().numpy(), minlength=T * nb)
+        t1 = time.perf_counter()
+        redraw = dis_plan_streamed_batched if chunk > 1 or prefetch else dis_plan_streamed
+        plan = redraw(scorer, m)
+        torch.cuda.synchronize()
+        split += (f" round1_s={t1 - t0:.4f} round2_s="
+                  f"{time.perf_counter() - t1 - (t1 - t0):.4f}")
+        return scorer, plan, split
+
+    def same(a, b):
+        return torch.equal(a.indices, b["indices"]) and torch.equal(a.weights, b["weights"])
+
+    stage_s = {"kernels": time.perf_counter() - phase_t0}
+    t_stage = time.perf_counter()
+    rows = []
+    for task in ("vrlr", "vkmc"):
+        params = {} if task == "vrlr" else vk_params
+        with_labels = task == "vrlr"
+        _, s = ds_host.stacked_widths(with_labels)
+        # (a) build_coreset_streaming with its defaults, phase 9's keys and data
+        nb, bs = ds_host.block_geometry(BLOCK_SIZE)
+        Ca = min(C, nb)
+        nch = -(-nb // Ca)
+        one_block = 4 * T * bs * s
+        limit = PIPE_PEAK_FACTOR * Ca * one_block
+        for m in BUDGETS:
+            key = rng.fold_in(rng.PRNGKey(seed + offsets[task]), m)
+            ref_ = streamed[(task, m)]
+            led = CommLedger()
+            cs, build_s, counts, peak, staged = run(
+                lambda: build_coreset_streaming(task, ds_host, m, key=key, ledger=led,
+                                                **params), ds_host)
+            add(counts)
+            touched = len({int(i) // bs for i in cs.indices.tolist()})
+            groups = -(-touched // Ca)
+            want = want_launches(task, nch, groups)
+            if not same(cs, ref_):
+                fail(f"pipelined {task} m={m} (defaults): differs from phase 9's streamed "
+                     f"build (indices_sha256 {digest(cs.indices)} vs "
+                     f"{digest(ref_['indices'])})")
+            if ((cs.comm_units, cs.comm_bits) != ref_["bill"]
+                    or led.by_tag() != ref_["ledger"]):
+                fail(f"pipelined {task} m={m}: billed {cs.comm_units} / {cs.comm_bits}, "
+                     f"phase 9 {ref_['bill']}")
+            if counts != want:
+                fail(f"pipelined {task} m={m}: launches {counts}, counted {want} from the code "
+                     f"({nch} superchunks, {touched} touched blocks in {groups} groups)")
+            if staged != ref_["h2d"]:
+                fail(f"pipelined {task} m={m}: staged {staged} bytes, the streamed engine "
+                     f"{ref_['h2d']}")
+            if peak > limit:
+                fail(f"pipelined {task} m={m}: the build's peak device memory {peak} above "
+                     f"{PIPE_PEAK_FACTOR} superchunks ({limit:.0f})")
+            scorer, plan, split = breakdown(task, key, BLOCK_SIZE, m, Ca,
+                                            PREFETCH_DEFAULT["cuda"], params)
+            if not torch.equal(scorer.masses, ref_["masses"]):
+                fail(f"pipelined {task} m={m}: block masses differ from phase 9's")
+            if not same(plan, ref_):
+                fail(f"pipelined {task} m={m}: the staged rerun drew another coreset")
+            bill = CommSchedule.dis(T, m, counts=plan.counts.tolist(),
+                                    round1_payload=WirePayload.of((nb,), "float32", "raw_fp32"))
+            if (cs.comm_units, cs.comm_bits) != (bill.total, bill.total_bits):
+                fail(f"pipelined {task} m={m}: bill differs from CommSchedule.dis")
+            rows.append((task, m, BLOCK_SIZE, PREFETCH_DEFAULT["cuda"], build_s, ref_["build_s"],
+                         peak, limit, staged, counts))
+            log(f"pipelined {task} m={m} (build_coreset_streaming defaults: block_size "
+                f"{BLOCK_SIZE}, {nch} superchunk(s) of {Ca}, prefetch "
+                f"{PREFETCH_DEFAULT['cuda']}): build_s={build_s:.4f} (phase 9 streamed "
+                f"{ref_['build_s']:.4f}) indices_sha256={digest(cs.indices)} == phase 9, "
+                f"weights and masses bit for bit, comm_units={cs.comm_units} "
+                f"comm_bits={cs.comm_bits}; peak_bytes={peak} (limit {limit:.0f}) "
+                f"h2d_bytes={staged} (streamed {ref_['h2d']}) touched={touched}/{nb} "
+                f"launches {counts}")
+            log(f"breakdown pipelined {task} m={m}: {split} (probes synchronise)")
+            del cs, scorer, plan
+
+        # (b) block 16,384: a streamed build, then the pipelined engine with
+        # prefetch on and off, at m = 5000
+        m = BUDGETS[-1]
+        key = rng.fold_in(rng.PRNGKey(seed + offsets[task] + 16), m)
+        nb, bs = ds_host.block_geometry(PIPE_BLOCK)
+        Cb = min(C, nb)
+        nch = -(-nb // Cb)
+        one_block = 4 * T * bs * s
+        limit = PIPE_PEAK_FACTOR * Cb * one_block
+        base = CoresetSpec(task=task, budgets=m, block_size=PIPE_BLOCK, params=params)
+        led_s = CommLedger()
+        st, st_s, _, st_peak, st_staged = run(
+            lambda: CoresetPipeline(ds_host).build(base.replace(engine="streamed"), key=key,
+                                                   ledger=led_s), ds_host)
+        ref_ = {"indices": st.indices, "weights": st.weights}
+        st_scorer, st_plan, st_split = breakdown(task, key, PIPE_BLOCK, m, 1, False, params)
+        if not same(st_plan, ref_):
+            fail(f"streamed {task} m={m} at block_size {PIPE_BLOCK}: the rerun differs")
+        touched = len({int(i) // bs for i in st.indices.tolist()})
+        groups = -(-touched // Cb)
+        log(f"streamed {task} m={m} at block_size {PIPE_BLOCK} ({nb} blocks): "
+            f"build_s={st_s:.4f} peak_bytes={st_peak} h2d_bytes={st_staged} "
+            f"touched={touched}; breakdown {st_split}")
+        for prefetch in (True, False):
+            led = CommLedger()
+            spec = base.replace(engine="pipelined", chunk_blocks=C, prefetch=prefetch)
+            cs, build_s, counts, peak, staged = run(
+                lambda: CoresetPipeline(ds_host).build(spec, key=key, ledger=led), ds_host)
+            add(counts)
+            want = want_launches(task, nch, groups)
+            if not same(cs, ref_):
+                fail(f"pipelined {task} m={m} block_size {PIPE_BLOCK} prefetch {prefetch}: "
+                     f"differs from the streamed build")
+            if ((cs.comm_units, cs.comm_bits) != (st.comm_units, st.comm_bits)
+                    or led.by_tag() != led_s.by_tag()):
+                fail(f"pipelined {task} m={m} block_size {PIPE_BLOCK}: bill differs")
+            if counts != want:
+                fail(f"pipelined {task} m={m} block_size {PIPE_BLOCK} prefetch {prefetch}: "
+                     f"launches {counts}, counted {want} ({nch} superchunks, {touched} "
+                     f"touched blocks in {groups} groups)")
+            if staged != st_staged:
+                fail(f"pipelined {task} m={m} block_size {PIPE_BLOCK}: staged {staged} "
+                     f"bytes, the streamed engine {st_staged}")
+            if peak > limit:
+                fail(f"pipelined {task} m={m} block_size {PIPE_BLOCK} prefetch {prefetch}: "
+                     f"peak device memory {peak} above {PIPE_PEAK_FACTOR} superchunks "
+                     f"({limit:.0f})")
+            scorer, plan, split = breakdown(task, key, PIPE_BLOCK, m, C, prefetch, params)
+            if not (torch.equal(scorer.masses, st_scorer.masses) and same(plan, ref_)):
+                fail(f"pipelined {task} m={m} block_size {PIPE_BLOCK} prefetch {prefetch}: "
+                     f"masses or the rerun's draw differ from the streamed engine's")
+            rows.append((task, m, PIPE_BLOCK, prefetch, build_s, st_s, peak, limit, staged,
+                         counts))
+            log(f"pipelined {task} m={m} block_size {PIPE_BLOCK} ({nch} superchunks of "
+                f"{Cb}) prefetch {prefetch}: build_s={build_s:.4f} (streamed {st_s:.4f}) "
+                f"== the streamed build bit for bit (indices_sha256={digest(cs.indices)}, "
+                f"weights, masses, bill {cs.comm_units} / {cs.comm_bits}); peak_bytes={peak} "
+                f"(limit {limit:.0f}; streamed {st_peak}) h2d_bytes={staged} (streamed "
+                f"{st_staged}) launches {counts}")
+            log(f"breakdown pipelined {task} m={m} block_size {PIPE_BLOCK} prefetch "
+                f"{prefetch}: {split} (probes synchronise)")
+            del cs, scorer, plan
+        del st, st_scorer, st_plan
+
+    # (c) the prefetch ablation: vrlr at block 4,096 (nb = 114, 15 superchunks),
+    #     m = 1000, prefetch on and off in turn, after one scorer of each (its
+    #     pinned slots and shapes) as the warm-up
+    stage_s["builds (a), (b)"] = time.perf_counter() - t_stage
+    t_stage = time.perf_counter()
+    m = BUDGETS[0]
+    key = rng.fold_in(rng.PRNGKey(seed + 17), m)
+    nb, bs = ds_host.block_geometry(ABLATION_BLOCK)
+    nch = -(-nb // C)
+    spec = CoresetSpec(task="vrlr", budgets=m, engine="pipelined", block_size=ABLATION_BLOCK,
+                       chunk_blocks=C)
+    for prefetch in (True, False):
+        make_stream_scorer("vrlr", key, ds_host, ABLATION_BLOCK, "pallas", device=dev,
+                           chunk_blocks=C, prefetch=prefetch)
+    times = {True: [], False: []}
+    first = None
+    for i in range(ABLATION_RUNS):
+        for prefetch in ((True, False) if i % 2 == 0 else (False, True)):
+            cs, build_s, counts, peak, staged = run(
+                lambda: CoresetPipeline(ds_host).build(spec.replace(prefetch=prefetch),
+                                                       key=key), ds_host)
+            add(counts)
+            first = first or {"indices": cs.indices, "weights": cs.weights}
+            if not same(cs, first):
+                fail(f"pipelined vrlr block_size {ABLATION_BLOCK} prefetch {prefetch}: "
+                     f"another coreset than the first run's")
+            times[prefetch].append(build_s)
+            del cs
+    med = {p: sorted(t)[len(t) // 2] for p, t in times.items()}
+    winner = min(med, key=med.get)
+    log(f"prefetch ablation, vrlr m={m} block_size {ABLATION_BLOCK} ({nb} blocks, {nch} "
+        f"superchunks of {C}), {ABLATION_RUNS} runs each, build_s: on "
+        f"{[round(t, 4) for t in times[True]]} (median {med[True]:.4f}), off "
+        f"{[round(t, 4) for t in times[False]]} (median {med[False]:.4f}); winner: prefetch "
+        f"{'on' if winner else 'off'}; PREFETCH_DEFAULT['cuda'] = {PREFETCH_DEFAULT['cuda']}"
+        f"; last run peak_bytes={peak} (2.5 superchunks: "
+        f"{PIPE_PEAK_FACTOR * C * 4 * T * bs * 31:.0f}, not gated at this block size) "
+        f"h2d_bytes={staged} launches {counts}")
+    log("pipelined table (task, m, block_size, prefetch, build_s, streamed build_s, "
+        "peak_bytes, limit, h2d_bytes, launches):")
+    for r in rows:
+        log(f"  {r[0]} {r[1]} {r[2]} {r[3]} {r[4]:.4f} {r[5]:.4f} {r[6]} {r[7]:.0f} {r[8]} "
+            f"{r[9]}")
+    ds_host._staging.clear()
+    stage_s["ablation (c)"] = time.perf_counter() - t_stage
+    log(f"phase 10 took {time.perf_counter() - phase_t0:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in stage_s.items()) + ")")
     return errs
 
 
@@ -1845,8 +2294,19 @@ def main() -> None:
     # ---- 9. the streamed engine ---------------------------------------------------
     mat_coresets = {(task, m): res[m][0] for task, res in (("vrlr", results),
                                                            ("vkmc", vk_results)) for m in BUDGETS}
-    errs = streamed_phase(torch, dev, args.seed, X_np, y_np, ds, lam, launches, mat_peaks,
-                          mat_coresets, check_k5, reset_counts, read_counts)
+    ds_host = VFLDataset.from_dense(X_np, y_np, T=T_PARTIES, device="cpu")
+    errs, streamed = streamed_phase(torch, dev, args.seed, ds_host, ds, lam, launches,
+                                    mat_peaks, mat_coresets, check_k5, reset_counts,
+                                    read_counts)
+    lev_err = max(lev_err, errs["leverage"])
+    gram_err = max(gram_err, errs["weighted_gram"])
+    kau_err = max(kau_err, errs["kmeans_assign_update"])
+    ka_err = max(ka_err, errs["kmeans_assign"])
+
+    # ---- 10. the pipelined engine ---------------------------------------------------
+    errs = pipelined_phase(torch, dev, args.seed, ds_host, launches, streamed, check_k5,
+                           reset_counts, read_counts)
+    del ds_host
     lev_err = max(lev_err, errs["leverage"])
     gram_err = max(gram_err, errs["weighted_gram"])
     kau_err = max(kau_err, errs["kmeans_assign_update"])

@@ -6,8 +6,9 @@ engines: the materialized engine with the DIS rounds recorded on a ledger
 (the reference's ``transport is None`` branch of ``_exec_materialized``),
 with its fused fast path (``jit=True``: one CUDA graph per shape on the
 card); the batched engine over a (seeds x budgets) grid, billed lazily per
-cell; and the streamed engine (block-scan scoring + hierarchical DIS from
-a dataset that may stay in host memory, :mod:`repro_torch.core.streaming`;
+cell; and the streamed and pipelined engines (block-scan scoring +
+hierarchical DIS from a dataset that may stay in host memory, one block or
+one superchunk of C blocks at a time, :mod:`repro_torch.core.streaming`;
 the ``transport is None`` branch of the reference's ``_exec_streaming``):
 
   * :class:`CoresetTask` + :func:`register_task` — the task registry
@@ -48,7 +49,7 @@ from repro_torch.core.plan import (
     ExecutionPlan,
     compile_plan,
 )
-from repro_torch.core.streaming import dis_plan_streamed, make_stream_scorer
+from repro_torch.core.streaming import dis_plan_streamed_batched, make_stream_scorer
 from repro_torch.core.sensitivity import (
     norm_scores,
     vkmc_local_scores,
@@ -453,14 +454,19 @@ def _exec_batched(
 def _exec_streaming(
     spec: CoresetTask, ds: VFLDataset, m: int, key, backend: str,
     ledger: Optional[CommLedger], probe: Optional[Callable[[], None]],
-    block_size: int, params: dict, device: torch.device,
+    block_size: int, chunk_blocks: int, prefetch: bool, params: dict,
+    device: torch.device,
 ) -> Coreset:
-    """The streamed engine: block-scan scoring + hierarchical (party,
-    block) DIS on ``device``, from ``ds`` on the CPU or on ``device``.
-    The exact per-round bill is recorded on ``ledger``; the round-1 upload
-    is the (T, nb) block-mass table, one raw float32 per block per party.
-    Nothing crosses a wire on this path; transports, codecs and
-    checkpoints come with ROADMAP.md queue 1, item 14."""
+    """The streamed and pipelined engines: block-scan scoring +
+    hierarchical (party, block) DIS on ``device``, from ``ds`` on the CPU
+    or on ``device``.  The passes scan superchunks of ``chunk_blocks``
+    blocks (``prefetch``: double-buffered) and the redraw takes the
+    touched blocks in groups of that size; the streamed engine is the
+    width 1 without prefetch.  The exact per-round bill is recorded on
+    ``ledger``; the round-1 upload is the (T, nb) block-mass table, one raw
+    float32 per block per party.  Nothing crosses a wire on this path;
+    transports, codecs and checkpoints come with ROADMAP.md queue 1, item
+    14."""
     if spec.needs_labels and ds.y is None:
         raise ValueError(f"{spec.name} requires labels at party T")
     if spec.score_fn is None:
@@ -471,12 +477,14 @@ def _exec_streaming(
     nb = ds.block_geometry(int(block_size))[0]
     r1_payload = WirePayload.of((nb,), "float32", "raw_fp32")
     scorer = make_stream_scorer(spec.name, key, ds, int(block_size), backend,
-                                probe=probe, device=device, **params)
+                                probe=probe, device=device,
+                                chunk_blocks=chunk_blocks, prefetch=prefetch,
+                                **params)
     conds = None if scorer.gram_conds is None else scorer.gram_conds.cpu().numpy()
     health = health_from_masses(scorer.masses.cpu().numpy(), gram_conds=conds)
     if not bool(scorer.masses.sum() > 0):
         raise ValueError("DIS requires a positive total score")
-    plan = dis_plan_streamed(scorer, m, probe=probe)
+    plan = dis_plan_streamed_batched(scorer, m, probe=probe)
     schedule = CommSchedule.dis(ds.T, m, counts=plan.counts.tolist(),
                                 round1_payload=r1_payload)
     schedule.record(ledger)
@@ -509,9 +517,9 @@ class CoresetPipeline:
         device: DeviceLike = "cuda",
     ) -> Union[Coreset, BatchedCoresets]:
         """Build per the (compiled) spec on ``device`` — the card unless
-        the caller asks for the CPU.  The streamed engine takes a dataset
-        on the CPU or on ``device`` and computes on ``device``; every
-        other engine needs the dataset on ``device``.
+        the caller asks for the CPU.  The streamed and pipelined engines
+        take a dataset on the CPU or on ``device`` and compute on
+        ``device``; every other engine needs the dataset on ``device``.
 
         Returns a :class:`Coreset` for single-cell plans and a
         :class:`BatchedCoresets` grid for the batched engine.  ``keys`` (a
@@ -519,7 +527,8 @@ class CoresetPipeline:
         the batched engine, which bills its cells lazily
         (``grid.coreset(..., ledger=...)``), so ``ledger`` applies to
         single-cell engines only.  ``probe`` (if given) runs after every
-        block of the streamed engine's passes and redraw."""
+        block (pipelined: superchunk) of the streaming engines' passes and
+        after every block (group) of their redraw."""
         dev = resolve_device(device)
         if isinstance(spec, ExecutionPlan):
             ep = spec
@@ -540,12 +549,14 @@ class CoresetPipeline:
                 )
         else:
             ep = self.plan(spec, dev)
-        host_stream = ep.engine == "streamed" and self.ds.device.type == "cpu"
+        streaming = ep.engine in ("streamed", "pipelined")
+        host_stream = streaming and self.ds.device.type == "cpu"
         if self.ds.device != dev and not host_stream:
             raise ValueError(
                 f"the dataset lives on {self.ds.device}, the build was asked "
                 f"to run on {dev}; build the dataset with device={str(dev)!r}"
-                f" (only the streamed engine reads a dataset from the CPU)"
+                f" (only the streamed and pipelined engines read a dataset "
+                f"from the CPU)"
             )
         cspec = ep.spec
         task = get_task(cspec.task)
@@ -558,10 +569,11 @@ class CoresetPipeline:
                                  ep.backend, ep.m_cap, cspec.params)
         if key is None:
             raise ValueError(f"the {ep.engine} engine requires `key`")
-        if ep.engine == "streamed":
+        if streaming:
             return _exec_streaming(task, self.ds, cspec.budget, key.to(dev),
                                    ep.backend, ledger, probe, ep.block_size,
-                                   cspec.params, dev)
+                                   ep.chunk_blocks, ep.prefetch, cspec.params,
+                                   dev)
         return _exec_materialized(task, self.ds, cspec.budget, key.to(dev),
                                   ep.backend, ledger, cspec.params,
                                   fused=cspec.jit)
@@ -631,16 +643,18 @@ def build_coreset_streaming(
     """Build one coreset with n as a streaming dimension (shim over
     ``CoresetSpec(engine="pipelined")``, as in the reference).
 
-    The planner lowers ``chunk_blocks=1, prefetch=False`` to the streamed
-    engine: block-scan scoring and the hierarchical (party, block) DIS
-    sampler, one (T, bs, s) block on the card at a time, from ``ds`` on
-    the CPU or on ``device``.  The defaults (``chunk_blocks`` from
+    Block-scan scoring and the hierarchical (party, block) DIS sampler
+    from ``ds`` on the CPU or on ``device``.  The defaults
+    (``chunk_blocks`` from
     :data:`~repro_torch.core.plan.DEFAULT_CHUNK_BLOCKS`, ``prefetch``
-    from :data:`~repro_torch.core.plan.PREFETCH_DEFAULT`) plan the
-    pipelined engine, which raises ``NotImplementedError`` until it is
-    ported (ROADMAP.md queue 1, item 12, the pipelined half).  With
-    ``block_size >= ds.n`` the draws equal :func:`build_coreset`'s bit for
-    bit when the blockwise scores do (the row-local ``norm`` backend).
+    from :data:`~repro_torch.core.plan.PREFETCH_DEFAULT`) run the
+    pipelined engine: superchunks of C blocks, each kernel launched once a
+    superchunk, the next one's copy overlapping this one's kernels, and
+    the touched blocks redrawn C at a time.  The planner lowers
+    ``chunk_blocks=1, prefetch=False`` to the streamed engine, one
+    (T, bs, s) block at a time; both draw the same coreset bit for bit.
+    With ``block_size >= ds.n`` the draws equal :func:`build_coreset`'s bit
+    for bit when the blockwise scores do (the row-local ``norm`` backend).
     """
     spec = CoresetSpec(task=task, budgets=int(budget), engine="pipelined",
                        backend=backend, block_size=block_size,

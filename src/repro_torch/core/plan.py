@@ -1,18 +1,20 @@
 """CoresetSpec -> ExecutionPlan for the ported engines (the part of
-:mod:`repro.core.plan` the materialized and batched engines need).
+:mod:`repro.core.plan` the materialized, batched and streaming engines
+need).
 
 A :class:`CoresetSpec` validates the fields the port reads; the names
 and values match the reference's, so a spec carries over.
 :func:`compile_plan` resolves it against a dataset: one budget and one
 seed run on the materialized engine, a (seeds x budgets) grid on the
-batched one, and a forced ``streamed`` engine runs block at a time
-(``chunk_blocks`` 1, no prefetch).  ``pipelined`` at ``chunk_blocks=1``
-without prefetch is lowered to ``streamed``; above that it raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
-``jit=True`` selects the materialized engine's fused path (one CUDA graph
-per shape on the card); the batched engine accepts it and runs as
-without it.  ``engine="auto"`` picks the materialized engine: the memory
-model, codec axis, fault policies and plan cache wait for their slices.
+batched one, a forced ``streamed`` engine runs block at a time
+(``chunk_blocks`` 1, no prefetch) and ``pipelined`` over superchunks of
+``chunk_blocks`` blocks (clamped to the block count), prefetched or not;
+``pipelined`` at ``chunk_blocks=1`` without prefetch is lowered to
+``streamed``, which draws the same coreset.  ``jit=True`` selects the
+materialized engine's fused path (one CUDA graph per shape on the card);
+the batched engine accepts it and runs as without it.  ``engine="auto"``
+picks the materialized engine: the memory model, codec axis, fault
+policies and plan cache wait for their slices.
 """
 
 from __future__ import annotations
@@ -33,19 +35,17 @@ SCORE_BACKENDS = ("pallas", "ref", "norm")
 
 ENGINES = ("materialized", "batched", "streamed", "pipelined")
 
-#: Where each engine the port lacks is scheduled (ROADMAP.md, queue 1).
-_NOT_PORTED = {
-    "pipelined": "queue 1, item 12, the pipelined half",
-}
-
 # superchunk width when chunk_blocks is not given (the reference's)
 DEFAULT_CHUNK_BLOCKS = 8
 
 #: Prefetch default per device type when ``prefetch`` is not given.  The
 #: CPU value is the reference's measured winner (the staging thread competes
-#: with the compute it overlaps); the CUDA value is the reference's
-#: accelerator default, not yet measured on an H100 (ROADMAP.md queue 1,
-#: item 12).
+#: with the compute it overlaps).  The CUDA value is the winner of
+#: ``chip_smoke.py``'s prefetch ablation on an NVIDIA H100 80GB HBM3 at a
+#: 700 W power limit: a ``vrlr`` build at m = 1000 from host memory, blocks
+#: of 4,096 rows in 15 superchunks of 8, took a median 0.7460-0.8732 s
+#: with prefetch and 0.8593-1.0440 s without (three calls of three runs
+#: each way).
 PREFETCH_DEFAULT = {"cpu": False, "cuda": True}
 
 
@@ -254,12 +254,6 @@ def compile_plan(spec: CoresetSpec, ds: VFLDataset,
             f"chunk_blocks clamped {chunk_req} -> {nb}: n={ds.n} at "
             f"block_size={spec.block_size} has only {nb} blocks "
             f"(one full-span superchunk)"
-        )
-    if engine in _NOT_PORTED:
-        raise NotImplementedError(
-            f"the {engine} engine (chunk_blocks={chunk}, prefetch={prefetch}) "
-            f"is not ported to PyTorch yet (ROADMAP.md {_NOT_PORTED[engine]}); "
-            f"use engine='streamed', or chunk_blocks=1 with prefetch=False"
         )
     m_cap = max(spec.budgets) if spec.m_cap is None else spec.m_cap
     comm = R * sum(CommSchedule.uniform(ds.T, m).total if task.score_fn is None

@@ -1,41 +1,54 @@
-"""Block-scan scoring + hierarchical DIS: the streamed engine (port of the
-block-at-a-time half of :mod:`repro.core.streaming`).
+"""Block-scan scoring + hierarchical DIS: the streamed and pipelined
+engines (port of :mod:`repro.core.streaming`).
 
 The materialized engine holds the (T, n, s) stacked design and the (T, n)
-score table on the card.  This engine makes n a streaming dimension:
+score table on the card.  These engines make n a streaming dimension:
 
-  * **Block-scan scoring.**  Every score path is a set of passes over
-    (T, bs, s) row blocks (:meth:`VFLDataset.block`), one block on the
-    device at a time.  ``vrlr``: pass 1 accumulates each party's (s, s)
-    Gram block by block (the ``weighted_gram`` kernel, the 0/1 row-valid
-    mask as the weights), the eigen-pseudo-inverse is taken once, and
-    pass 2 emits leverage scores block by block (the ``leverage``
-    kernel).  ``vkmc``: party-local k-means on a bounded uniform row
-    subsample, then a pass accumulating the global cluster sizes and
-    costs (``kmeans_assign_update`` with the mask as weights), then a
-    pass emitting sensitivities (``kmeans_assign``).
-  * **Hierarchical DIS** (:func:`dis_plan_streamed`): round 1 draws
-    (party, block) cells from the (T, nb) block-mass table, round 2
-    recomputes only the touched blocks and draws their rows, so the
-    (T, n) table never exists.  Its draws are those of the in-memory
-    :func:`repro_torch.core.dis.dis_plan_blocked` on the same scores.
+  * **Block-scan scoring.**  Every score path is a set of passes over row
+    blocks, one superchunk of C (T, bs, s) blocks on the device at a time
+    (:meth:`VFLDataset.blocks_prefetched`).  ``vrlr``: pass 1 accumulates
+    each party's (s, s) Gram (the ``weighted_gram`` kernel, the 0/1
+    row-valid mask as the weights), the eigen-pseudo-inverse is taken
+    once, and pass 2 emits leverage scores (the ``leverage`` kernel).
+    ``vkmc``: party-local k-means on a bounded uniform row subsample, then
+    a pass accumulating the global cluster sizes and costs
+    (``kmeans_assign_update`` with the mask as weights), then a pass
+    emitting sensitivities (``kmeans_assign``).  Each kernel is launched
+    once a superchunk over its (C, T) batch, so a pass costs nb / C
+    launches of each.  The streamed engine is C = 1 without prefetch; the
+    pipelined engine is C > 1 or prefetch: two pinned host slots, the copy
+    of superchunk c + 1 on a side stream while c is scored.
+  * **Hierarchical DIS** (:func:`dis_plan_streamed`,
+    :func:`dis_plan_streamed_batched`): round 1 draws (party, block) cells
+    from the (T, nb) block-mass table, round 2 recomputes only the
+    touched blocks, C at a time (one gather, one launch of each scoring
+    kernel and one categorical launch over all of the group's cells), and
+    draws their rows, so the (T, n) table never exists.  Its draws are
+    those of the in-memory :func:`repro_torch.core.dis.dis_plan_blocked`
+    on the same scores.
 
-A dataset in host memory (CPU tensors) stays there: each block is staged
-through a pinned host buffer to the card, scored by the kernels and
-dropped, so the build's device memory is O(block_size * d) at any n.
+The Gram, cluster statistics, block masses and draws are bit for bit the
+same at every C and with or without prefetch (the reference's contract
+between its streamed and pipelined engines): K3 and K2 split the rows of
+each batch entry by n alone, so one launch over C blocks gives each block
+the partial sums C launches would; the per-block results are folded into
+the accumulator in block order, one add per block, and each block's mass
+is the sum of its own (T, bs) slice.  K1, K4 and the draw are row-local.
 
-Not here yet: superchunks of ``chunk_blocks > 1`` blocks and prefetch
-(the pipelined engine, with its superchunk bodies and
-``dis_plan_streamed_batched``: ROADMAP.md queue 1, item 12, the pipelined
-half; the planner, :func:`repro_torch.core.plan.compile_plan`, raises for
-it); the per-pass checkpoint (``ckpt``, item 14); a block-mass table
-supplied from sharded devices (``masses=``, item 13).
+A dataset in host memory (CPU tensors) stays there: each superchunk is
+staged through pinned host memory to the card, scored by the kernels and
+dropped, so the build's device memory is O(chunk_blocks * block_size * d)
+at any n.
+
+Not here yet: the per-pass checkpoint (``ckpt``, ROADMAP.md queue 1, item
+14); a block-mass table supplied from sharded devices (``masses=``, item
+13).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -56,10 +69,14 @@ class StreamScorer:
     ``masses[j, b]`` is the block mass G^(j,b) = sum_{i in block b} g_i^(j)
     (the round-1 table of the hierarchical sampler); ``score_block(b)``
     recomputes the (T, bs) scores of block ``b`` on demand, with padded rows
-    exactly 0.  ``data_passes`` counts the passes over the dataset the
-    scorer spent building its state and mass table.  ``gram_conds``
-    holds the ``vrlr`` scorer's (T,) retained Gram condition numbers for
-    the build's health report.
+    exactly 0; ``score_blocks(ids)`` recomputes a group of blocks as one
+    (len(ids), T, bs) batch, one launch of each scoring kernel, entry i bit
+    for bit ``score_block(ids[i])``.  ``chunk_blocks`` is the superchunk
+    width the scorer was built with (the redraw groups touched blocks by
+    it).  ``data_passes`` counts the passes over the dataset the scorer
+    spent building its state and mass table.  ``gram_conds`` holds the
+    ``vrlr`` scorer's (T,) retained Gram condition numbers for the build's
+    health report.
     """
 
     T: int
@@ -70,6 +87,8 @@ class StreamScorer:
     dis_key: rng.Key
     score_block: Callable[[int], torch.Tensor]
     data_passes: int
+    score_blocks: Optional[Callable[[Sequence[int]], torch.Tensor]] = None
+    chunk_blocks: int = 1
     gram_conds: Optional[torch.Tensor] = None
 
 
@@ -97,12 +116,16 @@ def make_stream_scorer(
     backend: str,
     probe: Optional[Callable[[], None]] = None,
     device: DeviceLike = "cuda",
+    chunk_blocks: int = 1,
+    prefetch: bool = False,
     **params,
 ) -> StreamScorer:
     """Build the task's :class:`StreamScorer` on ``device`` (the card
     unless the caller asks for the CPU) from a dataset on the CPU or on
-    ``device``.  ``probe`` (if given) runs after every block of every
-    pass, and after ``vkmc``'s local centers."""
+    ``device``.  ``chunk_blocks = C > 1`` or ``prefetch`` selects the
+    pipelined engine: every pass over (C, T, bs, s) superchunks, C clamped
+    to the block count.  ``probe`` (if given) runs after every block (or
+    superchunk) of every pass, and after ``vkmc``'s local centers."""
     factory = STREAM_SCORERS.get(name)
     if factory is None:
         raise ValueError(
@@ -110,7 +133,7 @@ def make_stream_scorer(
             f"available: {sorted(STREAM_SCORERS)}"
         )
     return factory(key, ds, block_size, backend, probe=probe, device=device,
-                   **params)
+                   chunk_blocks=chunk_blocks, prefetch=prefetch, **params)
 
 
 def with_masses(scorer: StreamScorer, masses) -> StreamScorer:
@@ -139,100 +162,185 @@ def _setup(backend: str, device: DeviceLike) -> Tuple[bool, torch.device]:
     return backend == "pallas", resolve_device(device)
 
 
-def _row_valid(bs: int, nvalid: int, device) -> torch.Tensor:
-    return (torch.arange(bs, device=device) < nvalid).to(torch.float32)
+def _rows_ok(b0: int, count: int, bs: int, n: int,
+             device) -> Optional[torch.Tensor]:
+    """(count, 1, bs) bool row-valid masks of blocks b0 .. b0 + count - 1,
+    from the geometry alone (no copy from the host); None when every row
+    of them is valid."""
+    if (b0 + count) * bs <= n:
+        return None
+    rows = torch.arange(b0 * bs, (b0 + count) * bs, device=device)
+    return (rows < n).view(count, 1, bs)
 
 
-def _mass_table(ds: VFLDataset, block_size: int,
-                score_block: Callable[[int], torch.Tensor], probe) -> torch.Tensor:
-    """One pass over the blocks collecting the (T, nb) block-mass table."""
-    nb, _ = ds.block_geometry(block_size)
-    masses = []
-    for b in range(nb):
-        masses.append(torch.sum(score_block(b), dim=1))
+def _group_ok(ids: Sequence[int], bs: int, n: int,
+              device) -> Optional[torch.Tensor]:
+    """(len(ids), 1, bs) row-valid masks of the blocks ``ids``, or None
+    when every row of them is valid."""
+    if all((b + 1) * bs <= n for b in ids):
+        return None
+    return torch.stack([torch.arange(b * bs, (b + 1) * bs, device=device) < n
+                        for b in ids])[:, None]
+
+
+def _masked(sc: torch.Tensor, ok: Optional[torch.Tensor]) -> torch.Tensor:
+    """``sc`` with 0 where ``ok`` (broadcast over the party axis) is false."""
+    return sc if ok is None else torch.where(ok, sc, 0.0)
+
+
+def _row_weights(ok: Optional[torch.Tensor], shape, device) -> torch.Tensor:
+    """The row-valid mask as kernel weights for X of ``shape`` (..., bs, s):
+    one (bs,) vector of ones the whole batch shares when every row is
+    valid, else the masks expanded to ``shape[:-1]``."""
+    if ok is None:
+        return torch.ones(shape[-2:-1], dtype=torch.float32, device=device)
+    return ok.to(torch.float32).expand(shape[:-1])
+
+
+def _scan(ds: VFLDataset, block_size: int, with_labels: bool, C: int,
+          prefetch: bool, dev: torch.device, probe):
+    """One pass over the dataset: ``(chunk (count, T, bs, s), row-valid
+    masks or None)`` for each superchunk of C blocks (one block at a time
+    when C is 1), ``probe`` after each.  The pass drops its references to a
+    chunk before the next one is staged; so must the consumer
+    (``del chunk``)."""
+    _, bs = ds.block_geometry(block_size)
+    for b0, chunk, _ in ds.blocks_prefetched(block_size, with_labels, C,
+                                             prefetch, device=dev):
+        ok = _rows_ok(b0, chunk.shape[0], bs, ds.n, dev)
+        yield chunk, ok
+        del chunk, ok
         probe()
-    return torch.stack(masses, dim=1)                      # (T, nb)
 
 
-def _norm_score_body(blk: torch.Tensor, nvalid: int, n: int) -> torch.Tensor:
-    """Row-norm^2 ablation scores of one block: row-local, so each row's
-    value is the materialized ``norm`` backend's; 0 on padded rows."""
-    sc = norm_scores(blk) + 1.0 / n
-    ok = torch.arange(blk.shape[1], device=blk.device) < nvalid
-    return torch.where(ok[None, :], sc, 0.0)
+def _block_masses(sc: torch.Tensor) -> torch.Tensor:
+    """(T, C) masses of a (C, T, bs) score batch, each block's the sum of
+    its own (T, bs) slice, as a lone block is summed.  A slice not 16-byte
+    aligned is summed from a copy: CUDA's reduction starts at the first
+    aligned element, so its order follows the address (and one sum over
+    the whole batch gives other bits on the card)."""
+    cols = []
+    for blk in sc:
+        if blk.data_ptr() % 16:
+            blk = blk.clone()
+        cols.append(torch.sum(blk, dim=1))
+    return torch.stack(cols, dim=1)
+
+
+def _mass_table(scan, scores) -> torch.Tensor:
+    """The (T, nb) block-mass table from one pass: ``scores(chunk, ok)``
+    scores a superchunk, one launch of each kernel."""
+    cols = []
+    for chunk, ok in scan:
+        sc = scores(chunk, ok)
+        del chunk          # drop the slot before the next one is staged
+        cols.append(_block_masses(sc))
+    return torch.cat(cols, dim=1)
+
+
+def _scorer(ds: VFLDataset, block_size: int, with_labels: bool, dev, scores,
+            **fields) -> StreamScorer:
+    """The :class:`StreamScorer` whose blocks ``scores(X, ok)`` recomputes:
+    ``score_blocks`` gathers a group (one launch of each kernel),
+    ``score_block`` is a group of one."""
+    nb, bs = ds.block_geometry(block_size)
+
+    def score_blocks(ids) -> torch.Tensor:
+        batch, _ = ds.gather_blocks(ids, block_size, with_labels, device=dev)
+        return scores(batch, _group_ok(ids, bs, ds.n, dev))
+
+    return StreamScorer(T=ds.T, n=ds.n, nb=nb, bs=bs,
+                        score_block=lambda b: score_blocks([b])[0],
+                        score_blocks=score_blocks, **fields)
+
+
+def _norm_scores(X: torch.Tensor, ok: Optional[torch.Tensor],
+                 n: int) -> torch.Tensor:
+    """Row-norm^2 ablation scores of X (..., T, bs, s): row-local, so each
+    row's value is the materialized ``norm`` backend's; 0 where ``ok``
+    (broadcast over the party axis) is false."""
+    return _masked(norm_scores(X) + 1.0 / n, ok)
 
 
 def _norm_scorer(key, ds: VFLDataset, block_size: int, with_labels: bool,
-                 probe, dev: torch.device) -> StreamScorer:
-    nb, bs = ds.block_geometry(block_size)
+                 probe, dev: torch.device, C: int,
+                 prefetch: bool) -> StreamScorer:
+    def scores(X, ok):
+        return _norm_scores(X, ok, ds.n)
 
-    def score_block(b: int) -> torch.Tensor:
-        blk, nvalid = ds.block(b, block_size, with_labels, device=dev)
-        return _norm_score_body(blk, nvalid, ds.n)
+    masses = _mass_table(_scan(ds, block_size, with_labels, C, prefetch, dev,
+                               probe), scores)
+    return _scorer(ds, block_size, with_labels, dev, scores, masses=masses,
+                   dis_key=key, data_passes=1, chunk_blocks=C)
 
-    masses = _mass_table(ds, block_size, score_block, probe)
-    return StreamScorer(T=ds.T, n=ds.n, nb=nb, bs=bs, masses=masses,
-                        dis_key=key, score_block=score_block, data_passes=1)
+
+def _superchunk(chunk_blocks: int, ds: VFLDataset, block_size: int) -> int:
+    """The superchunk width: ``chunk_blocks`` clamped to [1, nb]."""
+    return max(1, min(int(chunk_blocks), ds.block_geometry(block_size)[0]))
 
 
 # --------------------------------------------------------------------------
 # VRLR: Gram block-scan -> one pinv -> blockwise leverage
 # --------------------------------------------------------------------------
 
-def _gram_body(G: torch.Tensor, blk: torch.Tensor, nvalid: int,
-               use_kernel: bool) -> torch.Tensor:
-    """G += blk^T diag(valid) blk, batched over the party axis (the
-    ``weighted_gram`` kernel with the row-valid mask as its weights)."""
-    T, bs, _ = blk.shape
-    f = blk.to(torch.float32)
-    wv = _row_valid(bs, nvalid, blk.device).expand(T, bs)
-    return G + kops.weighted_gram(f, wv, use_kernel)
+def _gram_chunk(G: torch.Tensor, chunk: torch.Tensor,
+                ok: Optional[torch.Tensor], use_kernel: bool) -> torch.Tensor:
+    """G += each block's blk^T diag(valid) blk over one (C, T, bs, s)
+    superchunk: one ``weighted_gram`` launch over the (C, T) batch (the
+    row-valid mask as its weights), then each block's Gram added to G in
+    block order."""
+    f = chunk.to(torch.float32)
+    Gb = kops.weighted_gram(f, _row_weights(ok, f.shape, f.device), use_kernel)
+    for Gi in Gb:
+        G = G + Gi
+    return G
 
 
-def _vrlr_score_body(blk: torch.Tensor, M: torch.Tensor, nvalid: int, n: int,
-                     use_kernel: bool) -> torch.Tensor:
-    """clip(x_i^T M x_i, 0, 1) + 1/n per party; 0 on padded rows."""
-    f = blk.to(torch.float32)
-    sc = torch.clamp(kops.leverage(f, M, use_kernel), 0.0, 1.0) + 1.0 / n
-    ok = torch.arange(f.shape[1], device=f.device) < nvalid
-    return torch.where(ok[None, :], sc, 0.0)
+def _vrlr_scores(X: torch.Tensor, M: torch.Tensor, ok: Optional[torch.Tensor],
+                 n: int, use_kernel: bool) -> torch.Tensor:
+    """clip(x_i^T M x_i, 0, 1) + 1/n per party for X (..., T, bs, s); 0 where
+    ``ok`` (broadcast over the party axis) is false.  The (T, s, s) M is
+    expanded over X's leading dims, which the kernel takes as its batch."""
+    f = X.to(torch.float32)
+    lev = kops.leverage(f, M.expand(f.shape[:-2] + M.shape[-2:]), use_kernel)
+    return _masked(torch.clamp(lev, 0.0, 1.0) + 1.0 / n, ok)
 
 
 @register_stream_scorer("vrlr")
 def vrlr_stream_scorer(
     key, ds: VFLDataset, block_size: int, backend: str,
     probe: Optional[Callable[[], None]] = None, rcond: float = 1e-6,
-    device: DeviceLike = "cuda",
+    device: DeviceLike = "cuda", chunk_blocks: int = 1, prefetch: bool = False,
 ) -> StreamScorer:
     """Algorithm 2's scores without ever holding (n, d): one block-scan
     pass accumulates each party's (s, s) Gram, the eigen-pseudo-inverse is
     taken once, and scores are re-emitted per block from (block, M) alone.
     The key passes through untouched, as in the materialized ``vrlr``
-    task."""
+    task.  Each pass runs over superchunks of ``chunk_blocks`` blocks
+    (``prefetch``: double-buffered): the same Gram and mass table at any
+    width, nb / C launches of each kernel a pass."""
     use_kernel, dev = _setup(backend, device)
     probe = probe or _noop
     key = key.to(dev)
+    C = _superchunk(chunk_blocks, ds, block_size)
     if backend == "norm":
-        return _norm_scorer(key, ds, block_size, True, probe, dev)
-    nb, bs = ds.block_geometry(block_size)
+        return _norm_scorer(key, ds, block_size, True, probe, dev, C, prefetch)
     widths, s = ds.stacked_widths(with_labels=True)
-    n = ds.n
     G = torch.zeros((ds.T, s, s), dtype=torch.float32, device=dev)
-    for _, blk, nvalid in ds.blocks(block_size, with_labels=True, device=dev):
-        G = _gram_body(G, blk, nvalid, use_kernel)
-        del blk            # drop the block before the next one is staged
-        probe()
+    for chunk, ok in _scan(ds, block_size, True, C, prefetch, dev, probe):
+        G = _gram_chunk(G, chunk, ok, use_kernel)
+        del chunk          # drop the slot before the next one is staged
     M, gram_conds = batched_gram_pinv(G, rcond, return_cond=True,
                                       expected_rank=widths)
 
-    def score_block(b: int) -> torch.Tensor:
-        blk, nvalid = ds.block(b, block_size, with_labels=True, device=dev)
-        return _vrlr_score_body(blk, M, nvalid, n, use_kernel)
+    def scores(X, ok):
+        return _vrlr_scores(X, M, ok, ds.n, use_kernel)
 
-    masses = _mass_table(ds, block_size, score_block, probe)
-    return StreamScorer(T=ds.T, n=n, nb=nb, bs=bs, masses=masses, dis_key=key,
-                        score_block=score_block, data_passes=2,
-                        gram_conds=gram_conds)
+    masses = _mass_table(_scan(ds, block_size, True, C, prefetch, dev, probe),
+                         scores)
+    return _scorer(ds, block_size, True, dev, scores, masses=masses,
+                   dis_key=key, data_passes=2, chunk_blocks=C,
+                   gram_conds=gram_conds)
 
 
 # --------------------------------------------------------------------------
@@ -280,31 +388,41 @@ def vkmc_local_centers(
     return torch.stack(centers), dis_key                   # (T, k, s)
 
 
-def _vkmc_stats_body(blk: torch.Tensor, centers: torch.Tensor, nvalid: int,
-                     use_kernel: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(cluster sizes (T, k), cluster costs (T, k)) of one block: the fused
-    assign-update pass with the row-valid mask as weights, batched over
-    parties."""
-    T, bs, _ = blk.shape
-    wv = _row_valid(bs, nvalid, blk.device).expand(T, bs)
-    _, _, _, wsum, ccost = kmeans_update(blk, centers, wv, use_kernel=use_kernel)
-    return wsum, ccost
+def _vkmc_stats_chunk(csize: torch.Tensor, ccost: torch.Tensor,
+                      chunk: torch.Tensor, centers: torch.Tensor,
+                      ok: Optional[torch.Tensor], use_kernel: bool
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cluster sizes (T, k), cluster costs (T, k)) accumulated over one
+    (C, T, bs, s) superchunk: one fused assign-update launch over the
+    (C, T) batch (centers expanded to it, the row-valid mask as weights),
+    then each block's sizes and costs added in block order."""
+    lead = chunk.shape[:-3]
+    wv = _row_weights(ok, chunk.shape, chunk.device)
+    _, _, _, wsum, cc = kmeans_update(chunk, centers.expand(lead + centers.shape),
+                                      wv, use_kernel=use_kernel)
+    for ws_i, cc_i in zip(wsum, cc):
+        csize = csize + ws_i
+        ccost = ccost + cc_i
+    return csize, ccost
 
 
-def _vkmc_score_body(blk: torch.Tensor, centers: torch.Tensor,
-                     csize: torch.Tensor, ccost: torch.Tensor, nvalid: int,
-                     alpha: float, use_kernel: bool) -> torch.Tensor:
-    """Algorithm 3 lines 3-11 for one block, given the GLOBAL per-party
-    cluster sizes and costs of the stats pass; 0 on padded rows."""
-    assign, d2 = kops.kmeans_assign(blk, centers, use_kernel)
+def _vkmc_scores(X: torch.Tensor, centers: torch.Tensor, csize: torch.Tensor,
+                 ccost: torch.Tensor, ok: Optional[torch.Tensor], alpha: float,
+                 use_kernel: bool) -> torch.Tensor:
+    """Algorithm 3 lines 3-11 for X (..., T, bs, s), given the GLOBAL
+    per-party cluster sizes and costs (T, k) of the stats pass (the
+    centers expanded over X's leading dims); 0 where ``ok`` (broadcast
+    over the party axis) is false."""
+    lead = X.shape[:-3]
+    assign, d2 = kops.kmeans_assign(X, centers.expand(lead + centers.shape),
+                                    use_kernel)
     cost = torch.clamp_min(ccost.sum(dim=1), 1e-30)[:, None]      # (T, 1)
     cs = torch.clamp_min(csize, 1.0)                               # (T, k)
     idx = assign.to(torch.int64)
-    cc_a = torch.gather(ccost, 1, idx)                             # (T, bs)
-    cs_a = torch.gather(cs, 1, idx)
+    cc_a = torch.gather(ccost.expand(lead + ccost.shape), -1, idx)  # (..., T, bs)
+    cs_a = torch.gather(cs.expand(lead + cs.shape), -1, idx)
     sc = alpha * d2 / cost + alpha * cc_a / (cs_a * cost) + 2.0 * alpha / cs_a
-    ok = torch.arange(blk.shape[1], device=blk.device) < nvalid
-    return torch.where(ok[None, :], sc, 0.0)
+    return _masked(sc, ok)
 
 
 @register_stream_scorer("vkmc")
@@ -313,19 +431,23 @@ def vkmc_stream_scorer(
     probe: Optional[Callable[[], None]] = None,
     k: int = 10, alpha: float = 2.0, local_iters: int = 15,
     center_sample: int = 16384, device: DeviceLike = "cuda",
+    chunk_blocks: int = 1, prefetch: bool = False,
 ) -> StreamScorer:
-    """Algorithm 3's sensitivities with one block resident: party j's local
-    k-means on a uniform row subsample (:func:`vkmc_local_centers`), ONE
-    block-scan pass accumulating the global cluster sizes and costs, and
-    scores re-emitted per block from (block, centers, stats).  The key
-    chain matches the materialized ``vkmc`` task."""
+    """Algorithm 3's sensitivities with one block (or superchunk) resident:
+    party j's local k-means on a uniform row subsample
+    (:func:`vkmc_local_centers`), ONE block-scan pass accumulating the
+    global cluster sizes and costs, and scores re-emitted per block from
+    (block, centers, stats).  The key chain matches the materialized
+    ``vkmc`` task.  ``chunk_blocks``/``prefetch`` set the passes'
+    superchunks as in :func:`vrlr_stream_scorer`."""
     use_kernel, dev = _setup(backend, device)
     probe = probe or _noop
-    nb, bs = ds.block_geometry(block_size)
-    n, T = ds.n, ds.T
+    T = ds.T
+    C = _superchunk(chunk_blocks, ds, block_size)
     if backend == "norm":
         _, dis_key = _vkmc_key_chain(key.to(dev), T)   # the task's key budget
-        return _norm_scorer(dis_key, ds, block_size, False, probe, dev)
+        return _norm_scorer(dis_key, ds, block_size, False, probe, dev, C,
+                            prefetch)
 
     centers, dis_key = vkmc_local_centers(
         key, ds, k=k, local_iters=local_iters, center_sample=center_sample,
@@ -333,21 +455,19 @@ def vkmc_stream_scorer(
     probe()
     csize = torch.zeros((T, k), dtype=torch.float32, device=dev)
     ccost = torch.zeros((T, k), dtype=torch.float32, device=dev)
-    for _, blk, nvalid in ds.blocks(block_size, with_labels=False, device=dev):
-        ws, cc = _vkmc_stats_body(blk, centers, nvalid, use_kernel)
-        del blk            # drop the block before the next one is staged
-        csize = csize + ws
-        ccost = ccost + cc
-        probe()
+    for chunk, ok in _scan(ds, block_size, False, C, prefetch, dev, probe):
+        csize, ccost = _vkmc_stats_chunk(csize, ccost, chunk, centers, ok,
+                                         use_kernel)
+        del chunk          # drop the slot before the next one is staged
+    alpha = float(alpha)
 
-    def score_block(b: int) -> torch.Tensor:
-        blk, nvalid = ds.block(b, block_size, with_labels=False, device=dev)
-        return _vkmc_score_body(blk, centers, csize, ccost, nvalid,
-                                float(alpha), use_kernel)
+    def scores(X, ok):
+        return _vkmc_scores(X, centers, csize, ccost, ok, alpha, use_kernel)
 
-    masses = _mass_table(ds, block_size, score_block, probe)
-    return StreamScorer(T=T, n=n, nb=nb, bs=bs, masses=masses, dis_key=dis_key,
-                        score_block=score_block, data_passes=3)
+    masses = _mass_table(_scan(ds, block_size, False, C, prefetch, dev, probe),
+                         scores)
+    return _scorer(ds, block_size, False, dev, scores, masses=masses,
+                   dis_key=dis_key, data_passes=3, chunk_blocks=C)
 
 
 # --------------------------------------------------------------------------
@@ -369,8 +489,39 @@ def dis_plan_streamed(scorer: StreamScorer, m: int,
     block's padded rows at -inf (the counter layout is the padded
     block's).  Round 3 gathers the sampled rows' combined scores from the
     same recomputed block, summed in party order.  S is the union in cell
-    order.  One block's scores are live at a time.
+    order.  One block's scores are live at a time; ``probe`` runs after
+    every block.
     """
+    return _dis_plan_grouped(scorer, m, probe, 1,
+                             lambda ids: scorer.score_block(ids[0])[None])
+
+
+def dis_plan_streamed_batched(scorer: StreamScorer, m: int,
+                              probe: Optional[Callable[[], None]] = None
+                              ) -> DisPlan:
+    """:func:`dis_plan_streamed` with the grouped redraw: the touched blocks
+    go in groups of ``scorer.chunk_blocks`` (the last group may be
+    shorter), each group gathered and scored by one ``score_blocks`` call,
+    and all of its occupied cells drawn by one categorical launch.
+    Indices, weights, counts and totals are bit for bit
+    :func:`dis_plan_streamed`'s for the same scorer and m: every cell's
+    key, logits, stream and gather are the ones it computes block by
+    block.  ``probe`` runs after every group.  A scorer without
+    ``score_blocks`` falls back to :func:`dis_plan_streamed`."""
+    if scorer.score_blocks is None:
+        return dis_plan_streamed(scorer, m, probe=probe)
+    return _dis_plan_grouped(scorer, m, probe, max(1, int(scorer.chunk_blocks)),
+                             scorer.score_blocks)
+
+
+def _dis_plan_grouped(scorer: StreamScorer, m: int,
+                      probe: Optional[Callable[[], None]], C: int,
+                      score_group: Callable[[Sequence[int]], torch.Tensor]
+                      ) -> DisPlan:
+    """The hierarchical sampler with the touched blocks redrawn in groups
+    of C: ``score_group(ids)`` gives their (len(ids), T, bs) scores, and one
+    categorical launch draws every occupied cell of the group (cells
+    block-major, then party)."""
     probe = probe or _noop
     T, nb, bs, n = scorer.T, scorer.nb, scorer.bs, scorer.n
     m = int(m)
@@ -385,27 +536,32 @@ def dis_plan_streamed(scorer: StreamScorer, m: int,
                              rng.log(torch.clamp_min(masses.reshape(-1), 1e-30)), m)
     a_cells = np.bincount(draws.cpu().numpy(), minlength=ncells)
 
-    # ---- rounds 2+3: each touched block once, then dropped -------------------
+    # ---- rounds 2+3: each touched block once, C a group, then dropped --------
     rows: Dict[int, torch.Tensor] = {}
     gathered: Dict[int, torch.Tensor] = {}
     cols = torch.arange(bs, device=dev)
-    for b in sorted({int(c) % nb for c in np.flatnonzero(a_cells)}):
-        sc_b = scorer.score_block(b).to(torch.float32)             # (T, bs)
-        g_b = torch.zeros((bs,), dtype=sc_b.dtype, device=dev)
+    touched = sorted({int(c) % nb for c in np.flatnonzero(a_cells)})
+    for g0 in range(0, len(touched), C):
+        group = touched[g0:g0 + C]
+        sc = score_group(group).to(torch.float32)                  # (ng, T, bs)
+        g = torch.zeros((len(group), bs), dtype=sc.dtype, device=dev)
         for j in range(T):                 # party order, the flat plan's scan
-            g_b = g_b + sc_b[j]
-        js = [j for j in range(T) if a_cells[j * nb + b]]
-        cells = [j * nb + b for j in js]
+            g = g + sc[:, j]
+        occ = [(j * nb + b, gi, j) for gi, b in enumerate(group)
+               for j in range(T) if a_cells[j * nb + b]]
+        cells, gidx, jidx = (list(v) for v in zip(*occ))
         takes = [int(a_cells[c]) for c in cells]
-        lg = torch.where(b * bs + cols < n,
-                         rng.log(torch.clamp_min(sc_b[js], 1e-30)), -float("inf"))
+        first = torch.tensor([group[gi] * bs for gi in gidx], device=dev)
+        sel = sc[torch.tensor(gidx, device=dev), torch.tensor(jidx, device=dev)]
+        lg = torch.where(first[:, None] + cols < n,
+                         rng.log(torch.clamp_min(sel, 1e-30)), -float("inf"))
         cand = kops.categorical_parties(
             subs[1 + torch.tensor(cells, device=dev)], lg, m,
             torch.tensor(takes, device=dev), total=sum(takes))
-        for c, piece in zip(cells, torch.split(cand, takes)):
-            rows[c] = b * bs + piece
-            gathered[c] = g_b[piece]
-        del sc_b, g_b
+        for c, gi, piece in zip(cells, gidx, torch.split(cand, takes)):
+            rows[c] = group[gi] * bs + piece
+            gathered[c] = g[gi][piece]
+        del sc, g
         probe()
     order = sorted(rows)
     S = (torch.cat([rows[c] for c in order]) if order

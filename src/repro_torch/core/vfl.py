@@ -3,17 +3,21 @@ feature columns split across T parties; labels (if any) live at party
 T-1 (0-indexed; the paper's "party T").
 
 Port of :mod:`repro.core.vfl`.  Every party's block lives on one device,
-the one :meth:`VFLDataset.from_dense` was given.  The row-block view
-(:meth:`VFLDataset.block`, :meth:`VFLDataset.blocks`) is the streamed
-engine's substrate: a dataset held in host memory hands the card one
-(T, bs, s) block at a time, staged through a pinned host buffer.
+the one :meth:`VFLDataset.from_dense` was given.  The row-block views are
+the streaming engines' substrate: a dataset held in host memory hands the
+card (T, bs, s) blocks through pinned host buffers, one block
+(:meth:`VFLDataset.block`, :meth:`VFLDataset.blocks`), a group of blocks
+(:meth:`VFLDataset.gather_blocks`, the redraw's) or a superchunk of C
+consecutive blocks (:meth:`VFLDataset.blocks_prefetched`, the passes',
+double-buffered through two pinned slots and copied on a side CUDA
+stream) at a time.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -88,18 +92,18 @@ class VFLDataset:
     """X (n, d) vertically partitioned; y optional, held by the last party.
 
     ``parts`` are tensors on one device; ``y`` lives on the same device.
-    CPU-resident parts are the host-resident substrate of the streamed
-    engine: :meth:`block` assembles one (T, bs, s) block on the host and
-    only that block goes to the card.  ``staged_bytes`` counts the bytes
-    :meth:`block` has copied from the host to another device.
+    CPU-resident parts are the host-resident substrate of the streaming
+    engines: the block views assemble (T, bs, s) blocks on the host and
+    only those go to the card.  ``staged_bytes`` counts the bytes the block
+    views have copied from the host to the card.
     """
 
     parts: List[torch.Tensor]           # party j's local block (n, d_j)
     y: Optional[torch.Tensor] = None    # (n,), stored at party T-1
     validate: bool = True               # NaN/Inf screen at construction
     staged_bytes: int = dataclasses.field(default=0, init=False, compare=False)
-    # (shape, dtype, pinned) -> [host staging buffer, the event recorded
-    # after the last copy out of it, or None]
+    # (shape, dtype, pinned, slot) -> [host staging buffer, the event
+    # recorded after the last copy out of it, or None]
     _staging: dict = dataclasses.field(default_factory=dict, init=False,
                                        repr=False, compare=False)
 
@@ -225,28 +229,14 @@ class VFLDataset:
         """:func:`block_geometry` of this dataset's n rows."""
         return block_geometry(self.n, block_size)
 
-    def _fill_block(self, out: torch.Tensor, lo: int, hi: int,
-                    with_labels: bool) -> None:
-        """Write rows [lo, hi) of every party into ``out`` (T, bs, s) in
-        :meth:`stacked`'s layout, and zero the rest of it: the padded
-        columns of each party and the rows past ``hi - lo``."""
-        nv = hi - lo
-        for j, p in enumerate(self.parts):
-            col = p.shape[1]
-            out[j, :nv, :col] = p[lo:hi]
-            if with_labels and j == self.T - 1:
-                out[j, :nv, col] = self.y[lo:hi]
-                col += 1
-            out[j, :nv, col:] = 0
-        out[:, nv:, :] = 0
-
-    def _staging_buffer(self, shape, dtype: torch.dtype, pin: bool) -> list:
-        """The host staging buffer for blocks of ``shape``, once the copy
-        out of it that was last issued has finished."""
-        entry = self._staging.get((shape, dtype, pin))
+    def _staging_buffer(self, shape, dtype: torch.dtype, pin: bool,
+                        slot: int = 0) -> list:
+        """Host staging buffer ``slot`` for blocks of ``shape``, once the
+        copy out of it that was last issued has finished."""
+        entry = self._staging.get((shape, dtype, pin, slot))
         if entry is None:
             entry = [torch.empty(shape, dtype=dtype, pin_memory=pin), None]
-            self._staging[(shape, dtype, pin)] = entry
+            self._staging[(shape, dtype, pin, slot)] = entry
         elif entry[1] is not None:
             entry[1].synchronize()
             entry[1] = None
@@ -260,37 +250,10 @@ class VFLDataset:
         Rows [b*bs, b*bs + bs) of every party, laid out exactly as the
         matching slice of :meth:`stacked` (labels appended to party T,
         columns zero-padded to the common width); rows past n are zero.
-
-        A dataset on the card is sliced there.  A dataset in host memory
-        assembles the block on the host in a staging buffer (pinned when
-        the target is CUDA; a CPU-only torch cannot pin), which is copied
-        to ``device`` with ``non_blocking=True``; the buffer is written
-        again only after an event shows that copy has finished, so one
-        block's assembly overlaps the card's work on the one before.
+        Staged as :meth:`gather_blocks` stages a group of one.
         """
-        _, s = self.stacked_widths(with_labels)
-        nb, bs = self.block_geometry(block_size)
-        if not 0 <= b < nb:
-            raise IndexError(f"block {b} out of range [0, {nb})")
-        lo = b * bs
-        hi = min(lo + bs, self.n)
-        dev = self.device if device is None else resolve_device(device)
-        shape, dtype = (self.T, bs, s), self._stacked_dtype()
-        if self.device.type != "cpu":
-            out = torch.empty(shape, dtype=dtype, device=self.device)
-            self._fill_block(out, lo, hi, with_labels)
-            return out.to(dev), hi - lo
-        entry = self._staging_buffer(shape, dtype, pin=dev.type == "cuda")
-        buf = entry[0]
-        self._fill_block(buf, lo, hi, with_labels)
-        out = torch.empty(shape, dtype=dtype, device=dev)
-        out.copy_(buf, non_blocking=True)
-        if dev.type == "cuda":
-            entry[1] = torch.cuda.Event()
-            entry[1].record(torch.cuda.current_stream(dev))
-        if dev != self.device:
-            self.staged_bytes += buf.numel() * buf.element_size()
-        return out, hi - lo
+        batch, nvalids = self.gather_blocks([b], block_size, with_labels, device)
+        return batch[0], int(nvalids[0])
 
     def blocks(self, block_size: int, with_labels: bool = False,
                device: Optional[DeviceLike] = None):
@@ -303,6 +266,154 @@ class VFLDataset:
             blk, nvalid = self.block(b, block_size, with_labels, device=device)
             yield b, blk, nvalid
             del blk
+
+    # -- superchunk view (the pipelined engine's substrate) -----------------
+
+    def _fill_superchunk(self, out: torch.Tensor, b0: int, bs: int,
+                         with_labels: bool) -> np.ndarray:
+        """Write blocks b0, b0 + 1, ... (each of them below nb) into ``out``
+        (count, T, bs, s), block i exactly as :meth:`block` gives block
+        b0 + i (rows past n and the padded columns zero), with one slice of
+        each party for the whole range.  Returns the (count,) valid-row
+        counts."""
+        count = out.shape[0]
+        lo = b0 * bs
+        hi = min(lo + count * bs, self.n)
+        full, rem = divmod(hi - lo, bs)
+        for j, p in enumerate(self.parts):
+            segs = [p[lo:hi]]
+            if with_labels and j == self.T - 1:
+                segs.append(self.y[lo:hi, None])
+            col = 0
+            for seg in segs:
+                w = seg.shape[1]
+                out[:full, j, :, col:col + w] = seg[:full * bs].reshape(full, bs, w)
+                if rem:
+                    out[full, j, :rem, col:col + w] = seg[full * bs:]
+                col += w
+            out[:, j, :, col:] = 0
+        if rem:
+            out[full, :, rem:, :] = 0
+        return np.clip(self.n - (b0 + np.arange(count)) * bs, 0, bs)
+
+    def blocks_prefetched(
+        self, block_size: int, with_labels: bool = False,
+        chunk_blocks: int = 1, prefetch: bool = True,
+        device: Optional[DeviceLike] = None,
+    ) -> Iterator[Tuple[int, torch.Tensor, np.ndarray]]:
+        """Iterate ``(b0, chunk (count, T, bs, s), nvalids (count,))`` over
+        superchunks of ``chunk_blocks`` row blocks on ``device`` (default:
+        the dataset's own).  ``chunk[i]`` is :meth:`block` ``(b0 + i)`` value
+        for value; the last superchunk holds only the blocks that exist
+        (count = nb - b0 there), so the pass stages the bytes
+        :meth:`blocks` stages.
+
+        A dataset on ``device`` is sliced in place.  A host dataset bound for
+        the card assembles each superchunk in a pinned host slot (one slice
+        per party) and copies it with ``non_blocking=True`` on a side
+        stream; the consumer's stream waits on the event recorded after that
+        copy before the chunk is handed over, and a slot is rewritten only
+        after the event of its last copy.  The device buffer is allocated on
+        the consumer's stream and the side stream waits for the consumer's
+        work queued before the copy, so the caching allocator never hands a
+        buffer to a copy while kernels still read it.
+
+        With ``prefetch`` two slots alternate and superchunk c + 1 is staged
+        and its copy issued before c is yielded, so the copy and the next
+        assembly overlap the consumer's kernels on c.  Without it one slot is
+        used and c + 1 is staged only after c was consumed.  The generator
+        drops its reference to a chunk before it stages the next but one: a
+        consumer that drops its own (``del chunk``) keeps at most two
+        superchunks resident."""
+        _, s = self.stacked_widths(with_labels)
+        nb, bs = self.block_geometry(block_size)
+        if chunk_blocks < 1:
+            raise ValueError(f"chunk_blocks must be >= 1, got {chunk_blocks}")
+        C = int(chunk_blocks)
+        dev = self.device if device is None else resolve_device(device)
+        dtype = self._stacked_dtype()
+        starts = range(0, nb, C)
+        if self.device.type != "cpu" or dev.type != "cuda":
+            for b0 in starts:
+                out = torch.empty((min(C, nb - b0), self.T, bs, s), dtype=dtype,
+                                  device=self.device)
+                nvalids = self._fill_superchunk(out, b0, bs, with_labels)
+                yield b0, out.to(dev), nvalids
+                del out
+            return
+        consumer = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        shape = (C, self.T, bs, s)
+
+        def stage(i: int, b0: int):
+            entry = self._staging_buffer(shape, dtype, True,
+                                         i % 2 if prefetch else 0)
+            host = entry[0][:min(C, nb - b0)]
+            nvalids = self._fill_superchunk(host, b0, bs, with_labels)
+            out = torch.empty(host.shape, dtype=dtype, device=dev)
+            side.wait_stream(consumer)
+            with torch.cuda.stream(side):
+                out.copy_(host, non_blocking=True)
+            entry[1] = torch.cuda.Event()
+            entry[1].record(side)
+            self.staged_bytes += host.numel() * host.element_size()
+            return out, nvalids, entry[1]
+
+        pending = None
+        try:
+            for i, b0 in enumerate(starts):
+                cur = pending if pending is not None else stage(i, b0)
+                pending = None
+                if prefetch and b0 + C < nb:
+                    pending = stage(i + 1, b0 + C)
+                consumer.wait_event(cur[2])
+                yield b0, cur[0], cur[1]
+                del cur
+        finally:
+            if pending is not None:
+                # a consumer that stopped early: its in-flight copy must end
+                # before the buffer it writes goes back to the allocator
+                consumer.wait_event(pending[2])
+
+    def gather_blocks(
+        self, block_ids: Sequence[int], block_size: int,
+        with_labels: bool = False, device: Optional[DeviceLike] = None,
+    ) -> Tuple[torch.Tensor, np.ndarray]:
+        """One (len(ids), T, bs, s) batch of arbitrary row blocks on
+        ``device`` (default: the dataset's own), block i :meth:`block`
+        ``(ids[i])``, plus their valid-row counts: the gather behind the
+        redraw.  A dataset on the card is sliced there.  A dataset in host
+        memory assembles the batch on the host in a staging buffer (pinned
+        when the target is CUDA), copied to ``device`` with
+        ``non_blocking=True``; the buffer is written again only after an
+        event shows that copy has finished, so one batch's assembly
+        overlaps the card's work on the one before."""
+        _, s = self.stacked_widths(with_labels)
+        nb, bs = self.block_geometry(block_size)
+        ids = [int(b) for b in block_ids]
+        for b in ids:
+            if not 0 <= b < nb:
+                raise IndexError(f"block {b} out of range [0, {nb})")
+        dev = self.device if device is None else resolve_device(device)
+        shape, dtype = (len(ids), self.T, bs, s), self._stacked_dtype()
+        on_host = self.device.type == "cpu" and dev.type == "cuda"
+        if on_host:
+            entry = self._staging_buffer(shape, dtype, pin=True)
+            buf = entry[0]
+        else:
+            buf = torch.empty(shape, dtype=dtype, device=self.device)
+        nvalids = np.zeros((len(ids),), np.int64)
+        for i, b in enumerate(ids):
+            nvalids[i:i + 1] = self._fill_superchunk(buf[i:i + 1], b, bs,
+                                                     with_labels)
+        if not on_host:
+            return buf.to(dev), nvalids
+        out = torch.empty(shape, dtype=dtype, device=dev)
+        out.copy_(buf, non_blocking=True)
+        entry[1] = torch.cuda.Event()
+        entry[1].record(torch.cuda.current_stream(dev))
+        self.staged_bytes += buf.numel() * buf.element_size()
+        return out, nvalids
 
     def rows(self, idx: torch.Tensor) -> "VFLDataset":
         y = None if self.y is None else self.y[idx]

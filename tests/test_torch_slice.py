@@ -144,11 +144,11 @@ def test_plan_validation_and_unported_engines():
     ep = compile_plan(CoresetSpec(task="vrlr", budgets=10), tds)
     assert (ep.engine, ep.backend, ep.predicted_comm_units) == (
         "materialized", "ref", CommSchedule.dis_total(3, 10))
-    # the streamed engine compiles; the pipelined one above one block a
-    # superchunk is not ported yet
+    # the streaming engines compile: streamed, and pipelined above one block
+    # a superchunk (the default chunk_blocks, 8 of the 10 blocks)
     assert compile_plan(CoresetSpec(engine="streamed"), tds).engine == "streamed"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compile_plan(CoresetSpec(engine="pipelined", block_size=10), tds)
+    ep = compile_plan(CoresetSpec(engine="pipelined", block_size=10), tds)
+    assert (ep.engine, ep.chunk_blocks, ep.prefetch) == ("pipelined", 8, False)
     # grids compile to the batched engine
     for spec, grid in ((CoresetSpec(budgets=(10, 20)), (1, 2)),
                        (CoresetSpec(budgets=10, num_seeds=2), (2, 1))):

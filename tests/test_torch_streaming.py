@@ -472,19 +472,29 @@ def test_streamed_vrlr_needs_labels():
 
 
 def test_pipelined_knobs_raise_naming_the_item():
+    """The pipelined knobs (the shim's defaults, ``chunk_blocks > 1``,
+    prefetch) compile to the pipelined engine and run, raising nothing,
+    and draw the streamed build bit for bit."""
     _, tds = _both(25)
     key = rng.PRNGKey(0)
+    want = build_coreset_streaming("vrlr", tds, 10, key=key, block_size=128,
+                                   chunk_blocks=1, prefetch=False, device="cpu")
     for kw in (dict(), dict(chunk_blocks=2, prefetch=False),
                dict(chunk_blocks=1, prefetch=True)):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            build_coreset_streaming("vrlr", tds, 10, key=key, block_size=128,
-                                    device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        compile_plan(CoresetSpec(engine="pipelined", block_size=128, chunk_blocks=4), tds)
+        got = build_coreset_streaming("vrlr", tds, 10, key=key, block_size=128,
+                                      device="cpu", **kw)
+        assert torch.equal(got.indices, want.indices)
+        assert torch.equal(got.weights, want.weights)
+    ep = compile_plan(CoresetSpec(engine="pipelined", block_size=128, chunk_blocks=4), tds)
+    assert (ep.engine, ep.chunk_blocks, ep.prefetch) == ("pipelined", 4, False)
     for kw in (dict(chunk_blocks=2), dict(prefetch=True)):
         spec = CoresetSpec(engine="pipelined", block_size=128, **kw)
-        with pytest.raises(NotImplementedError, match="item 12"):
-            CoresetPipeline(tds).build(spec, key=key, device="cpu")
+        assert CoresetPipeline(tds).plan(spec).engine == "pipelined"
+        got = CoresetPipeline(tds).build(spec, key=key, device="cpu")
+        want = CoresetPipeline(tds).build(spec.replace(engine="streamed"), key=key,
+                                          device="cpu")
+        assert torch.equal(got.indices, want.indices)
+        assert torch.equal(got.weights, want.weights)
 
 
 @pytest.mark.parametrize("kw", [dict(block_size=0), dict(block_size=2.5),
@@ -505,6 +515,11 @@ def test_spec_streaming_fields_validate_as_the_reference(kw):
     (dict(engine="pipelined", chunk_blocks=4, prefetch=False, block_size=4 * N), "streamed"),
     (dict(engine="streamed", block_size=97), "streamed"),
     (dict(engine="materialized"), "materialized"),
+    (dict(engine="pipelined", block_size=128), "pipelined"),
+    (dict(engine="pipelined", chunk_blocks=4, prefetch=False, block_size=97), "pipelined"),
+    (dict(engine="pipelined", chunk_blocks=1, prefetch=True, block_size=97), "pipelined"),
+    (dict(engine="pipelined", chunk_blocks=50, prefetch=True, block_size=97), "pipelined"),
+    (dict(engine="pipelined", chunk_blocks=3, prefetch=True, block_size=N), "pipelined"),
 ])
 def test_plan_lowering_and_notes_match_reference(spec_kw, engine):
     jds, tds = _both(26)
@@ -517,6 +532,6 @@ def test_plan_lowering_and_notes_match_reference(spec_kw, engine):
         jp.chunk_blocks, jp.prefetch, jp.spec.block_size)
     text = tp.describe()
     assert f"blocks: {jp.nb} x {jp.bs} rows (block_size={jp.spec.block_size})" in text
-    assert ("streaming knobs" in text) == (engine == "streamed")
+    assert ("streaming knobs" in text) == (engine in ("streamed", "pipelined"))
     for note in tp.notes:
         assert f"note: {note}" in text
