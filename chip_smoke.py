@@ -116,7 +116,30 @@ and never JAX or the JAX package ``repro``.  Phases, each fatal on failure:
    group), the staged bytes equal to the streamed engine's and its own
    peak device memory under 2.5 superchunks, split by stage; (c) the
    prefetch ablation, ``vrlr`` at block 4,096 (114 blocks, 15
-   superchunks), m = 1000, three runs each way after a warm-up.
+   superchunks), m = 1000, three runs each way after a warm-up;
+11. sharded masses and the fault seam, from the same host copy at block
+   66,245 (7 blocks, one superchunk; 463,715 = 5 x 7 x 13,249, so this is
+   the divisor nearest the default 65,536 that the shard grid takes at
+   D = 1): K3 with unit weights and K1 at the shard's (3, 463715, 31), K4
+   at (3, 463715, 30) x (3, 10, 30) against their plain versions; then (a)
+   the ``vrlr`` and ``vkmc`` (k = 10, alpha = 2) block-mass tables and
+   pipelined ``sharded_masses`` builds at m in {1000, 5000}, without a
+   process group and in an NCCL world of one: tables and builds (indices,
+   weights, bill) bit for bit across the two, exactly two all-reduces per
+   table in the group, the table within rtol 1e-4, atol 1e-6 of the
+   unsharded scorer's, ``data_passes`` 1 and 2 with it supplied, the exact
+   bill, launches counted from the code, a finite relative error under the
+   gate after the fit, ``sharded_s`` and the table's peak device memory
+   beside the shard's bytes, a CPU table under the NCCL group refused;
+   (b) the fault seam on the materialized engine (m = 5000) and the
+   pipelined one (block 66,245, sharded masses) for both tasks: a
+   null-plan ``Transport`` under each of the four policies bit for bit the
+   transportless build (indices, weights, ledger, launches); a chaos build
+   (plan seed 123, drop 0.3, 6 retries, ``retry``) replayed identically,
+   its ledger the base bill plus the ``retry/`` units exactly; ``degrade``
+   with party 0 never answering and ``quarantine`` with party 0 poisoning
+   its table on an unverifying wire, each receipt naming party 0 and the
+   survivors' draw bit for bit a build on ``select_parties([1, 2])``.
 
 Every path is driven with all five launch counters set to 0 just before
 it and read just after.  With the default seed, the drawn indices of
@@ -224,6 +247,9 @@ PIPE_BLOCK = 16_384      # nb = 29: superchunks of 8, 8, 8 and 5 blocks
 ABLATION_BLOCK = 4_096   # nb = 114: 15 superchunks, the prefetch ablation's
 ABLATION_RUNS = 3
 PIPE_PEAK_FACTOR = 2.5
+# phase 11's block: 463,715 = 5 x 7 x 13,249, and 66,245 (7 blocks) is the
+# divisor nearest the default 65,536 that the shard grid accepts at D = 1
+SHARD_BLOCK = 66_245
 # indices_sha256 of phases 4 and 5 at --seed 0, recorded on the card with
 # the plain draw (PERF.md); phase 7's vrlr cell (0, 1) is phase 4's m = 5000
 # build
@@ -1296,6 +1322,349 @@ def pipelined_phase(torch, dev, seed, ds_host, launches, streamed, check_k5, res
     return errs
 
 
+def sharded_phase(torch, dev, seed, ds_host, ds, lam, launches, card, reset_counts,
+                  read_counts):
+    """Phase 11 from the host-resident copy ``ds_host`` of the main path's
+    data (``ds`` the same data on the card, for the fits and the
+    materialized engine): (a) the sharded block masses at block 66,245,
+    without a process group and in an NCCL world of one; (b) the party fault
+    and integrity seam on the materialized and pipelined engines.  Returns
+    the largest kernel-vs-plain error it saw, by kernel; adds its counted
+    builds to ``launches``; ``card`` is the card's name and power limit."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch import rng
+    from repro_torch.core import (
+        CommLedger, CommSchedule, CoresetPipeline, CoresetSpec, FaultPlan, Transport,
+        evaluate, fit_kmeans, fit_ridge, make_stream_scorer, vkmc_block_masses_sharded,
+        vrlr_block_masses_sharded)
+    from repro_torch.core import streaming as cst
+    from repro_torch.core.plan import DEFAULT_CHUNK_BLOCKS
+    from repro_torch.core.sensitivity import batched_gram_pinv
+    from repro_torch.core.wire import WirePayload
+    from repro_torch.kernels import kmeans_assign as kka
+    from repro_torch.kernels import leverage as klev
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import weighted_gram as kwg
+
+    T, n = T_PARTIES, N_FULL
+    phase_t0 = time.perf_counter()
+    errs = dict.fromkeys(("leverage", "weighted_gram", "kmeans_assign"), 0.0)
+    nb, bs = ds_host.block_geometry(SHARD_BLOCK)
+    C = min(DEFAULT_CHUNK_BLOCKS, nb)
+    nch = -(-nb // C)
+    vk_params = {"k": K_CLUSTERS, "alpha": ALPHA, "local_iters": LOCAL_ITERS,
+                 "center_sample": CENTER_SAMPLE}
+    log(f"sharded: block_size {SHARD_BLOCK} ({nb} blocks of {bs} rows, {nch} superchunk(s) "
+        f"of {C}); the shard grid at D = 1: n % D == 0 and (n / D) % bs == 0")
+
+    # -- each kernel at the shard's shapes against its plain version (outside
+    #    the counts): K3 with unit weights and K1 at (3, n, 31), K4 at
+    #    (3, n, 30) x (3, 10, 30), the shards being built as the tables build them
+    log("kernels at the shard's shapes vs plain:")
+    widths, s = ds_host.stacked_widths(True)
+    f = cst._stacked_rows(ds_host, 0, n, widths, s, True, dev)
+    ones = torch.ones((n,), dtype=torch.float32, device=dev)
+    lev_scale = lambda X, M: klev.plain(X, M).abs().max().item()
+    gram_scale = lambda X, w: kwg.plain(X.abs(), w.abs()).max().item()
+    # K3 against float64 and the plain version party by party: the plain
+    # version over the (3, n, 31) batch (a batched cuBLAS product) lands
+    # 1.6e-4 (scaled) from float64 at this shape on an H100 (PERF.md, section
+    # 6), one party at a time 2.5e-7, as phase 3's (n, 90); so the kernel is held
+    # within GRAM_TOL of float64 and within the per-party plain version's own
+    # distance from float64 plus GRAM_TOL of it, as phase 10 holds its blocks
+    G = kwg.weighted_gram(f, ones)
+    if not torch.equal(G, kwg.weighted_gram(f, ones)) or not torch.equal(G, G.transpose(1, 2)):
+        fail(f"weighted_gram {tuple(f.shape)}: two launches differ or G is not symmetric")
+    want = torch.stack([kwg.plain(f[j], ones) for j in range(T)])
+    f64 = f.double()
+    G64 = f64.transpose(1, 2) @ f64
+    del f64
+    scale = gram_scale(f, ones)
+    e64 = [float((g - G64).abs().max()) / scale for g in (G, want, kwg.plain(f, ones))]
+    err = float((G - want).abs().max())
+    log(f"  weighted_gram {tuple(f.shape)} {tuple(ones.shape)}: max_abs_err={err:.3e} "
+        f"scaled={err / scale:.3e} against the plain version party by party (tol "
+        f"{GRAM_TOL:g} + the plain version's own gap); from float64, scaled: kernel "
+        f"{e64[0]:.3e} (tol {GRAM_TOL:g}), plain party by party {e64[1]:.3e}, plain over "
+        f"the batch {e64[2]:.3e}")
+    if e64[0] > GRAM_TOL or err / scale > e64[1] + GRAM_TOL:
+        fail(f"weighted_gram {tuple(f.shape)}: scaled error {e64[0]:.3e} from float64, "
+             f"{err / scale:.3e} from the plain version (its own gap {e64[1]:.3e})")
+    errs["weighted_gram"] = err
+    M = batched_gram_pinv(G)
+    del G, G64, want
+    errs["leverage"] = check_kernel(torch, "leverage", klev.leverage, klev.plain, (f, M),
+                                    lev_scale, LEVERAGE_TOL)
+    del f, M
+    widths_k, sk_ = ds_host.stacked_widths(False)
+    fk = cst._stacked_rows(ds_host, 0, n, widths_k, sk_, False, dev)
+    gen = torch.Generator(device="cpu").manual_seed(seed + 11)
+    Ck = fk[:, torch.randperm(n, generator=gen)[:K_CLUSTERS].to(dev)].contiguous()
+    errs["kmeans_assign"] = check_kmeans(torch, kref, "kmeans_assign", kka.kmeans_assign,
+                                         kka.plain, fk, Ck)
+    del fk, Ck
+
+    def run(fn):
+        """(result, seconds, launches, peak bytes above the start)."""
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        reset_counts()
+        for nm in launches:
+            launches[nm] += counts[nm]
+        return out, secs, counts, torch.cuda.max_memory_allocated() - before
+
+    calls = [0]
+    real_all_reduce = dist.all_reduce
+
+    def counted_all_reduce(*a, **kw):
+        calls[0] += 1
+        return real_all_reduce(*a, **kw)
+
+    dist.all_reduce = counted_all_reduce
+
+    def same_draw(a, b):
+        return torch.equal(a.indices, b.indices) and torch.equal(a.weights, b.weights)
+
+    def same(a, b):
+        return same_draw(a, b) and (a.comm_units, a.comm_bits) == (b.comm_units, b.comm_bits)
+
+    # -- (a) the sharded tables and builds: without a group, then in an NCCL
+    #    world of one (the same bits, two all-reduces per table)
+    t_stage = time.perf_counter()
+    tables, builds = {}, {}
+    for world in ("none", "nccl"):
+        if world == "nccl":
+            os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+            dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                                    timeout=datetime.timedelta(seconds=120))
+            # the communicator is set up by the first collective: time it apart
+            t0 = time.perf_counter()
+            real_all_reduce(torch.zeros(1, device=dev))
+            torch.cuda.synchronize()
+            log(f"  NCCL world of one: the first all-reduce (communicator set-up) took "
+                f"{time.perf_counter() - t0:.4f} s; {card}")
+            # NCCL takes CUDA tensors only: a table on the CPU under the group raises
+            try:
+                vrlr_block_masses_sharded(ds_host, SHARD_BLOCK, device="cpu")
+            except ValueError as e:
+                log(f"  a CPU table under the NCCL group raises: {e}")
+            else:
+                fail("sharded: a CPU table under an NCCL group did not raise")
+        try:
+            for task in ("vrlr", "vkmc"):
+                params = {} if task == "vrlr" else vk_params
+                key = rng.fold_in(rng.PRNGKey(seed + 400 + (task == "vkmc")), 1)
+                calls[0] = 0
+                if task == "vrlr":
+                    tbl, sharded_s, counts, peak = run(
+                        lambda: vrlr_block_masses_sharded(ds_host, SHARD_BLOCK))
+                    want = {"leverage": 1, "weighted_gram": 1, "kmeans_assign": 0,
+                            "kmeans_assign_update": 0, "categorical": 0}
+                else:
+                    tbl, sharded_s, counts, peak = run(
+                        lambda: vkmc_block_masses_sharded(ds_host, SHARD_BLOCK, key=key,
+                                                          **vk_params))
+                    want = {"leverage": 0, "weighted_gram": 0, "kmeans_assign": 1,
+                            "kmeans_assign_update": T * LOCAL_ITERS,
+                            "categorical": T * K_CLUSTERS}
+                if calls[0] != (2 if world == "nccl" else 0):
+                    fail(f"sharded {task} ({world}): {calls[0]} all-reduce calls")
+                if counts != want:
+                    fail(f"sharded {task} table ({world}): launches {counts}, counted {want}")
+                _, sw = ds_host.stacked_widths(task == "vrlr")
+                shard_bytes = 4 * T * n * sw
+                tables[(world, task)] = tbl
+                if world == "nccl" and not torch.equal(tbl, tables[("none", task)]):
+                    fail(f"sharded {task}: the NCCL world-1 table differs from the "
+                         f"groupless one")
+                if world == "none":
+                    scorer = make_stream_scorer(task, key, ds_host, SHARD_BLOCK, "pallas",
+                                                device=dev, chunk_blocks=C, prefetch=True,
+                                                **params)
+                    gap = float(((tbl - scorer.masses).abs()
+                                 - (1e-6 + 1e-4 * scorer.masses.abs())).max())
+                    rel = float(((tbl - scorer.masses).abs() / scorer.masses.abs()).max())
+                    if gap > 0:
+                        fail(f"sharded {task}: table outside rtol 1e-4, atol 1e-6 of the "
+                             f"scorer's (max rel {rel:.3e})")
+                    passes = make_stream_scorer(task, key, ds_host, SHARD_BLOCK, "pallas",
+                                                device=dev, chunk_blocks=C, prefetch=True,
+                                                masses=tbl, **params).data_passes
+                    if passes != (1 if task == "vrlr" else 2):
+                        fail(f"sharded {task}: data_passes {passes} with a supplied table")
+                    log(f"sharded {task} table ({T}, {nb}): sharded_s={sharded_s:.4f} "
+                        f"peak_bytes={peak} (the shard {shard_bytes} bytes) launches "
+                        f"{counts}; max rel to the scorer's table {rel:.3e} (rtol 1e-4, "
+                        f"atol 1e-6); data_passes with it {passes}; {card}")
+                else:
+                    log(f"sharded {task} table in an NCCL world of one: sharded_s="
+                        f"{sharded_s:.4f} peak_bytes={peak}, 2 all-reduces, == the "
+                        f"groupless table bit for bit; {card}")
+                for m in BUDGETS:
+                    spec = CoresetSpec(task=task, budgets=m, engine="pipelined",
+                                       block_size=SHARD_BLOCK, sharded_masses=True,
+                                       params=params)
+                    led = CommLedger()
+                    bkey = rng.fold_in(key, m)
+                    calls[0] = 0
+                    cs, build_s, counts, peak = run(
+                        lambda: CoresetPipeline(ds_host).build(spec, key=bkey, ledger=led))
+                    touched = len({int(i) // bs for i in cs.indices.tolist()})
+                    groups = -(-touched // C)
+                    want = ({"leverage": 1 + groups, "weighted_gram": 1 + nch,
+                             "kmeans_assign": 0, "kmeans_assign_update": 0,
+                             "categorical": 1 + groups} if task == "vrlr" else
+                            {"leverage": 0, "weighted_gram": 0, "kmeans_assign": 1 + groups,
+                             "kmeans_assign_update": 2 * T * LOCAL_ITERS + nch,
+                             "categorical": 2 * T * K_CLUSTERS + 1 + groups})
+                    if counts != want:
+                        fail(f"sharded {task} m={m} ({world}): launches {counts}, counted "
+                             f"{want} ({touched} touched blocks in {groups} groups)")
+                    if calls[0] != (2 if world == "nccl" else 0):
+                        fail(f"sharded {task} m={m} ({world}): {calls[0]} all-reduces")
+                    # the total and the bits do not depend on the realised split
+                    bill = CommSchedule.dis(
+                        T, m, counts=[m] + [0] * (T - 1),
+                        round1_payload=WirePayload.of((nb,), "float32", "raw_fp32"))
+                    if (cs.comm_units, cs.comm_bits) != (bill.total, bill.total_bits) or \
+                            led.total != cs.comm_units:
+                        fail(f"sharded {task} m={m}: billed {cs.comm_units} / "
+                             f"{cs.comm_bits}, the schedule {bill.total} / {bill.total_bits}")
+                    if cs.indices.shape != (m,) or not bool((cs.weights > 0).all()):
+                        fail(f"sharded {task} m={m}: malformed coreset")
+                    builds[(world, task, m)] = cs
+                    if world == "nccl":
+                        if not same(cs, builds[("none", task, m)]):
+                            fail(f"sharded {task} m={m}: the NCCL world-1 build differs "
+                                 f"from the groupless one")
+                        log(f"sharded {task} m={m} in an NCCL world of one: build_s="
+                            f"{build_s:.4f}, == the groupless build bit for bit "
+                            f"(indices, weights, bill); {card}")
+                        continue
+                    if task == "vrlr":
+                        rep = evaluate(ds, fit_ridge(ds, cs, lam))
+                    else:
+                        fk_key = rng.fold_in(bkey, 1)
+                        rep = evaluate(ds, fit_kmeans(ds, cs, K_CLUSTERS, key=fk_key,
+                                                      iters=FIT_ITERS),
+                                       key=fk_key, iters=FIT_ITERS)
+                    if not (math.isfinite(rep.rel_error) and rep.rel_error < REL_ERROR_GATE):
+                        fail(f"sharded {task} m={m}: rel_error {rep.rel_error}")
+                    log(f"sharded {task} m={m} (pipelined, block_size {SHARD_BLOCK}, "
+                        f"sharded_masses): build_s={build_s:.4f} peak_bytes={peak} "
+                        f"comm_units={cs.comm_units} comm_bits={cs.comm_bits} "
+                        f"rel_error={rep.rel_error:.6g} launches {counts} "
+                        f"indices_sha256={digest(cs.indices)}; {card}")
+        finally:
+            if world == "nccl":
+                dist.destroy_process_group()
+    dist.all_reduce = real_all_reduce
+    stage_s = {"kernels": t_stage - phase_t0, "sharded (a)": time.perf_counter() - t_stage}
+
+    # -- (b) the fault seam, both tasks, on the materialized engine (the card
+    #    dataset, m = 5000) and the pipelined one (the host copy, block 66,245,
+    #    sharded masses)
+    t_stage = time.perf_counter()
+    m = BUDGETS[-1]
+    for engine, data in (("materialized", ds), ("pipelined", ds_host)):
+        for task in ("vrlr", "vkmc"):
+            params = {} if task == "vrlr" else dict(vk_params)
+            if engine == "materialized":
+                params.pop("center_sample", None)     # k-means on every row
+            kw = dict(task=task, budgets=m, engine=engine, params=params)
+            if engine == "pipelined":
+                kw.update(block_size=SHARD_BLOCK, sharded_masses=True)
+            spec = CoresetSpec(**kw)
+            key = rng.fold_in(rng.PRNGKey(seed + 500 + (task == "vkmc")), m)
+            pipe = CoresetPipeline(data)
+            led0 = CommLedger()
+            base, base_s, base_counts, _ = run(lambda: pipe.build(spec, key=key, ledger=led0))
+            path = [nm for nm, c in base_counts.items() if c]
+            times = [f"transportless {base_s:.4f}"]
+            for policy in ("fail", "retry", "degrade", "quarantine"):
+                led = CommLedger()
+                cs, secs, counts, _ = run(lambda: pipe.build(
+                    spec.replace(fault_policy=policy), key=key, ledger=led,
+                    transport=Transport(FaultPlan.none())))
+                if not same(cs, base) or led.messages != led0.messages or cs.degraded:
+                    fail(f"fault seam {engine} {task}: a null-plan transport under "
+                         f"{policy} differs from the transportless build")
+                if counts != base_counts:
+                    fail(f"fault seam {engine} {task} {policy}: launches {counts}, the "
+                         f"transportless build {base_counts}")
+                times.append(f"{policy} {secs:.4f}")
+            # chaos, replayed
+            chaos = []
+            for _ in range(2):
+                led, tr = CommLedger(), Transport(FaultPlan(seed=123, drop=0.3,
+                                                            max_retries=6))
+                cs, secs, counts, _ = run(lambda: pipe.build(
+                    spec.replace(fault_policy="retry"), key=key, ledger=led, transport=tr))
+                chaos.append((cs, led, tr.stats.as_dict(), secs))
+            (c1, l1, s1, t1), (c2, l2, s2, _) = chaos
+            base_tags = {t: u for t, u in l1.by_tag().items() if not t.startswith("retry/")}
+            if not (same(c1, c2) and l1.messages == l2.messages and s1 == s2):
+                fail(f"fault seam {engine} {task}: the chaos build did not replay")
+            if not (same_draw(c1, base) and base_tags == led0.by_tag()
+                    and l1.total == led0.total + l1.by_prefix("retry/")
+                    and c1.comm_units == l1.total and s1["retries"] > 0):
+                fail(f"fault seam {engine} {task}: chaos billed {l1.total} = base "
+                     f"{led0.total} + retry {l1.by_prefix('retry/')}? stats {s1}")
+            times.append(f"chaos {t1:.4f}")
+            # degrade (party 0 never answers) and quarantine (party 0 poisons its
+            # table on an unverifying wire): the survivors' draw is a build on
+            # select_parties([1, 2]) with the same key
+            sub, sub_s, sub_counts, _ = run(lambda: CoresetPipeline(
+                data.select_parties([1, 2])).build(spec, key=key))
+            for policy, tr in (
+                    ("degrade", Transport(FaultPlan(seed=0, drop={0: 1.0}, max_retries=2))),
+                    ("quarantine", Transport(FaultPlan(seed=11, silent_corrupt={0: 1.0},
+                                                       silent_kind="sign"), verify=False))):
+                led = CommLedger()
+                cs, secs, counts, _ = run(lambda: pipe.build(
+                    spec.replace(fault_policy=policy), key=key, ledger=led, transport=tr))
+                d = cs.degraded
+                if d is None or d.surviving != (1, 2) or [x.party for x in d.dropped] != [0]:
+                    fail(f"fault seam {engine} {task} {policy}: receipt {d}")
+                if not same_draw(cs, sub):
+                    fail(f"fault seam {engine} {task} {policy}: the survivors' draw differs "
+                         f"from the select_parties build")
+                if cs.comm_units != led.total or cs.comm_bits != led.total_bits:
+                    fail(f"fault seam {engine} {task} {policy}: billed {cs.comm_units}, "
+                         f"the ledger {led.total}")
+                if policy == "degrade" and counts != sub_counts:
+                    fail(f"fault seam {engine} {task} degrade: launches {counts}, the "
+                         f"select_parties build {sub_counts}")
+                if any(counts[nm] < sub_counts[nm] for nm in counts):
+                    fail(f"fault seam {engine} {task} quarantine: launches {counts}")
+                times.append(f"{policy} {secs:.4f}")
+                log(f"  {engine} {task} {policy}: {d.describe()}; comm_units "
+                    f"{cs.comm_units} == ledger; draw == select_parties([1, 2]) build")
+            log(f"fault seam {engine} {task} m={m}"
+                + (f" (block_size {SHARD_BLOCK}, sharded_masses)" if engine == "pipelined"
+                   else "")
+                + f": null plan x 4 policies == the transportless build bit for bit "
+                f"(indices, weights, ledger, launches {base_counts}); chaos replays, ledger "
+                f"{l1.total} = {led0.total} + retry {l1.by_prefix('retry/')} "
+                f"({s1['retries']} retries, {s1['drops']} drops); build_s: "
+                + ", ".join(times) + f"; path kernels {path}; {card}")
+    stage_s["fault seam (b)"] = time.perf_counter() - t_stage
+    log(f"phase 11 took {time.perf_counter() - phase_t0:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in stage_s.items()) + f"); {card}")
+    return errs
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2306,10 +2675,17 @@ def main() -> None:
     # ---- 10. the pipelined engine ---------------------------------------------------
     errs = pipelined_phase(torch, dev, args.seed, ds_host, launches, streamed, check_k5,
                            reset_counts, read_counts)
-    del ds_host
     lev_err = max(lev_err, errs["leverage"])
     gram_err = max(gram_err, errs["weighted_gram"])
     kau_err = max(kau_err, errs["kmeans_assign_update"])
+    ka_err = max(ka_err, errs["kmeans_assign"])
+
+    # ---- 11. sharded masses and the fault seam -----------------------------------
+    errs = sharded_phase(torch, dev, args.seed, ds_host, ds, lam, launches, smi[0],
+                         reset_counts, read_counts)
+    del ds_host
+    lev_err = max(lev_err, errs["leverage"])
+    gram_err = max(gram_err, errs["weighted_gram"])
     ka_err = max(ka_err, errs["kmeans_assign"])
 
     # ---- records ----------------------------------------------------------------

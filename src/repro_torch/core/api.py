@@ -2,14 +2,17 @@
 :mod:`repro.core.api`).
 
 Party-local scores -> DIS sampling -> importance weights, on three
-engines: the materialized engine with the DIS rounds recorded on a ledger
-(the reference's ``transport is None`` branch of ``_exec_materialized``),
-with its fused fast path (``jit=True``: one CUDA graph per shape on the
-card); the batched engine over a (seeds x budgets) grid, billed lazily per
-cell; and the streamed and pipelined engines (block-scan scoring +
-hierarchical DIS from a dataset that may stay in host memory, one block or
-one superchunk of C blocks at a time, :mod:`repro_torch.core.streaming`;
-the ``transport is None`` branch of the reference's ``_exec_streaming``):
+engines: the materialized engine, with its fused fast path (``jit=True``:
+one CUDA graph per shape on the card); the batched engine over a (seeds x
+budgets) grid, billed lazily per cell; and the streamed and pipelined
+engines (block-scan scoring + hierarchical DIS from a dataset that may stay
+in host memory, one block or one superchunk of C blocks at a time,
+:mod:`repro_torch.core.streaming`; with ``sharded_masses`` the block-mass
+table comes from the ranks of a ``torch.distributed`` process group).  The
+single-cell engines record the DIS rounds on a ledger, or deliver them
+through a :class:`~repro_torch.core.faults.Transport` (the party fault and
+integrity seam: retries, degraded and quarantined builds, wire envelopes
+and codecs) under the spec's ``fault_policy``:
 
   * :class:`CoresetTask` + :func:`register_task` — the task registry
     (``CORESET_TASKS``); shipped here: ``vrlr`` (Algorithm 2), ``vkmc``
@@ -24,6 +27,10 @@ the ``transport is None`` branch of the reference's ``_exec_streaming``):
     which the planner lowers to the streamed engine at
     ``chunk_blocks=1, prefetch=False``.
 
+Not here yet: the streaming engines' checkpointed resume
+(``build(checkpoint=)``, ROADMAP.md queue 1, item 14's second half) and
+the planner's ``codec="auto"`` and ``comm_budget_bits`` (item 15).
+
 Key choreography matches the reference: the ``vrlr`` score function
 passes its key through untouched; ``vkmc`` splits it once per party (the
 local k-means++ seeds) and once more for DIS; DIS consumes its key as
@@ -36,29 +43,49 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch import rng
 from repro_torch.core.comm import CommLedger, CommSchedule
 from repro_torch.core.coreset import Coreset
-from repro_torch.core.dis import DisPlan, dis_plan_full, uniform_plan
-from repro_torch.core.integrity import health_from_masses
+from repro_torch.core.dis import DisPlan, dis_plan_full, split_uploads, uniform_plan
+from repro_torch.core.faults import (
+    DegradedBuild,
+    DroppedParty,
+    PartyUnavailable,
+    Transport,
+)
+from repro_torch.core.integrity import (
+    IntegrityError,
+    check_weights,
+    health_from_masses,
+    require_valid_masses,
+)
 from repro_torch.core.plan import (
     SCORE_BACKENDS,
     CoresetSpec,
     ExecutionPlan,
     compile_plan,
 )
-from repro_torch.core.streaming import dis_plan_streamed_batched, make_stream_scorer
+from repro_torch.core.streaming import (
+    dis_plan_streamed_batched,
+    make_stream_scorer,
+    vkmc_block_masses_sharded,
+    vrlr_block_masses_sharded,
+    with_masses,
+)
 from repro_torch.core.sensitivity import (
     norm_scores,
+    total_sensitivity_bound_vkmc,
+    total_sensitivity_bound_vrlr,
     vkmc_local_scores,
     vrlr_leverage_stacked,
     vrlr_pinv_stacked,
 )
 from repro_torch.core.vfl import VFLDataset
 from repro_torch.core.vkmc import kmeans_plusplus, lloyd
-from repro_torch.core.wire import WirePayload
+from repro_torch.core.wire import WirePayload, get_codec
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.ops import COUNTED
 from repro_torch.utils.registry import Registry
@@ -203,9 +230,285 @@ CORESET_TASKS.register("uniform")(
 )
 
 
+# --------------------------------------------------------------------------
+# The party fault and integrity seam (the executors' transport hooks)
+# --------------------------------------------------------------------------
+
+def _policy_retries(fault_policy: str) -> Optional[int]:
+    """``fail`` is fail-fast (one attempt per message); ``retry``/``degrade``
+    use the transport plan's own ``max_retries``."""
+    return 0 if fault_policy == "fail" else None
+
+
+def _dropped(failed) -> Tuple[DroppedParty, ...]:
+    return tuple(sorted(failed.values(), key=lambda d: d.party))
+
+
+def _faulted_round1(
+    spec: CoresetTask, ds: VFLDataset, transport: Transport,
+    ledger: Optional[CommLedger], fault_policy: str,
+    payload: Optional[WirePayload] = None,
+) -> Tuple[VFLDataset, Optional[list], Optional[DegradedBuild], int, int]:
+    """Deliver DIS round 1 through the transport; under ``degrade`` a party
+    exhausting its retries here — BEFORE any score travels — is dropped and
+    the build continues over the survivors.
+
+    ``payload`` is the wire descriptor of the mass-table row each party's
+    G_j upload carries (the bits column only).  Returns ``(effective
+    dataset, surviving original party ids or None, DegradedBuild receipt
+    or None, round-1 units billed, round-1 bits billed)``.  The label party
+    (T-1) is irreplaceable for a labels-bearing task, and losing every
+    party is unrecoverable — both re-raise :exc:`PartyUnavailable`."""
+    rep = transport.deliver(
+        CommSchedule.dis_round1(ds.T, payload=payload), ledger,
+        max_retries=_policy_retries(fault_policy),
+        drop_on_exhaust=(fault_policy == "degrade"),
+    )
+    if not rep.failed:
+        return ds, None, None, rep.units, rep.bits
+    alive = sorted(set(range(ds.T)) - set(rep.failed))
+    dropped = _dropped(rep.failed)
+    if not alive:
+        d = dropped[0]
+        raise PartyUnavailable(d.party, d.tag, d.attempts)
+    if spec.needs_labels and (ds.T - 1) in rep.failed:
+        # labels live ONLY at party T-1; no surviving subset can score vrlr
+        d = rep.failed[ds.T - 1]
+        raise PartyUnavailable(d.party, d.tag, d.attempts)
+    degraded = DegradedBuild(dropped=dropped, surviving=tuple(alive),
+                             total_parties=ds.T)
+    return ds.select_parties(alive), alive, degraded, rep.units, rep.bits
+
+
+def _validators_on(fault_policy: str) -> bool:
+    """``fail`` and ``quarantine`` run the value-level validators on
+    delivered payloads; ``retry``/``degrade`` trust party values (they
+    defend availability, not honesty)."""
+    return fault_policy in ("fail", "quarantine")
+
+
+def _task_bound(spec: CoresetTask, eff_ds: VFLDataset, backend: str,
+                params: dict) -> Optional[float]:
+    """The task's total-sensitivity bound for the validators — Thm 4.2 for
+    VRLR (sum of effective widths + T, labels widening party T's block),
+    Lemma F.2 for VKMC (2(k+1) alpha T); None for the ``norm`` ablation,
+    whose row norms respect no such bound."""
+    if backend == "norm":
+        return None
+    if spec.name == "vrlr":
+        dims = list(eff_ds.dims)
+        if eff_ds.y is not None:
+            dims[-1] += 1
+        return total_sensitivity_bound_vrlr(dims, eff_ds.T)
+    if spec.name == "vkmc":
+        return total_sensitivity_bound_vkmc(
+            int(params.get("k", 10)), eff_ds.T,
+            float(params.get("alpha", 2.0)))
+    return None
+
+
+def _integrity_round1(
+    spec: CoresetTask, eff_ds: VFLDataset, transport: Transport,
+    ledger: Optional[CommLedger], fault_policy: str, masses: np.ndarray,
+    backend: str, params: dict, codec: str = "raw_fp32",
+):
+    """The round-1 integrity seam: ship each party's mass row (of the host
+    (T_eff, cells) table ``masses``: per-row scores on the materialized
+    engine, the (T, nb) block table on the streaming ones) under a
+    checksummed :class:`~repro_torch.core.integrity.WireEnvelope`, then run
+    the value-level validators on what was DELIVERED, cross-checked against
+    the honest per-party totals (the billed G_j scalars).
+
+    Returns ``(delivered table or None, offenders, retry units, retry
+    bits)``: the table is None when nothing changed; ``offenders`` (local
+    party indices) is nonempty only under ``quarantine`` (validator hits
+    under ``fail`` raise a party-attributed :exc:`IntegrityError`).  A lossy
+    ``codec`` delivers the quantized table and skips the row-sum cross-check
+    (the quantized row cannot match the fp32 scalar); the finiteness,
+    sign and bound checks still run."""
+    c = get_codec(codec)
+    tbl = np.asarray(masses)
+    totals = tbl.sum(axis=1)
+    rows = {j: tbl[j] for j in range(tbl.shape[0])}
+    r0 = transport.stats.units_retried
+    b0 = transport.stats.bits_retried
+    delivered, failed = transport.ship(
+        "dis/round1/G_j", rows, ledger, units=1,
+        max_retries=_policy_retries(fault_policy),
+        drop_on_exhaust=(fault_policy == "quarantine"), codec=codec)
+    retry_units = transport.stats.units_retried - r0
+    retry_bits = transport.stats.bits_retried - b0
+    changed = any(delivered.get(j) is not rows[j] for j in rows)
+    out = (np.stack([np.asarray(delivered.get(j, rows[j]))
+                     for j in range(len(rows))])
+           if changed else None)
+    offenders = set(failed)
+    if _validators_on(fault_policy):
+        offenders |= set(require_valid_masses(
+            tbl if out is None else out,
+            totals if c.lossless else None,
+            bound=_task_bound(spec, eff_ds, backend, params),
+            policy=fault_policy))
+    return out, tuple(sorted(offenders)), retry_units, retry_bits
+
+
+def _quarantine(
+    spec: CoresetTask, ds: VFLDataset, alive: Optional[list],
+    degraded: Optional[DegradedBuild], offenders: Tuple[int, ...],
+    tag: str = "dis/round1/G_j",
+) -> Tuple[VFLDataset, list, DegradedBuild]:
+    """Fold integrity offenders into the degrade machinery: map local
+    offender indices back to original party ids, drop them, and extend the
+    :class:`DegradedBuild` receipt with the quarantine reason.  The label
+    party is irreplaceable and losing every party is unrecoverable — both
+    raise, as in :func:`_faulted_round1`."""
+    orig = list(alive) if alive is not None else list(range(ds.T))
+    bad = sorted(orig[j] for j in offenders)
+    survivors = [p for p in orig if p not in set(bad)]
+    if not survivors:
+        raise IntegrityError(bad[0], "every party quarantined; no feature "
+                                     "slices left to build from", tag=tag)
+    if spec.needs_labels and (ds.T - 1) in bad:
+        raise IntegrityError(
+            ds.T - 1, "label party failed integrity validation; labels "
+                      "live only at party T-1, the build cannot continue",
+            tag=tag)
+    dropped = tuple(degraded.dropped if degraded is not None else ()) + tuple(
+        DroppedParty(p, f"quarantine/{tag}", 1) for p in bad)
+    reason = (f"part{'y' if len(bad) == 1 else 'ies'} {bad} quarantined "
+              f"for integrity violations at {tag!r}")
+    receipt = DegradedBuild(
+        dropped=tuple(sorted(dropped, key=lambda d: d.party)),
+        surviving=tuple(survivors), total_parties=ds.T, reason=reason)
+    return ds.select_parties(survivors), survivors, receipt
+
+
+def _round2_wire(plan: DisPlan, alive: Optional[list], T: int, codec: str):
+    """Pre-encode the round-2 index uploads ONCE: the payload descriptors
+    (aligned with ``plan.counts``) carry the measured packed bits for
+    :meth:`CommSchedule.dis_rounds23`, and the blobs are handed to
+    :meth:`Transport.ship` via ``encoded=``, so bits billed equal bytes
+    sealed by construction.  Returns (payloads, blobs, counts, ups): the
+    counts and the per-party uploads, copied to the host once as int32
+    (the reference's index dtype, so envelopes seal the same bytes), go on
+    to :func:`_ship_round2`."""
+    counts = plan.counts.cpu().numpy()
+    ups = split_uploads(plan.indices.cpu().numpy().astype(np.int32), counts)
+    orig = list(alive) if alive is not None else list(range(T))
+    c = get_codec(codec)
+    payloads: list = [None] * len(ups)
+    blobs: dict = {}
+    for j in range(len(ups)):
+        if counts[j] <= 0:
+            continue
+        blob = c.encode(ups[j])
+        blobs[orig[j]] = blob
+        payloads[j] = WirePayload.measured(
+            ups[j].shape, str(ups[j].dtype), codec, 8 * len(blob))
+    return payloads, blobs, counts, ups
+
+
+def _ship_round2(
+    transport: Transport, ledger: Optional[CommLedger], fault_policy: str,
+    plan: DisPlan, alive: Optional[list], T: int, counts: np.ndarray,
+    ups: list, codec: str = "raw_fp32", blobs: Optional[dict] = None,
+):
+    """Ship the round-2 index uploads under envelopes, each party's units
+    its realized a_j (the sizes ``dis_rounds23`` billed), so detected
+    retransmissions land under ``retry/dis/round2/S_up`` at the message's
+    true cost.  Returns the realized index vector (corrupted, if the
+    transport does not verify) plus the retry units and bits, and raises
+    through the weight validator when the policy defends.  ``counts`` and
+    ``ups`` are :func:`_round2_wire`'s host copies."""
+    orig = list(alive) if alive is not None else list(range(T))
+    payloads = {orig[j]: ups[j] for j in range(len(ups)) if counts[j] > 0}
+    units = {orig[j]: int(counts[j]) for j in range(len(ups)) if counts[j] > 0}
+    r0 = transport.stats.units_retried
+    b0 = transport.stats.bits_retried
+    delivered, _ = transport.ship(
+        "dis/round2/S_up", payloads, ledger, units=units,
+        max_retries=_policy_retries(fault_policy), drop_on_exhaust=False,
+        codec=codec, encoded=blobs)
+    retry_units = transport.stats.units_retried - r0
+    retry_bits = transport.stats.bits_retried - b0
+    if _validators_on(fault_policy):
+        why = check_weights(plan.weights.cpu().numpy())
+        if why is not None:
+            raise IntegrityError(None, f"realized coreset weights: {why}",
+                                 tag="dis/round3/g_scores")
+    if not any(delivered[p] is not payloads[p] for p in payloads):
+        return plan.indices, retry_units, retry_bits
+    parts = [np.asarray(delivered.get(orig[j], ups[j])) for j in range(len(ups))]
+    out = torch.as_tensor(np.concatenate(parts).astype(np.int64),
+                          device=plan.indices.device)
+    return out, retry_units, retry_bits
+
+
+def _uniform_coreset(S: torch.Tensor, w: torch.Tensor, T: int, m: int,
+                     ledger: Optional[CommLedger],
+                     transport: Optional[Transport],
+                     fault_policy: str) -> Coreset:
+    """The uniform baseline's broadcast, recorded, or delivered (under
+    ``degrade`` a party that never receives it is named on the receipt)."""
+    schedule = CommSchedule.uniform(T, m)
+    if transport is None:
+        schedule.record(ledger)
+        return Coreset(S, w, schedule.total, comm_bits=schedule.total_bits)
+    rep = transport.deliver(schedule, ledger,
+                            max_retries=_policy_retries(fault_policy),
+                            drop_on_exhaust=(fault_policy == "degrade"))
+    degraded = None
+    if rep.failed:
+        alive = sorted(set(range(T)) - set(rep.failed))
+        degraded = DegradedBuild(dropped=_dropped(rep.failed),
+                                 surviving=tuple(alive), total_parties=T)
+    return Coreset(S, w, rep.units, comm_bits=rep.bits, degraded=degraded)
+
+
+def _require_raw_without_transport(codec: str) -> None:
+    if codec != "raw_fp32":
+        raise ValueError(
+            f"codec={codec!r} quantizes what crosses the wire; without "
+            f"a transport nothing crosses it — the recorded path "
+            f"supports codec='raw_fp32' only"
+        )
+
+
+def _delivered_coreset(
+    plan: DisPlan, m: int, T: int, transport: Transport,
+    ledger: Optional[CommLedger], fault_policy: str, codec: str,
+    alive: Optional[list], degraded: Optional[DegradedBuild], health,
+    units: int, bits: int,
+) -> Coreset:
+    """Rounds 2-3 through the transport after the draw, then the coreset
+    with the composed bill (``units``/``bits``: what round 1 and its
+    envelopes already billed).  Rounds 2-3 exhaust hard even under
+    ``degrade``: the scores exist by now, and dropping a party would
+    orphan its drawn rows."""
+    up_payloads, up_blobs, counts, ups = _round2_wire(plan, alive, T, codec)
+    rep23 = transport.deliver(
+        CommSchedule.dis_rounds23(T, m, counts=counts.tolist(),
+                                  parties=alive, upload_payloads=up_payloads),
+        ledger, max_retries=_policy_retries(fault_policy),
+        drop_on_exhaust=False,
+    )
+    indices, r2_units, r2_bits = _ship_round2(
+        transport, ledger, fault_policy, plan, alive, T, counts, ups,
+        codec=codec, blobs=up_blobs)
+    return Coreset(indices, plan.weights, units + rep23.units + r2_units,
+                   comm_bits=bits + rep23.bits + r2_bits,
+                   degraded=degraded, health=health)
+
+
+# --------------------------------------------------------------------------
+# Engine executors — one per ExecutionPlan.engine
+# --------------------------------------------------------------------------
+
 def _exec_materialized(
     spec: CoresetTask, ds: VFLDataset, m: int, key, backend: str,
     ledger: Optional[CommLedger], params: dict, fused: bool = False,
+    transport: Optional[Transport] = None, fault_policy: str = "fail",
+    codec: str = "raw_fp32",
 ) -> Coreset:
     """The eager engine: scores computed at once, DIS on the full (T, n)
     matrix, the exact per-round bill derived from the realised plan and
@@ -215,7 +518,15 @@ def _exec_materialized(
     :func:`dis_plan_full`, or the uniform plan) goes through the builder
     cached for its shapes (:func:`_fused_plan`), one CUDA graph on the
     card, and there is no health report, as in the reference's
-    ``_exec_fused``.  The bill is the same."""
+    ``_exec_fused``.  The bill is the same.
+
+    With a ``transport`` the DIS rounds are DELIVERED instead of recorded:
+    round 1 before scoring (where ``degrade`` can still drop a party, the
+    scores then recomputed over the surviving feature slices), the per-row
+    score table shipped under envelopes and validated (``quarantine``
+    drops an offender and rescores the survivors), rounds 2-3 after the
+    draw.  With a null fault plan the draws and ledger entries are bit for
+    bit the transportless build's."""
     if spec.needs_labels and ds.y is None:
         raise ValueError(f"{spec.name} requires labels at party T")
     if spec.score_fn is None:
@@ -225,27 +536,52 @@ def _exec_materialized(
                                   lambda k, _: uniform_plan(k, n, m), key, ())(key, ())
         else:
             S, w = uniform_plan(key, ds.n, m, device=ds.device)
-        schedule = CommSchedule.uniform(ds.T, m)
-        schedule.record(ledger)
-        return Coreset(S, w, schedule.total, comm_bits=schedule.total_bits)
+        return _uniform_coreset(S, w, ds.T, m, ledger, transport, fault_policy)
 
     # the round-1 G_j upload physically carries the per-row mass table —
     # one float32 entry per row on this engine
-    r1_payload = WirePayload.of((ds.n,), "float32", "raw_fp32")
-    health = None
-    if fused:
-        plan = _fused_plan(spec, ds, m, key, backend, params)
-    else:
-        scores, dis_key = spec.score_fn(key, ds, backend=backend, **params)
-        plan = dis_plan_full(dis_key, scores, m)
-        health = health_from_masses(scores.cpu().numpy())
+    r1_payload = WirePayload.of((ds.n,), "float32", codec)
+    if transport is None:
+        _require_raw_without_transport(codec)
+        health = None
+        if fused:
+            plan = _fused_plan(spec, ds, m, key, backend, params)
+        else:
+            scores, dis_key = spec.score_fn(key, ds, backend=backend, **params)
+            plan = dis_plan_full(dis_key, scores, m)
+            health = health_from_masses(scores.cpu().numpy())
+        if not bool(plan.totals.sum() > 0):
+            raise ValueError("DIS requires a positive total score")
+        schedule = CommSchedule.dis(ds.T, m, counts=plan.counts.tolist(),
+                                    round1_payload=r1_payload)
+        schedule.record(ledger)
+        return Coreset(plan.indices, plan.weights, schedule.total,
+                       comm_bits=schedule.total_bits, health=health)
+
+    eff_ds, alive, degraded, units1, bits1 = _faulted_round1(
+        spec, ds, transport, ledger, fault_policy, payload=r1_payload)
+    scores, dis_key = spec.score_fn(key, eff_ds, backend=backend, **params)
+    # the per-row score table IS this engine's round-1 mass payload
+    delivered, offenders, ship_units, ship_bits = _integrity_round1(
+        spec, eff_ds, transport, ledger, fault_policy, scores.cpu().numpy(),
+        backend, params, codec=codec)
+    if offenders:
+        eff_ds, alive, degraded = _quarantine(spec, ds, alive, degraded,
+                                              offenders)
+        # rescore the survivors; their tables already validated clean
+        scores, dis_key = spec.score_fn(key, eff_ds, backend=backend,
+                                        **params)
+    elif delivered is not None:
+        # what crossed the wire drives the draw: a lossy codec's quantized
+        # table, or — with verification off — corrupted masses
+        scores = torch.as_tensor(delivered, device=scores.device)
+    health = health_from_masses(scores.cpu().numpy())
+    plan = dis_plan_full(dis_key, scores, m)
     if not bool(plan.totals.sum() > 0):
         raise ValueError("DIS requires a positive total score")
-    schedule = CommSchedule.dis(ds.T, m, counts=plan.counts.tolist(),
-                                round1_payload=r1_payload)
-    schedule.record(ledger)
-    return Coreset(plan.indices, plan.weights, schedule.total,
-                   comm_bits=schedule.total_bits, health=health)
+    return _delivered_coreset(plan, m, ds.T, transport, ledger, fault_policy,
+                              codec, alive, degraded, health,
+                              units1 + ship_units, bits1 + ship_bits)
 
 
 # (task, dims, labeled?, n, m, backend, params, device, input dtypes) ->
@@ -451,40 +787,104 @@ def _exec_batched(
                            T=ds.T, cells=ds.n)
 
 
+def _sharded_mass_table(task_name: str, key, ds: VFLDataset,
+                        block_size: int, backend: str, params: dict,
+                        device: torch.device) -> torch.Tensor:
+    """The (T, nb) block-mass table over the ranks of the default process
+    group (a world of one without one): see
+    :func:`repro_torch.core.streaming.vrlr_block_masses_sharded`.  The
+    per-row scores the sampler later recomputes come from the scorer's own
+    block path; ``backend`` is forwarded so vkmc's center solve runs the
+    SAME kernels as the scorer's, and the table matches the scorer's up to
+    fp reduction order."""
+    if task_name == "vrlr":
+        kw = {k: v for k, v in params.items() if k == "rcond"}
+        return vrlr_block_masses_sharded(ds, block_size, device=device, **kw)
+    if task_name == "vkmc":
+        kw = {k: v for k, v in params.items()
+              if k in ("k", "alpha", "local_iters", "center_sample")}
+        return vkmc_block_masses_sharded(ds, block_size, key=key,
+                                         backend=backend, device=device, **kw)
+    raise ValueError(
+        f"sharded_masses supports tasks ('vrlr', 'vkmc'), got {task_name!r}"
+    )
+
+
 def _exec_streaming(
     spec: CoresetTask, ds: VFLDataset, m: int, key, backend: str,
     ledger: Optional[CommLedger], probe: Optional[Callable[[], None]],
     block_size: int, chunk_blocks: int, prefetch: bool, params: dict,
-    device: torch.device,
+    device: torch.device, sharded_masses: bool = False,
+    transport: Optional[Transport] = None, fault_policy: str = "fail",
+    codec: str = "raw_fp32",
 ) -> Coreset:
     """The streamed and pipelined engines: block-scan scoring +
     hierarchical (party, block) DIS on ``device``, from ``ds`` on the CPU
     or on ``device``.  The passes scan superchunks of ``chunk_blocks``
     blocks (``prefetch``: double-buffered) and the redraw takes the
     touched blocks in groups of that size; the streamed engine is the
-    width 1 without prefetch.  The exact per-round bill is recorded on
-    ``ledger``; the round-1 upload is the (T, nb) block-mass table, one raw
-    float32 per block per party.  Nothing crosses a wire on this path;
-    transports, codecs and checkpoints come with ROADMAP.md queue 1, item
-    14."""
+    width 1 without prefetch.  ``sharded_masses`` takes the (T, nb) table
+    from :func:`_sharded_mass_table` instead of the scorer's mass pass.
+    The round-1 upload is the (T, nb) block-mass table, one float32 per
+    block per party.
+
+    ``transport`` delivers the DIS rounds through the fault seam as in
+    :func:`_exec_materialized`: round 1 before the scorer is built (so
+    ``degrade`` drops a party before any pass over the data), the block
+    table under envelopes, and a quarantine rebuilds the scorer — and the
+    sharded table — over the survivors.  Without one the exact per-round
+    bill is recorded on ``ledger``."""
     if spec.needs_labels and ds.y is None:
         raise ValueError(f"{spec.name} requires labels at party T")
     if spec.score_fn is None:
         S, w = uniform_plan(key, ds.n, m)
-        schedule = CommSchedule.uniform(ds.T, m)
-        schedule.record(ledger)
-        return Coreset(S, w, schedule.total, comm_bits=schedule.total_bits)
+        return _uniform_coreset(S, w, ds.T, m, ledger, transport, fault_policy)
     nb = ds.block_geometry(int(block_size))[0]
-    r1_payload = WirePayload.of((nb,), "float32", "raw_fp32")
-    scorer = make_stream_scorer(spec.name, key, ds, int(block_size), backend,
-                                probe=probe, device=device,
-                                chunk_blocks=chunk_blocks, prefetch=prefetch,
-                                **params)
+    r1_payload = WirePayload.of((nb,), "float32", codec)
+    if transport is None:
+        _require_raw_without_transport(codec)
+    alive = degraded = None
+    units1 = bits1 = 0
+    eff_ds = ds
+    if transport is not None:
+        eff_ds, alive, degraded, units1, bits1 = _faulted_round1(
+            spec, ds, transport, ledger, fault_policy, payload=r1_payload)
+
+    def _build_scorer(eff: VFLDataset):
+        masses = None
+        if sharded_masses:
+            # task/backend compatibility was validated by compile_plan —
+            # every path into this executor goes through the planner
+            masses = _sharded_mass_table(spec.name, key, eff, block_size,
+                                         backend, params, device)
+        return make_stream_scorer(spec.name, key, eff, int(block_size), backend,
+                                  probe=probe, device=device,
+                                  chunk_blocks=chunk_blocks, prefetch=prefetch,
+                                  masses=masses, **params)
+
+    scorer = _build_scorer(eff_ds)
+    ship_units = ship_bits = 0
+    if transport is not None:
+        delivered, offenders, ship_units, ship_bits = _integrity_round1(
+            spec, eff_ds, transport, ledger, fault_policy,
+            scorer.masses.cpu().numpy(), backend, params, codec=codec)
+        if offenders:
+            eff_ds, alive, degraded = _quarantine(spec, ds, alive, degraded,
+                                                  offenders)
+            scorer = _build_scorer(eff_ds)  # rescore the survivors
+        elif delivered is not None:
+            # what crossed the wire drives the draw: the lossy codec's
+            # quantized table, or — unverified — a corrupted one
+            scorer = with_masses(scorer, delivered)
     conds = None if scorer.gram_conds is None else scorer.gram_conds.cpu().numpy()
     health = health_from_masses(scorer.masses.cpu().numpy(), gram_conds=conds)
     if not bool(scorer.masses.sum() > 0):
         raise ValueError("DIS requires a positive total score")
     plan = dis_plan_streamed_batched(scorer, m, probe=probe)
+    if transport is not None:
+        return _delivered_coreset(plan, m, ds.T, transport, ledger,
+                                  fault_policy, codec, alive, degraded, health,
+                                  units1 + ship_units, bits1 + ship_bits)
     schedule = CommSchedule.dis(ds.T, m, counts=plan.counts.tolist(),
                                 round1_payload=r1_payload)
     schedule.record(ledger)
@@ -514,6 +914,7 @@ class CoresetPipeline:
         keys: Optional[torch.Tensor] = None,
         ledger: Optional[CommLedger] = None,
         probe: Optional[Callable[[], None]] = None,
+        transport: Optional[Transport] = None,
         device: DeviceLike = "cuda",
     ) -> Union[Coreset, BatchedCoresets]:
         """Build per the (compiled) spec on ``device`` — the card unless
@@ -528,7 +929,13 @@ class CoresetPipeline:
         (``grid.coreset(..., ledger=...)``), so ``ledger`` applies to
         single-cell engines only.  ``probe`` (if given) runs after every
         block (pipelined: superchunk) of the streaming engines' passes and
-        after every block (group) of their redraw."""
+        after every block (group) of their redraw.
+
+        ``transport`` (a :class:`~repro_torch.core.faults.Transport`)
+        delivers the protocol rounds through the party fault seam,
+        honouring ``spec.fault_policy``; with no transport — or a null
+        fault plan — every engine's draws and ledger entries are bit for
+        bit a transportless build's."""
         dev = resolve_device(device)
         if isinstance(spec, ExecutionPlan):
             ep = spec
@@ -561,6 +968,11 @@ class CoresetPipeline:
         cspec = ep.spec
         task = get_task(cspec.task)
         if ep.engine == "batched":
+            if transport is not None:
+                raise ValueError(
+                    "the batched engine bills its cells lazily; transport "
+                    "delivery applies to single-cell engines only"
+                )
             if keys is None:
                 if key is None:
                     raise ValueError("pass either `key` (+ num_seeds) or `keys`")
@@ -573,10 +985,21 @@ class CoresetPipeline:
             return _exec_streaming(task, self.ds, cspec.budget, key.to(dev),
                                    ep.backend, ledger, probe, ep.block_size,
                                    ep.chunk_blocks, ep.prefetch, cspec.params,
-                                   dev)
+                                   dev, sharded_masses=cspec.sharded_masses,
+                                   transport=transport,
+                                   fault_policy=cspec.fault_policy,
+                                   codec=cspec.codec)
+        if cspec.jit and transport is not None:
+            raise ValueError(
+                "the fused jit path cannot deliver per-round schedules "
+                "through a transport; use the eager materialized engine "
+                "(jit=False)"
+            )
         return _exec_materialized(task, self.ds, cspec.budget, key.to(dev),
                                   ep.backend, ledger, cspec.params,
-                                  fused=cspec.jit)
+                                  fused=cspec.jit, transport=transport,
+                                  fault_policy=cspec.fault_policy,
+                                  codec=cspec.codec)
 
 
 def build_coreset(

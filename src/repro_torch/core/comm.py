@@ -303,6 +303,30 @@ class CommSchedule:
         )
 
     @staticmethod
+    def merge(T: int, m_left: int, m_right: int) -> "CommSchedule":
+        """Theorem 2.5's composition bill for one merge-and-reduce node:
+        the downstream scheme (here: DIS re-sampling over the union)
+        consumes TWO materialized coresets, so each party receives the
+        ``m_left + m_right`` selected indices and contributes its per-row
+        scalar shares — ``+2mT`` per consumed child, under ``merge/`` tags.
+
+        This is :meth:`materialize`'s accounting promoted to a named
+        schedule so every level of a merge-and-reduce tree
+        (the serving layer's merge-and-reduce tree) bills uniformly; per-party units are
+        identical to ``materialize(T, m_left) + materialize(T, m_right)``.
+        The re-sampling DIS run over the union is billed separately (its
+        :meth:`dis` schedule), exactly as a leaf build would be.
+        """
+        if m_left < 0 or m_right < 0:
+            raise ValueError(
+                f"merge sizes must be >= 0, got ({m_left}, {m_right})"
+            )
+        m_u = int(m_left) + int(m_right)
+        ops = [CommOp("merge/S_down", j, m_u, down=True) for j in range(T)]
+        ops += [CommOp("merge/rows_up", j, m_u) for j in range(T)]
+        return CommSchedule(tuple(ops))
+
+    @staticmethod
     def materialize(T: int, m: int) -> "CommSchedule":
         """Theorem 2.5's ``+2mT`` term: when the downstream scheme A runs
         in-protocol on the coreset, each party receives the m selected

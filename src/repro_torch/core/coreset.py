@@ -10,13 +10,16 @@ outside any kernel.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import TYPE_CHECKING, Optional, Tuple
 
 import torch
 
 from repro_torch.core.comm import CommLedger, CommSchedule
 from repro_torch.core.integrity import HealthReport
 from repro_torch.core.vfl import VFLDataset
+
+if TYPE_CHECKING:
+    from repro_torch.core.faults import DegradedBuild
 
 
 @dataclasses.dataclass
@@ -27,7 +30,10 @@ class Coreset:
     construction itself moves no feature data across parties.  ``health``
     is the :class:`~repro_torch.core.integrity.HealthReport` of the scoring
     state the draw used (None for the uniform baseline and the identity
-    coreset).
+    coreset).  ``degraded`` (default None: a full-federation build) is the
+    :class:`~repro_torch.core.faults.DegradedBuild` receipt when the
+    construction continued without every party under
+    ``fault_policy="degrade"`` or ``"quarantine"``.
     """
 
     indices: torch.Tensor   # (m,) int
@@ -36,6 +42,7 @@ class Coreset:
     #: Construction cost in wire bits (32 bits/unit on the raw wire, the
     #: mass-table row billed at its packed size).
     comm_bits: int = 0
+    degraded: Optional["DegradedBuild"] = None
     health: Optional[HealthReport] = None
 
     @property

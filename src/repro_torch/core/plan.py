@@ -12,9 +12,16 @@ batched one, a forced ``streamed`` engine runs block at a time
 ``pipelined`` at ``chunk_blocks=1`` without prefetch is lowered to
 ``streamed``, which draws the same coreset.  ``jit=True`` selects the
 materialized engine's fused path (one CUDA graph per shape on the card);
-the batched engine accepts it and runs as without it.  ``engine="auto"``
-picks the materialized engine: the memory model, codec axis, fault
-policies and plan cache wait for their slices.
+the batched engine accepts it and runs as without it.
+``sharded_masses`` computes the streaming engines' block-mass table over
+the ranks of a ``torch.distributed`` process group
+(:func:`repro_torch.core.streaming.vrlr_block_masses_sharded`).
+``fault_policy`` and ``codec`` set how a build delivered through a
+:class:`~repro_torch.core.faults.Transport` reacts to faults and what its
+round-1 table crosses the wire as.  ``engine="auto"`` picks the
+materialized engine: the memory model, ``codec="auto"``,
+``comm_budget_bits`` and the plan cache wait for ROADMAP.md queue 1,
+item 15.
 """
 
 from __future__ import annotations
@@ -26,7 +33,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.comm import CommSchedule
+from repro_torch.core.faults import FAULT_POLICIES
 from repro_torch.core.vfl import VFLDataset, block_geometry
+from repro_torch.core.wire import CODEC_LADDER
 from repro_torch.device import DeviceLike, resolve_device
 
 #: Score backends, named as in the reference so specs carry over: in the
@@ -73,7 +82,10 @@ class CoresetSpec:
     block_size: int = 65536
     chunk_blocks: Optional[int] = None    # None -> DEFAULT_CHUNK_BLOCKS (planner)
     prefetch: Optional[bool] = None       # None -> PREFETCH_DEFAULT (planner)
+    sharded_masses: bool = False          # block-mass table over the process group
     m_cap: Optional[int] = None           # batched draw capacity override
+    fault_policy: str = "fail"            # fail | retry | degrade | quarantine
+    codec: str = "raw_fp32"               # the round-1 table's wire codec (CODEC_LADDER)
     params: Mapping[str, Any] = dataclasses.field(default_factory=dict)
 
     def __post_init__(self) -> None:
@@ -122,6 +134,15 @@ class CoresetSpec:
             )
         if self.prefetch is not None and not isinstance(self.prefetch, bool):
             raise ValueError(f"prefetch must be a bool, got {self.prefetch!r}")
+        if not isinstance(self.sharded_masses, bool):
+            raise ValueError(
+                f"sharded_masses must be a bool, got {self.sharded_masses!r}"
+            )
+        if self.sharded_masses and self.engine in ("materialized", "batched"):
+            raise ValueError(
+                f"sharded_masses computes the streaming block-mass table; it "
+                f"cannot combine with engine={self.engine!r}"
+            )
         if self.m_cap is not None:
             if not _is_int(self.m_cap) or self.m_cap < 1:
                 raise ValueError(
@@ -133,6 +154,39 @@ class CoresetSpec:
                     f"budgets {over} outside [1, m_cap={self.m_cap}]; every "
                     f"budget must be >= 1 and <= the draw capacity"
                 )
+        if self.fault_policy not in FAULT_POLICIES:
+            raise ValueError(
+                f"fault_policy must be one of {FAULT_POLICIES}, "
+                f"got {self.fault_policy!r}"
+            )
+        if self.fault_policy != "fail" and self.engine == "batched":
+            raise ValueError(
+                f"fault_policy={self.fault_policy!r} delivers per-round "
+                f"schedules through a transport; the batched engine bills "
+                f"its cells lazily and cannot combine with it"
+            )
+        if self.codec == "auto":
+            raise ValueError(
+                "codec='auto' picks the codec from the planner's comm-budget "
+                "walk, which the port does not have yet (ROADMAP.md queue 1, "
+                f"item 15); name one of {CODEC_LADDER}"
+            )
+        if self.codec not in CODEC_LADDER:
+            raise ValueError(
+                f"codec must be one of {CODEC_LADDER}, got {self.codec!r}"
+            )
+        lossy = self.codec != "raw_fp32"
+        if lossy and self.jit:
+            raise ValueError(
+                f"codec={self.codec!r} quantizes the wire; the jit fused "
+                f"path never leaves the device and cannot combine with it"
+            )
+        if lossy and self.engine == "batched":
+            raise ValueError(
+                f"codec={self.codec!r} quantizes per-round payloads; the "
+                f"batched engine bills its cells lazily and cannot combine "
+                f"with it"
+            )
         object.__setattr__(self, "params", dict(self.params))
 
     @property
@@ -185,15 +239,17 @@ class ExecutionPlan:
 
     def describe(self) -> str:
         """Human-readable plan: engine, task, backend, grid, budgets, draw
-        capacity, the data's geometry and the predicted bill."""
+        capacity, fault policy, the data's geometry, the integrity seam and
+        the predicted bill."""
         spec = self.spec
         nb, bs = block_geometry(self.n, self.block_size)
         lines = [
             f"ExecutionPlan: engine={self.engine}"
-            + (" (jit)" if spec.jit and self.engine == "materialized" else ""),
+            + (" (jit)" if spec.jit and self.engine == "materialized" else "")
+            + (" +sharded_masses" if spec.sharded_masses else ""),
             f"  task={self.task_name} backend={self.backend} "
             f"grid={self.grid[0]}x{self.grid[1]} budgets={spec.budgets} "
-            f"m_cap={self.m_cap}",
+            f"m_cap={self.m_cap} fault_policy={spec.fault_policy}",
             f"  data: n={self.n} T={self.T} dims={self.dims} "
             f"blocks: {nb} x {bs} rows (block_size={self.block_size})",
         ]
@@ -202,7 +258,15 @@ class ExecutionPlan:
                 f"  streaming knobs: chunk_blocks={self.chunk_blocks} "
                 f"prefetch={'on' if self.prefetch else 'off'}"
             )
-        lines.append(f"  predicted comm: {self.predicted_comm_units} units")
+        validators = ("on" if spec.fault_policy in ("fail", "quarantine")
+                      else "off")
+        lines.append(
+            f"  integrity: wire envelopes on transported rounds 1-2; "
+            f"value validators {validators} "
+            f"(policy={spec.fault_policy})"
+        )
+        lines.append(f"  predicted comm: {self.predicted_comm_units} units "
+                     f"(codec={spec.codec})")
         for note in self.notes:
             lines.append(f"  note: {note}")
         return "\n".join(lines)
@@ -221,7 +285,7 @@ def compile_plan(spec: CoresetSpec, ds: VFLDataset,
     if task.needs_labels and ds.y is None:
         raise ValueError(f"{task.name} requires labels at party T")
     R, M = spec.num_seeds, len(spec.budgets)
-    nb, _ = block_geometry(ds.n, spec.block_size)
+    nb, bs = block_geometry(ds.n, spec.block_size)
     notes = []
     chunk_req = (DEFAULT_CHUNK_BLOCKS if spec.chunk_blocks is None
                  else int(spec.chunk_blocks))
@@ -255,6 +319,8 @@ def compile_plan(spec: CoresetSpec, ds: VFLDataset,
             f"block_size={spec.block_size} has only {nb} blocks "
             f"(one full-span superchunk)"
         )
+    if spec.sharded_masses:
+        _check_sharded(engine, backend, task.name, ds.n, bs)
     m_cap = max(spec.budgets) if spec.m_cap is None else spec.m_cap
     comm = R * sum(CommSchedule.uniform(ds.T, m).total if task.score_fn is None
                    else CommSchedule.dis_total(ds.T, m) for m in spec.budgets)
@@ -264,3 +330,44 @@ def compile_plan(spec: CoresetSpec, ds: VFLDataset,
                          device=dev,
                          block_size=spec.block_size, chunk_blocks=chunk,
                          prefetch=prefetch, notes=tuple(notes))
+
+
+def _shard_world_size() -> int:
+    """D of the sharded mass table: the world size of the default
+    ``torch.distributed`` process group when one is initialised, else 1."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def _check_sharded(engine: str, backend: str, task_name: str, n: int,
+                   bs: int) -> None:
+    """The planner's checks on ``sharded_masses`` (the spec has already
+    refused a forced materialized or batched engine)."""
+    if engine not in ("streamed", "pipelined"):
+        raise ValueError(
+            f"sharded_masses computes the streaming block-mass table, "
+            f"but the planner selected engine {engine!r} — force a "
+            f"streaming engine or drop the toggle"
+        )
+    if backend == "norm":
+        raise ValueError(
+            "sharded_masses computes the task's real score masses; it "
+            "cannot combine with backend='norm'"
+        )
+    if task_name not in ("vrlr", "vkmc"):
+        raise ValueError(
+            f"sharded_masses supports tasks ('vrlr', 'vkmc'), got "
+            f"{task_name!r}"
+        )
+    D = _shard_world_size()
+    if n % D != 0 or (n // D) % bs != 0:
+        # the shard-grid requirement _check_shard_grid enforces at run
+        # time, surfaced at plan time so a bad spec fails before work
+        raise ValueError(
+            f"sharded_masses needs n divisible by the device count and "
+            f"the per-device shard divisible by the block size: n={n}, "
+            f"devices={D}, bs={bs}"
+        )

@@ -40,9 +40,15 @@ staged through pinned host memory to the card, scored by the kernels and
 dropped, so the build's device memory is O(chunk_blocks * block_size * d)
 at any n.
 
-Not here yet: the per-pass checkpoint (``ckpt``, ROADMAP.md queue 1, item
-14); a block-mass table supplied from sharded devices (``masses=``, item
-13).
+  * **Sharded block masses** (:func:`vrlr_block_masses_sharded`,
+    :func:`vkmc_block_masses_sharded`): the (T, nb) table computed over the
+    ranks of a ``torch.distributed`` process group, rank r scoring rows
+    [r n/D, (r+1) n/D) as one (T, n/D, s) shard, with two ``all_reduce``
+    calls (the reference's two psums over its ``data`` mesh axis).  A
+    scorer given such a table (``masses=``) skips its own mass pass.
+
+Not here yet: the per-superchunk checkpoint (``ckpt``, ROADMAP.md queue 1,
+item 14's second half).
 """
 
 from __future__ import annotations
@@ -118,6 +124,7 @@ def make_stream_scorer(
     device: DeviceLike = "cuda",
     chunk_blocks: int = 1,
     prefetch: bool = False,
+    masses: Optional[torch.Tensor] = None,
     **params,
 ) -> StreamScorer:
     """Build the task's :class:`StreamScorer` on ``device`` (the card
@@ -125,7 +132,12 @@ def make_stream_scorer(
     ``device``.  ``chunk_blocks = C > 1`` or ``prefetch`` selects the
     pipelined engine: every pass over (C, T, bs, s) superchunks, C clamped
     to the block count.  ``probe`` (if given) runs after every block (or
-    superchunk) of every pass, and after ``vkmc``'s local centers."""
+    superchunk) of every pass, and after ``vkmc``'s local centers.
+
+    ``masses`` supplies the (T, nb) block-mass table (the sharded one,
+    :func:`vrlr_block_masses_sharded` / :func:`vkmc_block_masses_sharded`):
+    the factory skips its own mass pass, while the per-row scores the
+    redraw recomputes still come from the scorer's own state."""
     factory = STREAM_SCORERS.get(name)
     if factory is None:
         raise ValueError(
@@ -133,7 +145,8 @@ def make_stream_scorer(
             f"available: {sorted(STREAM_SCORERS)}"
         )
     return factory(key, ds, block_size, backend, probe=probe, device=device,
-                   chunk_blocks=chunk_blocks, prefetch=prefetch, **params)
+                   chunk_blocks=chunk_blocks, prefetch=prefetch, masses=masses,
+                   **params)
 
 
 def with_masses(scorer: StreamScorer, masses) -> StreamScorer:
@@ -152,6 +165,17 @@ def with_masses(scorer: StreamScorer, masses) -> StreamScorer:
 
 def _noop() -> None:
     return None
+
+
+def _supplied(masses, ds: VFLDataset, block_size: int,
+              dev: torch.device) -> torch.Tensor:
+    """A supplied (T, nb) block-mass table as float32 on ``dev``."""
+    tbl = torch.as_tensor(masses).to(device=dev, dtype=torch.float32)
+    want = (ds.T, ds.block_geometry(block_size)[0])
+    if tuple(tbl.shape) != want:
+        raise ValueError(f"supplied mass table has shape {tuple(tbl.shape)}; "
+                         f"the dataset's is {want}")
+    return tbl
 
 
 def _setup(backend: str, device: DeviceLike) -> Tuple[bool, torch.device]:
@@ -263,15 +287,19 @@ def _norm_scores(X: torch.Tensor, ok: Optional[torch.Tensor],
 
 
 def _norm_scorer(key, ds: VFLDataset, block_size: int, with_labels: bool,
-                 probe, dev: torch.device, C: int,
-                 prefetch: bool) -> StreamScorer:
+                 probe, dev: torch.device, C: int, prefetch: bool,
+                 masses: Optional[torch.Tensor]) -> StreamScorer:
     def scores(X, ok):
         return _norm_scores(X, ok, ds.n)
 
-    masses = _mass_table(_scan(ds, block_size, with_labels, C, prefetch, dev,
-                               probe), scores)
+    if masses is None:
+        masses = _mass_table(_scan(ds, block_size, with_labels, C, prefetch,
+                                   dev, probe), scores)
+        passes = 1
+    else:
+        masses, passes = _supplied(masses, ds, block_size, dev), 0
     return _scorer(ds, block_size, with_labels, dev, scores, masses=masses,
-                   dis_key=key, data_passes=1, chunk_blocks=C)
+                   dis_key=key, data_passes=passes, chunk_blocks=C)
 
 
 def _superchunk(chunk_blocks: int, ds: VFLDataset, block_size: int) -> int:
@@ -311,6 +339,7 @@ def vrlr_stream_scorer(
     key, ds: VFLDataset, block_size: int, backend: str,
     probe: Optional[Callable[[], None]] = None, rcond: float = 1e-6,
     device: DeviceLike = "cuda", chunk_blocks: int = 1, prefetch: bool = False,
+    masses: Optional[torch.Tensor] = None,
 ) -> StreamScorer:
     """Algorithm 2's scores without ever holding (n, d): one block-scan
     pass accumulates each party's (s, s) Gram, the eigen-pseudo-inverse is
@@ -318,13 +347,15 @@ def vrlr_stream_scorer(
     The key passes through untouched, as in the materialized ``vrlr``
     task.  Each pass runs over superchunks of ``chunk_blocks`` blocks
     (``prefetch``: double-buffered): the same Gram and mass table at any
-    width, nb / C launches of each kernel a pass."""
+    width, nb / C launches of each kernel a pass.  A supplied ``masses``
+    table skips the mass pass (the Gram pass still runs: one data pass)."""
     use_kernel, dev = _setup(backend, device)
     probe = probe or _noop
     key = key.to(dev)
     C = _superchunk(chunk_blocks, ds, block_size)
     if backend == "norm":
-        return _norm_scorer(key, ds, block_size, True, probe, dev, C, prefetch)
+        return _norm_scorer(key, ds, block_size, True, probe, dev, C, prefetch,
+                            masses)
     widths, s = ds.stacked_widths(with_labels=True)
     G = torch.zeros((ds.T, s, s), dtype=torch.float32, device=dev)
     for chunk, ok in _scan(ds, block_size, True, C, prefetch, dev, probe):
@@ -336,10 +367,14 @@ def vrlr_stream_scorer(
     def scores(X, ok):
         return _vrlr_scores(X, M, ok, ds.n, use_kernel)
 
-    masses = _mass_table(_scan(ds, block_size, True, C, prefetch, dev, probe),
-                         scores)
+    if masses is None:
+        masses = _mass_table(_scan(ds, block_size, True, C, prefetch, dev,
+                                   probe), scores)
+        passes = 2
+    else:
+        masses, passes = _supplied(masses, ds, block_size, dev), 1
     return _scorer(ds, block_size, True, dev, scores, masses=masses,
-                   dis_key=key, data_passes=2, chunk_blocks=C,
+                   dis_key=key, data_passes=passes, chunk_blocks=C,
                    gram_conds=gram_conds)
 
 
@@ -432,6 +467,7 @@ def vkmc_stream_scorer(
     k: int = 10, alpha: float = 2.0, local_iters: int = 15,
     center_sample: int = 16384, device: DeviceLike = "cuda",
     chunk_blocks: int = 1, prefetch: bool = False,
+    masses: Optional[torch.Tensor] = None,
 ) -> StreamScorer:
     """Algorithm 3's sensitivities with one block (or superchunk) resident:
     party j's local k-means on a uniform row subsample
@@ -439,7 +475,9 @@ def vkmc_stream_scorer(
     global cluster sizes and costs, and scores re-emitted per block from
     (block, centers, stats).  The key chain matches the materialized
     ``vkmc`` task.  ``chunk_blocks``/``prefetch`` set the passes'
-    superchunks as in :func:`vrlr_stream_scorer`."""
+    superchunks as in :func:`vrlr_stream_scorer`; a supplied ``masses``
+    table skips the mass pass (centers and stats still run: two data
+    passes)."""
     use_kernel, dev = _setup(backend, device)
     probe = probe or _noop
     T = ds.T
@@ -447,7 +485,7 @@ def vkmc_stream_scorer(
     if backend == "norm":
         _, dis_key = _vkmc_key_chain(key.to(dev), T)   # the task's key budget
         return _norm_scorer(dis_key, ds, block_size, False, probe, dev, C,
-                            prefetch)
+                            prefetch, masses)
 
     centers, dis_key = vkmc_local_centers(
         key, ds, k=k, local_iters=local_iters, center_sample=center_sample,
@@ -464,10 +502,14 @@ def vkmc_stream_scorer(
     def scores(X, ok):
         return _vkmc_scores(X, centers, csize, ccost, ok, alpha, use_kernel)
 
-    masses = _mass_table(_scan(ds, block_size, False, C, prefetch, dev, probe),
-                         scores)
+    if masses is None:
+        masses = _mass_table(_scan(ds, block_size, False, C, prefetch, dev,
+                                   probe), scores)
+        passes = 3
+    else:
+        masses, passes = _supplied(masses, ds, block_size, dev), 2
     return _scorer(ds, block_size, False, dev, scores, masses=masses,
-                   dis_key=dis_key, data_passes=3, chunk_blocks=C)
+                   dis_key=dis_key, data_passes=passes, chunk_blocks=C)
 
 
 # --------------------------------------------------------------------------
@@ -572,3 +614,161 @@ def _dis_plan_grouped(scorer: StreamScorer, m: int,
     a = torch.as_tensor(a_cells.reshape(T, nb).sum(axis=1), dtype=torch.int64,
                         device=dev)
     return DisPlan(S, w, a, masses.sum(dim=1))
+
+
+# --------------------------------------------------------------------------
+# Block masses over the ranks of a process group (rows split by rank)
+# --------------------------------------------------------------------------
+
+def _stacked_rows(ds: VFLDataset, lo: int, hi: int, widths, s: int,
+                  with_labels: bool, dev: torch.device) -> torch.Tensor:
+    """The (T, hi-lo, s) float32 slice ``ds.stacked(with_labels).blocks[:,
+    lo:hi]`` on ``dev``, built from the parts' rows [lo, hi) alone, so only
+    this slice is allocated: a host dataset assembles it in (pinned, when
+    ``dev`` is the card) host memory and copies it over once; a dataset on
+    ``dev`` is sliced there."""
+    pin = ds.device.type == "cpu" and dev.type == "cuda"
+    out = torch.zeros((ds.T, hi - lo, s), dtype=torch.float32,
+                      device=ds.device, pin_memory=pin)
+    for j, p in enumerate(ds.parts):
+        out[j, :, :p.shape[1]] = p[lo:hi]
+    if with_labels:
+        out[ds.T - 1, :, ds.dims[-1]] = ds.y[lo:hi]
+    if pin:
+        ds.staged_bytes += out.numel() * out.element_size()
+    return out.to(dev)
+
+
+def _check_shard_grid(n: int, D: int, bs: int, axis: str) -> None:
+    if n % D != 0 or (n // D) % bs != 0:
+        raise ValueError(
+            f"n={n} must shard evenly over {axis}={D} into bs={bs} blocks"
+        )
+
+
+def _shard_group(dev: torch.device):
+    """(group, D, rank) of the sharded table: the default process group
+    when one is initialised — the D the planner checks — else a world of
+    one (group None, no collective).  Raises when the group's backend
+    cannot take tensors on ``dev`` (NCCL takes CUDA tensors only): nothing
+    is copied across."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return None, 1, 0
+    group = dist.group.WORLD
+    backend = str(dist.get_backend(group))
+    if ":" in backend:                     # "cpu:gloo,cuda:nccl"
+        ok = dev.type in dict(b.split(":") for b in backend.split(","))
+    else:
+        ok = not (backend == "nccl" and dev.type != "cuda")
+    if not ok:
+        raise ValueError(
+            f"the process group's backend {backend!r} cannot reduce tensors "
+            f"on {dev}; build the table on a device the backend takes"
+        )
+    return group, dist.get_world_size(group), dist.get_rank(group)
+
+
+def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """SUM ``t`` over the group in place (a world of one: nothing to do)."""
+    if group is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    return t
+
+
+def _union(masses_loc: torch.Tensor, nb: int, r: int, group) -> torch.Tensor:
+    """The (T, nb) table from every rank's (T, nb_local) slice: written at
+    its rank's offset into zeros, then one all-reduce (the slices are
+    disjoint, so the sum adds zeros to each entry)."""
+    T, nb_local = masses_loc.shape
+    full = torch.zeros((T, nb), dtype=masses_loc.dtype, device=masses_loc.device)
+    full[:, r * nb_local:(r + 1) * nb_local] = masses_loc
+    return _all_reduce(full, group)
+
+
+def vrlr_block_masses_sharded(
+    ds: VFLDataset, block_size: int, *, rcond: float = 1e-6,
+    device: DeviceLike = "cuda",
+) -> torch.Tensor:
+    """VRLR's (T, nb) block-mass table with rows split over the ranks of a
+    default process group (a world of one when none is initialised).
+
+    Rank r computes its (T, n/D, s) shard's partial Gram (the
+    ``weighted_gram`` kernel with unit weights, one launch) — combined by
+    ONE all-reduce, the analogue of DIS round 1: O(T s^2) scalars, no row
+    moves — then scores its own rows (the ``leverage`` kernel, one
+    launch), clipped to [0, 1] plus 1/n, and writes its slice of the table;
+    a second all-reduce unions the disjoint slices.  Every reduction is a
+    fixed-order one, so a world of one without a group and with one give
+    the same bits.  Device memory is O(n/D * d).
+
+    Requires n divisible by D and the shard divisible by the block rows
+    (the block grid aligned to the shards).  The table equals
+    ``vrlr_stream_scorer(...).masses`` up to fp reduction order."""
+    dev = resolve_device(device)
+    nb, bs = ds.block_geometry(block_size)
+    T, n = ds.T, ds.n
+    if ds.y is None:
+        raise ValueError("vrlr requires labels at party T")
+    group, D, r = _shard_group(dev)
+    _check_shard_grid(n, D, bs, "world")
+    rows = n // D
+    widths, s = ds.stacked_widths(with_labels=True)
+    f = _stacked_rows(ds, r * rows, (r + 1) * rows, widths, s, True, dev)
+    G = _all_reduce(kops.weighted_gram(
+        f, torch.ones((rows,), dtype=torch.float32, device=dev)), group)
+    M = batched_gram_pinv(G, rcond)
+    sc = torch.clamp(kops.leverage(f, M), 0.0, 1.0) + 1.0 / n
+    del f
+    return _union(sc.reshape(T, rows // bs, bs).sum(dim=2), nb, r, group)
+
+
+def vkmc_block_masses_sharded(
+    ds: VFLDataset, block_size: int, *, key: rng.Key, k: int = 10,
+    alpha: float = 2.0, local_iters: int = 15, center_sample: int = 16384,
+    backend: str = "pallas", device: DeviceLike = "cuda",
+) -> torch.Tensor:
+    """VKMC's (T, nb) block-mass table with rows split over the ranks of a
+    default process group — the mirror of :func:`vrlr_block_masses_sharded` for
+    Algorithm 3.
+
+    The party-local centers come from :func:`vkmc_local_centers` on the
+    scorer's key chain.  Each rank assigns its (T, n/D, s) shard (the
+    ``kmeans_assign`` kernel, one launch), and the GLOBAL per-party
+    cluster sizes and costs — the (T, 2k) one-hot sums, VKMC's sufficient
+    statistic — are combined by ONE all-reduce; scores follow locally and a
+    second all-reduce unions the disjoint slices.  ``backend`` must match
+    the consuming scorer's: the centers come from an iterated Lloyd solve
+    whose fp order differs between the kernels and the plain versions.
+    With it matched, the table equals ``vkmc_stream_scorer(key,
+    ...).masses`` up to fp reduction order."""
+    use_kernel, dev = _setup(backend, device)
+    nb, bs = ds.block_geometry(block_size)
+    T, n = ds.T, ds.n
+    group, D, r = _shard_group(dev)
+    _check_shard_grid(n, D, bs, "world")
+    rows = n // D
+    widths, s = ds.stacked_widths(with_labels=False)
+    centers, _ = vkmc_local_centers(
+        key, ds, k=k, local_iters=local_iters, center_sample=center_sample,
+        use_kernel=use_kernel, device=dev)
+    f = _stacked_rows(ds, r * rows, (r + 1) * rows, widths, s, False, dev)
+    assign, d2 = kops.kmeans_assign(f, centers, use_kernel)        # (T, n/D)
+    del f
+    idx = assign.to(torch.int64)
+    onehot = (idx[..., None] == torch.arange(k, device=dev)).to(torch.float32)
+    stats = _all_reduce(torch.cat([onehot.sum(dim=1),
+                                   (onehot * d2[..., None]).sum(dim=1)], dim=1),
+                        group)                                     # (T, 2k)
+    del onehot
+    csize, ccost = stats[:, :k], stats[:, k:]
+    cost = torch.clamp_min(ccost.sum(dim=1), 1e-30)[:, None]
+    cs = torch.clamp_min(csize, 1.0)
+    cc_a = torch.gather(ccost, 1, idx)
+    cs_a = torch.gather(cs, 1, idx)
+    alpha = float(alpha)
+    sc = alpha * d2 / cost + alpha * cc_a / (cs_a * cost) + 2.0 * alpha / cs_a
+    return _union(sc.reshape(T, rows // bs, bs).sum(dim=2), nb, r, group)

@@ -419,6 +419,26 @@ class VFLDataset:
         y = None if self.y is None else self.y[idx]
         return VFLDataset([p[idx] for p in self.parts], y)
 
+    def select_parties(self, parties: Sequence[int]) -> "VFLDataset":
+        """The SAME rows restricted to a party subset — the surviving
+        federation of a degraded build (:mod:`repro_torch.core.faults`).
+        Labels survive only if the label holder (party T-1) is among
+        ``parties``; order follows ``parties`` (keep it sorted to preserve
+        the paper's party numbering).  The blocks are the same tensors, so
+        the subset stays on this dataset's device: in host memory for a
+        host-resident dataset, on the card for one there; they were
+        screened (or not) when this dataset was built."""
+        ids = [int(j) for j in parties]
+        if not ids:
+            raise ValueError("select_parties needs at least one party")
+        bad = [j for j in ids if not 0 <= j < self.T]
+        if bad:
+            raise ValueError(f"parties {bad} out of range [0, {self.T})")
+        if len(set(ids)) != len(ids):
+            raise ValueError(f"duplicate parties in {ids}")
+        y = self.y if (self.T - 1) in ids else None
+        return VFLDataset([self.parts[j] for j in ids], y, validate=False)
+
     @staticmethod
     def from_dense(X, y=None, T: int = 3, sizes: Optional[Sequence[int]] = None,
                    device: DeviceLike = "cuda") -> "VFLDataset":
