@@ -139,7 +139,31 @@ and never JAX or the JAX package ``repro``.  Phases, each fatal on failure:
    its ledger the base bill plus the ``retry/`` units exactly; ``degrade``
    with party 0 never answering and ``quarantine`` with party 0 poisoning
    its table on an unverifying wire, each receipt naming party 0 and the
-   survivors' draw bit for bit a build on ``select_parties([1, 2])``.
+   survivors' draw bit for bit a build on ``select_parties([1, 2])``; the
+   sharded ``vkmc`` build solves its local centers once (launches counted);
+12. checkpointed resume, the planner and engine failover, from the same
+   host copy: (a) pipelined ``vrlr`` and ``vkmc`` builds at block 16,384
+   (four superchunks of 8, prefetch on, m = 5000) crashed by a probe inside
+   the first pass, inside the mass pass and after the mass pass's last
+   superchunk, each rerun with its ``StreamCheckpoint`` bit for bit the
+   uninterrupted build (indices, weights, bill, ledger), with resumes, the
+   signature cleared, ``h2d_bytes`` the full build's less the skipped
+   superchunks' and launches less the skipped superchunks'; (b) the
+   planner's ``predicted_peak_bytes`` beside each engine's measured own
+   peak (materialized at phase 4's shape, streamed at blocks 65,536 and
+   16,384, pipelined at 65,536 and at 16,384 with prefetch on and off),
+   each prediction at or above it; (c) memory budgets at and one byte
+   below the model's values selecting materialized, pipelined, streamed
+   and streamed flagged, the pipelined and streamed auto builds equal bit
+   for bit, the host dataset planned onto the streaming engines,
+   ``codec="auto"`` under the bits of ``fp16`` and of ``int8_blockscale``
+   picking them as the reference's ladder walk does, a transported build's
+   realised bits within the prediction, and a repeated plan a cache hit;
+   (d) ``build_failover`` of the pipelined spec under a memory budget
+   between the streamed and pipelined builds' own peaks: the watchdog
+   trips, the streamed rung's coreset is the forced streamed build's bit
+   for bit and its ledger that build's bill plus a zero-unit
+   ``fallback/pipelined->streamed`` entry.
 
 Every path is driven with all five launch counters set to 0 just before
 it and read just after.  With the default seed, the drawn indices of
@@ -255,6 +279,11 @@ SHARD_BLOCK = 66_245
 # build
 PARENT_DIGESTS = {("vrlr", 1000): "76d59a6faebe9131", ("vrlr", 5000): "b1b04abcb57045c2",
                   ("vkmc", 1000): "2ffe1edfffb6b0e6", ("vkmc", 5000): "d22065e54e37e4d3"}
+# indices_sha256 of phase 11's sharded pipelined builds at --seed 0, recorded on
+# the card with two local-center solves per sharded vkmc build (PERF.md); the
+# one solve the build makes must keep these bits
+SHARDED_DIGESTS = {("vrlr", 1000): "21c82dce04bdf60a", ("vrlr", 5000): "816652e7c348dba2",
+                   ("vkmc", 1000): "aaaea2437f750c6a", ("vkmc", 5000): "0a1bbd81ea77c7a0"}
 
 
 def fail(msg: str) -> None:
@@ -1526,8 +1555,8 @@ def sharded_phase(torch, dev, seed, ds_host, ds, lam, launches, card, reset_coun
                              "kmeans_assign": 0, "kmeans_assign_update": 0,
                              "categorical": 1 + groups} if task == "vrlr" else
                             {"leverage": 0, "weighted_gram": 0, "kmeans_assign": 1 + groups,
-                             "kmeans_assign_update": 2 * T * LOCAL_ITERS + nch,
-                             "categorical": 2 * T * K_CLUSTERS + 1 + groups})
+                             "kmeans_assign_update": T * LOCAL_ITERS + nch,
+                             "categorical": T * K_CLUSTERS + 1 + groups})
                     if counts != want:
                         fail(f"sharded {task} m={m} ({world}): launches {counts}, counted "
                              f"{want} ({touched} touched blocks in {groups} groups)")
@@ -1543,6 +1572,9 @@ def sharded_phase(torch, dev, seed, ds_host, ds, lam, launches, card, reset_coun
                              f"{cs.comm_bits}, the schedule {bill.total} / {bill.total_bits}")
                     if cs.indices.shape != (m,) or not bool((cs.weights > 0).all()):
                         fail(f"sharded {task} m={m}: malformed coreset")
+                    if seed == 0 and digest(cs.indices) != SHARDED_DIGESTS[(task, m)]:
+                        fail(f"sharded {task} m={m}: indices_sha256 {digest(cs.indices)}, "
+                             f"recorded {SHARDED_DIGESTS[(task, m)]}")
                     builds[(world, task, m)] = cs
                     if world == "nccl":
                         if not same(cs, builds[("none", task, m)]):
@@ -1663,6 +1695,289 @@ def sharded_phase(torch, dev, seed, ds_host, ds, lam, launches, card, reset_coun
     log(f"phase 11 took {time.perf_counter() - phase_t0:.1f} s (" + ", ".join(
         f"{k} {v:.1f} s" for k, v in stage_s.items()) + f"); {card}")
     return errs
+
+
+def planner_phase(torch, dev, seed, ds_host, ds, launches, card, reset_counts, read_counts):
+    """Phase 12 from the host-resident copy ``ds_host`` of the main path's
+    data (``ds`` the same data on the card): (a) checkpointed resume of
+    pipelined builds at block 16,384, crashed at three points and rerun;
+    (b) the planner's memory model against each engine's measured own peak;
+    (c) auto plans under memory and bit budgets, and the plan cache; (d) the
+    failover from pipelined to streamed under a memory budget.  Adds its
+    counted builds to ``launches``; ``card`` is the card's name and power
+    limit."""
+    from repro_torch import rng
+    from repro_torch.core import (
+        CommLedger, CoresetPipeline, CoresetSpec, FaultPlan, PlanCache, StreamCheckpoint,
+        Transport)
+    from repro_torch.core.wire import CODEC_LADDER, predict_dis_bits
+
+    T, n = T_PARTIES, N_FULL
+    phase_t0 = time.perf_counter()
+    m = BUDGETS[-1]
+    C = 8
+    nb, bs = ds_host.block_geometry(PIPE_BLOCK)
+    nch = -(-nb // C)
+    vk_params = {"k": K_CLUSTERS, "alpha": ALPHA, "local_iters": LOCAL_ITERS,
+                 "center_sample": CENTER_SAMPLE}
+    keys = {task: rng.fold_in(rng.PRNGKey(seed + 600 + (task == "vkmc")), m)
+            for task in ("vrlr", "vkmc")}
+
+    def run(fn, data=ds_host):
+        """(result, seconds, launches, peak bytes above the start, staged bytes)."""
+        staged0 = data.staged_bytes
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        reset_counts()
+        for nm in launches:
+            launches[nm] += counts[nm]
+        return (out, secs, counts, torch.cuda.max_memory_allocated() - before,
+                data.staged_bytes - staged0)
+
+    def same(a, b):
+        return (torch.equal(a.indices, b.indices) and torch.equal(a.weights, b.weights)
+                and (a.comm_units, a.comm_bits) == (b.comm_units, b.comm_bits))
+
+    def chunk_bytes(s, done):
+        """Bytes staged by the first ``done`` superchunks of a pass."""
+        return sum(min(C, nb - c * C) for c in range(done)) * 4 * T * bs * s
+
+    class Bomb:
+        """A probe that raises at its ``at``-th call."""
+
+        def __init__(self, at):
+            self.at, self.calls = at, 0
+
+        def __call__(self):
+            self.calls += 1
+            if self.calls == self.at:
+                raise RuntimeError("killed mid-scan")
+
+    def spec_of(task, **kw):
+        return CoresetSpec(task=task, budgets=m, params={} if task == "vrlr" else vk_params,
+                           **kw)
+
+    # -- (a) checkpointed resume: pipelined at block 16,384 (4 superchunks of 8),
+    #    prefetch on, crashed inside the first pass, inside the mass pass and
+    #    after the mass pass's last superchunk, each rerun with its checkpoint
+    log(f"resume: block_size {PIPE_BLOCK} ({nb} blocks, {nch} superchunks of {C}), prefetch "
+        f"on, m={m}; a probe raises at its k-th call, the rerun takes the checkpoint")
+    t_stage = time.perf_counter()
+    full = {}
+    for task in ("vrlr", "vkmc"):
+        _, s = ds_host.stacked_widths(task == "vrlr")
+        spec = spec_of(task, engine="pipelined", block_size=PIPE_BLOCK, chunk_blocks=C,
+                       prefetch=True)
+        pipe = CoresetPipeline(ds_host)
+        led0 = CommLedger()
+        cs0, s0, counts0, peak0, h2d0 = run(lambda: pipe.build(spec, key=keys[task],
+                                                                ledger=led0))
+        full[task] = (cs0, counts0, peak0)
+        off = 1 if task == "vkmc" else 0         # vkmc probes once after its centers
+        first = "gram" if task == "vrlr" else "stats"
+        for where, at in ((f"inside the {first} pass", off + 2),
+                          ("inside the mass pass", off + nch + 2),
+                          ("at the mass pass's last superchunk", off + 2 * nch)):
+            ck = StreamCheckpoint()
+
+            def crash():
+                try:
+                    pipe.build(spec, key=keys[task], checkpoint=ck, probe=Bomb(at))
+                except RuntimeError as e:
+                    if "killed mid-scan" not in str(e):
+                        raise
+                else:
+                    fail(f"resume {task}: the probe at call {at} did not stop the build")
+
+            _, crash_s, _, _, _ = run(crash)
+            done_first, done_mass = min(at - off, nch), max(0, at - off - nch)
+            led = CommLedger()
+            cs, rerun_s, counts, _, h2d = run(lambda: pipe.build(
+                spec, key=keys[task], ledger=led, checkpoint=ck))
+            if not same(cs, cs0) or led.messages != led0.messages:
+                fail(f"resume {task} ({where}): the rerun differs from the uninterrupted "
+                     f"build")
+            if ck.resumes <= 0 or ck.signature is not None:
+                fail(f"resume {task} ({where}): resumes {ck.resumes}, signature "
+                     f"{ck.signature!r} after the rerun")
+            skipped = chunk_bytes(s, done_first) + chunk_bytes(s, done_mass)
+            if h2d != h2d0 - skipped:
+                fail(f"resume {task} ({where}): h2d_bytes {h2d}, the full build's {h2d0} "
+                     f"less {skipped} skipped")
+            want = dict(counts0)
+            if task == "vrlr":
+                want["weighted_gram"] -= done_first
+                want["leverage"] -= done_mass
+            else:
+                want["kmeans_assign_update"] -= done_first
+                want["kmeans_assign"] -= done_mass
+            if counts != want:
+                fail(f"resume {task} ({where}): rerun launches {counts}, counted {want}")
+            log(f"resume {task} m={m} crashed {where} (probe call {at}; {done_first} + "
+                f"{done_mass} superchunks saved): crash build_s={crash_s:.4f}, rerun "
+                f"build_s={rerun_s:.4f}, uninterrupted build_s={s0:.4f}; the rerun == the "
+                f"uninterrupted build bit for bit (indices, weights, bill, ledger; "
+                f"indices_sha256={digest(cs.indices)}), resumes {ck.resumes}, signature "
+                f"cleared, h2d_bytes {h2d} = {h2d0} - {skipped}, launches {counts}; {card}")
+    stage_s = {"resume (a)": time.perf_counter() - t_stage}
+
+    # -- (b) the memory model against each engine's own measured peak: the
+    #    materialized engine at phase 4's shape (the card dataset), streamed at
+    #    blocks 65,536 and 16,384, pipelined at 65,536 (one superchunk of 8) and
+    #    16,384 (prefetch on: (a)'s build; off) from the host copy
+    t_stage = time.perf_counter()
+    cases = [("materialized", ds, mm, dict(engine="materialized")) for mm in BUDGETS]
+    cases += [(label, ds_host, m, kw) for label, kw in (
+        (f"streamed {BLOCK_SIZE}", dict(engine="streamed", block_size=BLOCK_SIZE)),
+        (f"streamed {PIPE_BLOCK}", dict(engine="streamed", block_size=PIPE_BLOCK)),
+        (f"pipelined {BLOCK_SIZE}", dict(engine="pipelined", block_size=BLOCK_SIZE,
+                                         chunk_blocks=C, prefetch=True)),
+        (f"pipelined {PIPE_BLOCK} off", dict(engine="pipelined", block_size=PIPE_BLOCK,
+                                             chunk_blocks=C, prefetch=False)))]
+    rows, low, peaks, builds = [], [], {}, {}
+    for task in ("vrlr", "vkmc"):
+        for label, data, mb, kw in cases + [(f"pipelined {PIPE_BLOCK} on", ds_host, m, None)]:
+            if kw is None:                                 # (a)'s uninterrupted build
+                spec = spec_of(task, engine="pipelined", block_size=PIPE_BLOCK,
+                               chunk_blocks=C, prefetch=True)
+                cs, secs, counts, peak = full[task][0], None, full[task][1], full[task][2]
+            else:
+                params = {} if task == "vrlr" else dict(vk_params)
+                if label == "materialized":
+                    params.pop("center_sample", None)         # k-means on every row
+                spec = CoresetSpec(task=task, budgets=mb, params=params, **kw)
+                led = CommLedger()
+                cs, secs, counts, peak, _ = run(
+                    lambda: CoresetPipeline(data).build(spec, key=keys[task], ledger=led),
+                    data)
+                builds[(task, label)] = (cs, led)
+            pred = CoresetPipeline(data).plan(spec, dev).predicted_peak_bytes
+            name = f"{label}" + (f" m={mb}" if label == "materialized" else "")
+            peaks[(task, label)] = peak
+            rows.append(f"{task} {name}: predicted {pred} measured {peak} "
+                        f"ratio {pred / peak:.3f}"
+                        + ("" if secs is None else f" build_s={secs:.4f}"))
+            if pred < peak:
+                low.append(rows[-1])
+    log("memory model (the plan's predicted_peak_bytes against the build's own peak "
+        f"device memory, bytes; {card}):")
+    for r in rows:
+        log("  " + r)
+    if low:
+        fail("memory model: predictions below the measured peak: " + "; ".join(low))
+    stage_s["model (b)"] = time.perf_counter() - t_stage
+
+    # -- (c) auto plans: budgets between the model's values select each engine
+    #    in turn; the host-dataset rule; the codec under a bit budget, realised
+    #    bits within the prediction; a repeated plan is a cache hit
+    t_stage = time.perf_counter()
+    base = dict(task="vrlr", budgets=m, block_size=PIPE_BLOCK, chunk_blocks=C)
+    pipe = CoresetPipeline(ds)
+    mm = pipe.plan(CoresetSpec(**base), dev).memory_model
+    if not mm["streamed"] < mm["pipelined"] < mm["materialized"]:
+        fail(f"auto plan: the model does not order the engines: {mm}")
+    chosen = {}
+    for B, want in ((mm["materialized"], "materialized"),
+                    (mm["materialized"] - 1, "pipelined"),
+                    (mm["pipelined"], "pipelined"),
+                    (mm["pipelined"] - 1, "streamed"),
+                    (mm["streamed"] - 1, "streamed")):
+        ep = pipe.plan(CoresetSpec(memory_budget_bytes=B, **base), dev)
+        if ep.engine != want or ep.budget_exceeded != (B < mm["streamed"]):
+            fail(f"auto plan at memory_budget_bytes={B}: {ep.engine} "
+                 f"(exceeded {ep.budget_exceeded}), want {want}")
+        chosen.setdefault(want, ep)
+    auto = {e: run(lambda: pipe.build(chosen[e], key=keys["vrlr"]), ds)
+            for e in ("pipelined", "streamed")}
+    if not same(auto["pipelined"][0], auto["streamed"][0]):
+        fail("auto plan: the pipelined and streamed auto builds differ")
+    host_plan = CoresetPipeline(ds_host).plan(CoresetSpec(**base), dev)
+    host_tight = CoresetPipeline(ds_host).plan(
+        CoresetSpec(memory_budget_bytes=mm["pipelined"] - 1, **base), dev)
+    if (host_plan.engine, host_tight.engine) != ("pipelined", "streamed") or \
+            host_plan.fallback_chain != ("streamed",):
+        fail(f"auto plan, host dataset: {host_plan.engine} / {host_tight.engine}, chain "
+             f"{host_plan.fallback_chain}")
+    log(f"auto plan (vrlr m={m}, block_size {PIPE_BLOCK}, C={C}): model materialized "
+        f"{mm['materialized']} pipelined {mm['pipelined']} streamed {mm['streamed']} bytes; "
+        f"budgets at and one byte below each select materialized, pipelined, streamed, "
+        f"streamed (flagged); the pipelined and streamed auto builds equal bit for bit "
+        f"(build_s {auto['pipelined'][1]:.4f} / {auto['streamed'][1]:.4f}); the host "
+        f"dataset plans pipelined with no budget and streamed under one "
+        f"({'; '.join(host_plan.notes)})")
+    mat = dict(task="vrlr", budgets=m, engine="materialized")
+    for target in ("fp16", "int8_blockscale"):
+        bits = predict_dis_bits(T, m, n, target)
+        ep = pipe.plan(CoresetSpec(codec="auto", comm_budget_bits=bits, **mat), dev)
+        # the reference's walk: the first codec of the ladder whose bits fit
+        want = next(c for c in CODEC_LADDER if predict_dis_bits(T, m, n, c) <= bits)
+        if (ep.codec, ep.predicted_wire_bits, ep.comm_budget_exceeded) != (want, bits, False):
+            fail(f"codec auto under {bits} bits: {ep.codec} {ep.predicted_wire_bits}, "
+                 f"want {want}")
+        led = CommLedger()
+        cs, secs, _, _, _ = run(lambda: pipe.build(
+            ep, key=keys["vrlr"], ledger=led, transport=Transport(FaultPlan.none())), ds)
+        if not cs.comm_bits <= ep.predicted_wire_bits or cs.comm_bits != led.total_bits:
+            fail(f"codec {ep.codec}: realised {cs.comm_bits} bits, predicted "
+                 f"{ep.predicted_wire_bits}")
+        log(f"codec auto (materialized vrlr m={m}) under comm_budget_bits={bits} (raw_fp32 "
+            f"predicts {predict_dis_bits(T, m, n, 'raw_fp32')}): {ep.codec}, as the "
+            f"reference's ladder walk; transported build realised {cs.comm_bits} <= "
+            f"{ep.predicted_wire_bits} predicted bits, build_s={secs:.4f}")
+    cache = PlanCache()
+    cached = CoresetPipeline(ds_host, plan_cache=cache)
+    p1 = cached.plan(spec_of("vrlr", block_size=PIPE_BLOCK), dev)
+    p2 = cached.plan(spec_of("vrlr", block_size=PIPE_BLOCK), dev)
+    p3 = cached.plan(spec_of("vrlr", block_size=PIPE_BLOCK), "cpu")
+    if p2 is not p1 or (cache.hits, cache.misses) != (1, 2) or p3.device.type != "cpu":
+        fail(f"plan cache: hits {cache.hits} misses {cache.misses}")
+    log(f"plan cache: the second plan of the same spec is a hit, a CPU plan of it a miss "
+        f"({cache.stats()})")
+    stage_s["auto plan (c)"] = time.perf_counter() - t_stage
+
+    # -- (d) failover: a pipelined spec at block 16,384 under a memory budget
+    #    between the streamed and the pipelined build's own peaks, checked
+    #    by the watchdog at every probe, falls back to streamed
+    t_stage = time.perf_counter()
+    for task in ("vrlr", "vkmc"):
+        _, s = ds_host.stacked_widths(task == "vrlr")
+        spec = spec_of(task, engine="pipelined", block_size=PIPE_BLOCK, chunk_blocks=C,
+                       prefetch=True)
+        streamed_peak = peaks[(task, f"streamed {PIPE_BLOCK}")]
+        pipelined_peak = peaks[(task, f"pipelined {PIPE_BLOCK} on")]
+        budget = streamed_peak + C * 4 * T * bs * s // 2
+        if not streamed_peak < budget < pipelined_peak:
+            fail(f"failover {task}: no budget between the streamed and pipelined peaks")
+        ref, ref_led = builds[(task, f"streamed {PIPE_BLOCK}")]
+        led = CommLedger()
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_allocated()
+        out, secs, counts, _, _ = run(lambda: CoresetPipeline(ds_host).build_failover(
+            spec, key=keys[task], ledger=led, memory_budget_bytes=allocated + budget))
+        fb = {t: u for t, u in led.by_tag().items() if t.startswith("fallback/")}
+        rest = {t: u for t, u in led.by_tag().items() if not t.startswith("fallback/")}
+        if out.fallback != "pipelined->streamed" or \
+                "MemoryBudgetExceeded" not in out.attempts[0].error:
+            fail(f"failover {task}: {out.fallback}, attempts {out.attempts}")
+        if not same(out.coreset, ref) or rest != ref_led.by_tag() or \
+                fb != {"fallback/pipelined->streamed": 0} or led.total != ref_led.total:
+            fail(f"failover {task}: the build or its ledger differs from the forced "
+                 f"streamed build's (fallback entries {fb})")
+        log(f"failover {task} m={m}: memory_budget_bytes = allocated + {budget} (streamed "
+            f"peak {streamed_peak}, pipelined {pipelined_peak}): "
+            f"{out.fallback} ({out.attempts[0].error}); == the forced streamed build bit for "
+            f"bit, ledger its bill {ref_led.total} + fallback/pipelined->streamed 0; "
+            f"build_s={secs:.4f}, launches {counts}; {card}")
+    stage_s["failover (d)"] = time.perf_counter() - t_stage
+    log(f"phase 12 took {time.perf_counter() - phase_t0:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in stage_s.items()) + f"); {card}")
 
 
 def main() -> None:
@@ -2681,8 +2996,16 @@ def main() -> None:
     ka_err = max(ka_err, errs["kmeans_assign"])
 
     # ---- 11. sharded masses and the fault seam -----------------------------------
+    before = dict(launches)
     errs = sharded_phase(torch, dev, args.seed, ds_host, ds, lam, launches, smi[0],
                          reset_counts, read_counts)
+    log(f"phase 11 launches: {({nm: launches[nm] - before[nm] for nm in launches})}")
+
+    # ---- 12. checkpointed resume, the planner and engine failover ---------------
+    before = dict(launches)
+    planner_phase(torch, dev, args.seed, ds_host, ds, launches, smi[0], reset_counts,
+                  read_counts)
+    log(f"phase 12 launches: {({nm: launches[nm] - before[nm] for nm in launches})}")
     del ds_host
     lev_err = max(lev_err, errs["leverage"])
     gram_err = max(gram_err, errs["weighted_gram"])

@@ -18,7 +18,11 @@ and codecs) under the spec's ``fault_policy``:
     (``CORESET_TASKS``); shipped here: ``vrlr`` (Algorithm 2), ``vkmc``
     (Algorithm 3) and ``uniform`` (the U-* baseline).
   * :class:`CoresetPipeline` — ``build(spec)`` compiles a
-    :class:`~repro_torch.core.plan.CoresetSpec` and runs it.
+    :class:`~repro_torch.core.plan.CoresetSpec` (through a
+    :class:`~repro_torch.core.plan.PlanCache` when it has one) and runs it;
+    ``build(checkpoint=)`` makes the streaming engines' passes resumable
+    per superchunk; ``build_failover`` walks the plan's engine ladder when
+    an engine crashes or breaches its memory budget.
   * :func:`build_coreset` — the shim over a forced materialized spec;
     :func:`build_coreset_jit` — the same with ``jit=True``;
     :func:`build_coresets_batched` — the shim over a batched one, which
@@ -26,10 +30,6 @@ and codecs) under the spec's ``fault_policy``:
     :func:`build_coreset_streaming` — the shim over a pipelined one,
     which the planner lowers to the streamed engine at
     ``chunk_blocks=1, prefetch=False``.
-
-Not here yet: the streaming engines' checkpointed resume
-(``build(checkpoint=)``, ROADMAP.md queue 1, item 14's second half) and
-the planner's ``codec="auto"`` and ``comm_budget_bits`` (item 15).
 
 Key choreography matches the reference: the ``vrlr`` score function
 passes its key through untouched; ``vkmc`` splits it once per party (the
@@ -51,9 +51,11 @@ from repro_torch.core.comm import CommLedger, CommSchedule
 from repro_torch.core.coreset import Coreset
 from repro_torch.core.dis import DisPlan, dis_plan_full, split_uploads, uniform_plan
 from repro_torch.core.faults import (
+    DeadlineExceeded,
     DegradedBuild,
     DroppedParty,
     PartyUnavailable,
+    StreamCheckpoint,
     Transport,
 )
 from repro_torch.core.integrity import (
@@ -66,12 +68,15 @@ from repro_torch.core.plan import (
     SCORE_BACKENDS,
     CoresetSpec,
     ExecutionPlan,
+    MemoryWatchdog,
+    PlanCache,
     compile_plan,
 )
 from repro_torch.core.streaming import (
     dis_plan_streamed_batched,
     make_stream_scorer,
     vkmc_block_masses_sharded,
+    vkmc_local_centers,
     vrlr_block_masses_sharded,
     with_masses,
 )
@@ -789,14 +794,15 @@ def _exec_batched(
 
 def _sharded_mass_table(task_name: str, key, ds: VFLDataset,
                         block_size: int, backend: str, params: dict,
-                        device: torch.device) -> torch.Tensor:
+                        device: torch.device,
+                        centers: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The (T, nb) block-mass table over the ranks of the default process
     group (a world of one without one): see
     :func:`repro_torch.core.streaming.vrlr_block_masses_sharded`.  The
     per-row scores the sampler later recomputes come from the scorer's own
-    block path; ``backend`` is forwarded so vkmc's center solve runs the
-    SAME kernels as the scorer's, and the table matches the scorer's up to
-    fp reduction order."""
+    block path; vkmc's ``centers`` are the ones the scorer is handed (one
+    solve for both, on the same key and kernels), so the table matches the
+    scorer's up to fp reduction order."""
     if task_name == "vrlr":
         kw = {k: v for k, v in params.items() if k == "rcond"}
         return vrlr_block_masses_sharded(ds, block_size, device=device, **kw)
@@ -804,7 +810,8 @@ def _sharded_mass_table(task_name: str, key, ds: VFLDataset,
         kw = {k: v for k, v in params.items()
               if k in ("k", "alpha", "local_iters", "center_sample")}
         return vkmc_block_masses_sharded(ds, block_size, key=key,
-                                         backend=backend, device=device, **kw)
+                                         backend=backend, device=device,
+                                         centers=centers, **kw)
     raise ValueError(
         f"sharded_masses supports tasks ('vrlr', 'vkmc'), got {task_name!r}"
     )
@@ -816,7 +823,7 @@ def _exec_streaming(
     block_size: int, chunk_blocks: int, prefetch: bool, params: dict,
     device: torch.device, sharded_masses: bool = False,
     transport: Optional[Transport] = None, fault_policy: str = "fail",
-    codec: str = "raw_fp32",
+    codec: str = "raw_fp32", checkpoint: Optional[StreamCheckpoint] = None,
 ) -> Coreset:
     """The streamed and pipelined engines: block-scan scoring +
     hierarchical (party, block) DIS on ``device``, from ``ds`` on the CPU
@@ -833,7 +840,16 @@ def _exec_streaming(
     ``degrade`` drops a party before any pass over the data), the block
     table under envelopes, and a quarantine rebuilds the scorer — and the
     sharded table — over the survivors.  Without one the exact per-round
-    bill is recorded on ``ledger``."""
+    bill is recorded on ``ledger``.
+
+    ``checkpoint`` (a :class:`~repro_torch.core.faults.StreamCheckpoint`)
+    is bound to this build's signature (task, geometry, knobs, m and the
+    key's words) and makes the scorer's passes resumable per superchunk:
+    rerun with the same arguments, a crashed build restores the last
+    completed superchunk's accumulators and draws what an uninterrupted
+    build draws.  It is cleared after the draw.  With ``sharded_masses``
+    and ``vkmc`` the party-local centers are solved once, for the table
+    and the scorer."""
     if spec.needs_labels and ds.y is None:
         raise ValueError(f"{spec.name} requires labels at party T")
     if spec.score_fn is None:
@@ -851,16 +867,30 @@ def _exec_streaming(
             spec, ds, transport, ledger, fault_policy, payload=r1_payload)
 
     def _build_scorer(eff: VFLDataset):
-        masses = None
+        masses = centers = None
+        kw = dict(params)
         if sharded_masses:
             # task/backend compatibility was validated by compile_plan —
             # every path into this executor goes through the planner
+            if spec.name == "vkmc":
+                centers, _ = vkmc_local_centers(
+                    key, eff, use_kernel=_use_kernel(backend), device=device,
+                    **{k: v for k, v in params.items()
+                       if k in ("k", "local_iters", "center_sample")})
+                kw["centers"] = centers
             masses = _sharded_mass_table(spec.name, key, eff, block_size,
-                                         backend, params, device)
+                                         backend, params, device, centers)
+        if checkpoint is not None:
+            checkpoint.bind((
+                spec.name, eff.n, eff.dims, eff.y is not None, int(block_size),
+                int(chunk_blocks), bool(prefetch), backend,
+                tuple(sorted(params.items())), int(m),
+                tuple(key.cpu().tolist()),
+            ))
         return make_stream_scorer(spec.name, key, eff, int(block_size), backend,
                                   probe=probe, device=device,
                                   chunk_blocks=chunk_blocks, prefetch=prefetch,
-                                  masses=masses, **params)
+                                  masses=masses, ckpt=checkpoint, **kw)
 
     scorer = _build_scorer(eff_ds)
     ship_units = ship_bits = 0
@@ -881,6 +911,8 @@ def _exec_streaming(
     if not bool(scorer.masses.sum() > 0):
         raise ValueError("DIS requires a positive total score")
     plan = dis_plan_streamed_batched(scorer, m, probe=probe)
+    if checkpoint is not None:
+        checkpoint.clear()            # the build completed; its state is stale
     if transport is not None:
         return _delivered_coreset(plan, m, ds.T, transport, ledger,
                                   fault_policy, codec, alive, degraded, health,
@@ -896,14 +928,22 @@ def _exec_streaming(
 class CoresetPipeline:
     """The declarative entry point: ``build(spec)`` compiles the spec into
     an :class:`~repro_torch.core.plan.ExecutionPlan` and runs its engine.
-    ``build`` also accepts a plan pre-compiled for its dataset and device."""
+    ``build`` also accepts a plan pre-compiled for its dataset and device.
+
+    ``plan_cache`` (a :class:`~repro_torch.core.plan.PlanCache`) memoizes
+    ``plan(spec, device)`` by (task, geometry, devices, knobs): the
+    serving layer's seam, where one cache shared across tenants makes a
+    repeated shape skip compilation."""
 
     ds: VFLDataset
+    plan_cache: Optional[PlanCache] = None
 
     def plan(self, spec: CoresetSpec,
              device: Optional[DeviceLike] = None) -> ExecutionPlan:
         """``spec`` compiled for a build on ``device`` (default: where the
         dataset lives).  ``build`` runs the plan only on that device."""
+        if self.plan_cache is not None:
+            return self.plan_cache.get(spec, self.ds, device)
         return compile_plan(spec, self.ds, device)
 
     def build(
@@ -915,6 +955,7 @@ class CoresetPipeline:
         ledger: Optional[CommLedger] = None,
         probe: Optional[Callable[[], None]] = None,
         transport: Optional[Transport] = None,
+        checkpoint: Optional[StreamCheckpoint] = None,
         device: DeviceLike = "cuda",
     ) -> Union[Coreset, BatchedCoresets]:
         """Build per the (compiled) spec on ``device`` — the card unless
@@ -935,7 +976,11 @@ class CoresetPipeline:
         delivers the protocol rounds through the party fault seam,
         honouring ``spec.fault_policy``; with no transport — or a null
         fault plan — every engine's draws and ledger entries are bit for
-        bit a transportless build's."""
+        bit a transportless build's.  ``checkpoint`` (a
+        :class:`~repro_torch.core.faults.StreamCheckpoint`) makes the
+        streamed and pipelined engines' passes resumable per superchunk:
+        rerun with it, a crashed build finishes bit for bit the
+        uninterrupted one."""
         dev = resolve_device(device)
         if isinstance(spec, ExecutionPlan):
             ep = spec
@@ -968,10 +1013,11 @@ class CoresetPipeline:
         cspec = ep.spec
         task = get_task(cspec.task)
         if ep.engine == "batched":
-            if transport is not None:
+            if transport is not None or checkpoint is not None:
                 raise ValueError(
                     "the batched engine bills its cells lazily; transport "
-                    "delivery applies to single-cell engines only"
+                    "delivery and checkpointed resume apply to single-cell "
+                    "engines only"
                 )
             if keys is None:
                 if key is None:
@@ -988,7 +1034,13 @@ class CoresetPipeline:
                                    dev, sharded_masses=cspec.sharded_masses,
                                    transport=transport,
                                    fault_policy=cspec.fault_policy,
-                                   codec=cspec.codec)
+                                   codec=ep.codec, checkpoint=checkpoint)
+        if checkpoint is not None:
+            raise ValueError(
+                "checkpointed resume is a streamed/pipelined-engine "
+                "feature; the materialized engine has no superchunk "
+                "passes to checkpoint"
+            )
         if cspec.jit and transport is not None:
             raise ValueError(
                 "the fused jit path cannot deliver per-round schedules "
@@ -999,7 +1051,144 @@ class CoresetPipeline:
                                   ep.backend, ledger, cspec.params,
                                   fused=cspec.jit, transport=transport,
                                   fault_policy=cspec.fault_policy,
-                                  codec=cspec.codec)
+                                  codec=ep.codec)
+
+    def build_failover(
+        self,
+        spec: CoresetSpec,
+        *,
+        key: rng.Key,
+        ledger: Optional[CommLedger] = None,
+        probe: Optional[Callable[[], None]] = None,
+        transport: Optional[Transport] = None,
+        checkpoint: Optional[StreamCheckpoint] = None,
+        memory_budget_bytes: Optional[int] = None,
+        device: DeviceLike = "cuda",
+    ) -> "FailoverOutcome":
+        """:meth:`build` with the plan's engine failover ladder armed.
+
+        Runs the plan's engine under a
+        :class:`~repro_torch.core.plan.MemoryWatchdog` of ``device`` when
+        ``memory_budget_bytes`` is given (checked at every probe of the
+        streaming engines and once after the build; it reads the whole
+        device, process-wide); a breach or an engine crash retries once on
+        each remaining rung of ``plan.fallback_chain`` (materialized ->
+        pipelined -> streamed).  The last rung runs without the watchdog:
+        streamed is the minimum-footprint engine.  Every rung runs on
+        ``device`` with the same kernels; a kernel that fails to build or
+        launch is an engine crash like any other, recorded in
+        ``attempts`` and in the winning plan's ``notes``.
+
+        Errors that do not depend on the engine propagate instead of
+        burning rungs: :exc:`~repro_torch.core.faults.DeadlineExceeded`
+        (the caller's time budget), :exc:`PartyUnavailable` and
+        :exc:`IntegrityError` (party-side; a cheaper engine talks to the
+        same parties), and ``ValueError`` (spec and geometry validation).
+
+        Each failed attempt is rolled back to a ``ledger.mark()``, then a
+        zero-unit ``fallback/<from>-><to>`` entry records the switch, so
+        the ledger is the winning engine's bill plus that marker.  The
+        checkpoint goes to streaming rungs only; its signature carries the
+        engine's knobs, so a rung never resumes another's state.
+        """
+        first = self.plan(spec, device)
+        chain = (first.engine,) + first.fallback_chain
+        watchdog = (None if memory_budget_bytes is None
+                    else MemoryWatchdog(memory_budget_bytes, first.device))
+        attempts = []
+        tried = set()
+        ep = first
+        for rung, engine in enumerate(chain):
+            if engine in tried:
+                continue
+            if rung > 0:
+                # jit is a materialized/batched-only flag, never valid on
+                # the rungs below
+                ep = self.plan(dataclasses.replace(spec, engine=engine,
+                                                   jit=False), device)
+                if ep.engine in tried:     # pipelined may lower to streamed
+                    continue
+            tried.add(ep.engine)
+            last_rung = all(e in tried for e in chain[rung + 1:])
+            wd = None if last_rung else watchdog
+            mark = None if ledger is None else ledger.mark()
+            ckpt = (checkpoint if ep.engine in ("streamed", "pipelined")
+                    else None)
+            try:
+                cs = self.build(ep, key=key, ledger=ledger,
+                                probe=_compose_probes(probe, wd),
+                                transport=transport, checkpoint=ckpt,
+                                device=device)
+                if wd is not None:
+                    wd.check()     # the materialized engine has no probes
+            except (DeadlineExceeded, PartyUnavailable, IntegrityError,
+                    ValueError):
+                if ledger is not None:
+                    ledger.rollback(mark)
+                raise
+            except Exception as e:
+                if ledger is not None:
+                    ledger.rollback(mark)
+                attempts.append(FailoverAttempt(
+                    engine=ep.engine, error=f"{type(e).__name__}: {e}"))
+                if last_rung:
+                    raise
+                continue
+            if attempts:
+                trail = " -> ".join([a.engine for a in attempts] + [ep.engine])
+                ep = dataclasses.replace(ep, notes=ep.notes + (
+                    f"failover: {trail} ({attempts[-1].error})",))
+                if ledger is not None:
+                    ledger.send(f"fallback/{attempts[-1].engine}->{ep.engine}",
+                                "server", "server", 0)
+            return FailoverOutcome(coreset=cs, plan=ep,
+                                   attempts=tuple(attempts))
+        raise RuntimeError("unreachable: failover chain exhausted silently")
+
+
+def _compose_probes(*fns) -> Optional[Callable[[], None]]:
+    """Chain probes (the caller's deadline check, the memory watchdog) into
+    one hook; None entries drop out."""
+    live = [f for f in fns if f is not None]
+    if not live:
+        return None
+    if len(live) == 1:
+        return live[0]
+
+    def probe() -> None:
+        for f in live:
+            f()
+    return probe
+
+
+@dataclasses.dataclass(frozen=True)
+class FailoverAttempt:
+    """One failed rung of the ladder: which engine, what stopped it."""
+
+    engine: str
+    error: str
+
+
+@dataclasses.dataclass(frozen=True)
+class FailoverOutcome:
+    """Result of :meth:`CoresetPipeline.build_failover`: the coreset, the
+    plan that produced it (with any failover note appended), and the failed
+    attempts in ladder order (empty when the first engine succeeded)."""
+
+    coreset: Coreset
+    plan: ExecutionPlan
+    attempts: Tuple[FailoverAttempt, ...] = ()
+
+    @property
+    def engine(self) -> str:
+        return self.plan.engine
+
+    @property
+    def fallback(self) -> Optional[str]:
+        """``"<first failed>-><winner>"`` when the ladder fired, else None."""
+        if not self.attempts:
+            return None
+        return f"{self.attempts[0].engine}->{self.plan.engine}"
 
 
 def build_coreset(

@@ -1,5 +1,5 @@
 """Party fault model and the transport seam: fault-tolerant VFL rounds
-(port of :mod:`repro.core.faults`, but for ``StreamCheckpoint``).
+(port of :mod:`repro.core.faults`).
 
 Every protocol assumed the paper's idealized network: all T parties
 answer every round instantly and correctly.  This module is the seam
@@ -27,13 +27,13 @@ faults are injected through:
     its retries raises under ``fault_policy="fail"`` or ``"retry"``; under
     ``"degrade"`` the scoring round drops it, the build continues over the
     surviving feature slices, and the coreset carries a receipt.
+  * :class:`StreamCheckpoint` — the streaming engines' per-superchunk
+    resume state: a crashed build rerun with the same checkpoint continues
+    each pass where it died and draws what an uninterrupted build draws.
 
 Everything here is host code on numpy payloads.  Simulated time: the
 transport never sleeps — delays, timeouts and backoff accumulate in
 ``TransportStats.sim_time_s`` (and advance a bound :class:`Clock`).
-
-Not here yet: the per-superchunk ``StreamCheckpoint`` of the streaming
-engines (ROADMAP.md queue 1, item 14's second half).
 """
 
 from __future__ import annotations
@@ -44,11 +44,13 @@ import zlib
 from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
+import torch
 
 from repro_torch import rng
 from repro_torch.core.comm import CommLedger, CommSchedule
 from repro_torch.core.integrity import WireEnvelope
 from repro_torch.core.wire import UNIT_BITS, get_codec
+from repro_torch.device import DeviceLike, resolve_device
 
 FAULT_POLICIES = ("fail", "retry", "degrade", "quarantine")
 
@@ -758,3 +760,71 @@ def deliver_or_record(
                               bits_base=schedule.total_bits)
     return transport.deliver(schedule, ledger, max_retries=max_retries,
                              drop_on_exhaust=drop_on_exhaust)
+
+
+# --------------------------------------------------------------------------
+# StreamCheckpoint: per-superchunk resume state for the streaming engines
+# --------------------------------------------------------------------------
+
+def _to_host(carry):
+    """``carry`` (a tensor or a tuple of them) as host numpy copies."""
+    if isinstance(carry, tuple):
+        return tuple(_to_host(c) for c in carry)
+    return np.array(carry.detach().cpu())
+
+
+def _to_device(carry, dev: torch.device):
+    """A saved carry as float32 tensors on ``dev``, bit for bit."""
+    if isinstance(carry, tuple):
+        return tuple(_to_device(c, dev) for c in carry)
+    return torch.from_numpy(carry).to(device=dev, dtype=torch.float32, copy=True)
+
+
+class StreamCheckpoint:
+    """Per-superchunk checkpoint of one streamed or pipelined build.
+
+    The streaming scorers' scan passes are folds over superchunks: saving
+    ``(chunks_done, accumulator)`` after every superchunk makes the build
+    resumable.  A rerun restores the accumulator bit for bit, continues the
+    fold at ``chunks_done``, and every later value (mass table, scores, DIS
+    draws) is the uninterrupted build's, because the scan consumes no key:
+    the threefry chain is a function of the input key alone.
+
+    ``bind(signature)`` ties the checkpoint to one build's identity (task,
+    geometry, knobs, the key's words); a new signature discards stale
+    state, so one long-lived store per tenant is safe.  Carries are copied
+    to host numpy on :meth:`save`, so they outlive the device, and come
+    back as float32 tensors on the build's device on :meth:`load`.  The
+    phases are the scorers' passes (``gram`` / ``stats`` / ``mass``).
+    """
+
+    def __init__(self) -> None:
+        self.signature: Optional[tuple] = None
+        self._phases: Dict[str, Tuple[int, Any]] = {}
+        self.saves = 0
+        self.resumes = 0
+
+    def bind(self, signature: tuple) -> None:
+        if self.signature != signature:
+            self.signature = signature
+            self._phases.clear()
+
+    def save(self, phase: str, chunks_done: int, carry: Any) -> None:
+        self._phases[phase] = (int(chunks_done), _to_host(carry))
+        self.saves += 1
+
+    def load(self, phase: str, device: DeviceLike = "cuda"
+             ) -> Optional[Tuple[int, Any]]:
+        """``(chunks_done, carry on device)`` of ``phase``, or None."""
+        saved = self._phases.get(phase)
+        if saved is None:
+            return None
+        self.resumes += 1
+        return saved[0], _to_device(saved[1], resolve_device(device))
+
+    def clear(self) -> None:
+        self.signature = None
+        self._phases.clear()
+
+    def __contains__(self, phase: str) -> bool:
+        return phase in self._phases

@@ -46,9 +46,13 @@ at any n.
     [r n/D, (r+1) n/D) as one (T, n/D, s) shard, with two ``all_reduce``
     calls (the reference's two psums over its ``data`` mesh axis).  A
     scorer given such a table (``masses=``) skips its own mass pass.
-
-Not here yet: the per-superchunk checkpoint (``ckpt``, ROADMAP.md queue 1,
-item 14's second half).
+  * **Checkpointed resume** (``ckpt=``, a bound
+    :class:`~repro_torch.core.faults.StreamCheckpoint`): every pass saves
+    its accumulator and the number of superchunks done after each
+    superchunk, and a rerun with the same checkpoint restores it and
+    starts the scan at the first superchunk not done, so its draws are the
+    uninterrupted build's bit for bit.  Without one the passes take no
+    host copy.
 """
 
 from __future__ import annotations
@@ -61,6 +65,7 @@ import torch
 
 from repro_torch import rng
 from repro_torch.core.dis import DisPlan, _key_chain
+from repro_torch.core.faults import StreamCheckpoint
 from repro_torch.core.plan import SCORE_BACKENDS
 from repro_torch.core.sensitivity import batched_gram_pinv, kmeans_update, norm_scores
 from repro_torch.core.vfl import VFLDataset
@@ -125,6 +130,7 @@ def make_stream_scorer(
     chunk_blocks: int = 1,
     prefetch: bool = False,
     masses: Optional[torch.Tensor] = None,
+    ckpt: Optional[StreamCheckpoint] = None,
     **params,
 ) -> StreamScorer:
     """Build the task's :class:`StreamScorer` on ``device`` (the card
@@ -137,7 +143,9 @@ def make_stream_scorer(
     ``masses`` supplies the (T, nb) block-mass table (the sharded one,
     :func:`vrlr_block_masses_sharded` / :func:`vkmc_block_masses_sharded`):
     the factory skips its own mass pass, while the per-row scores the
-    redraw recomputes still come from the scorer's own state."""
+    redraw recomputes still come from the scorer's own state.  ``ckpt``
+    (a bound :class:`~repro_torch.core.faults.StreamCheckpoint`) makes
+    every pass resumable per superchunk."""
     factory = STREAM_SCORERS.get(name)
     if factory is None:
         raise ValueError(
@@ -146,7 +154,7 @@ def make_stream_scorer(
         )
     return factory(key, ds, block_size, backend, probe=probe, device=device,
                    chunk_blocks=chunk_blocks, prefetch=prefetch, masses=masses,
-                   **params)
+                   ckpt=ckpt, **params)
 
 
 def with_masses(scorer: StreamScorer, masses) -> StreamScorer:
@@ -165,6 +173,22 @@ def with_masses(scorer: StreamScorer, masses) -> StreamScorer:
 
 def _noop() -> None:
     return None
+
+
+def _ckpt_load(ckpt: Optional[StreamCheckpoint], phase: str, dev: torch.device):
+    """(superchunks done, restored carry or None) of one pass.  A pass that
+    completed resumes past its last superchunk: its loop body never runs
+    again and the carry is its final accumulator."""
+    if ckpt is None:
+        return 0, None
+    saved = ckpt.load(phase, dev)
+    return (0, None) if saved is None else saved
+
+
+def _ckpt_save(ckpt: Optional[StreamCheckpoint], phase: str, done: int,
+               carry) -> None:
+    if ckpt is not None:
+        ckpt.save(phase, done, carry)
 
 
 def _supplied(masses, ds: VFLDataset, block_size: int,
@@ -222,15 +246,16 @@ def _row_weights(ok: Optional[torch.Tensor], shape, device) -> torch.Tensor:
 
 
 def _scan(ds: VFLDataset, block_size: int, with_labels: bool, C: int,
-          prefetch: bool, dev: torch.device, probe):
-    """One pass over the dataset: ``(chunk (count, T, bs, s), row-valid
-    masks or None)`` for each superchunk of C blocks (one block at a time
-    when C is 1), ``probe`` after each.  The pass drops its references to a
-    chunk before the next one is staged; so must the consumer
-    (``del chunk``)."""
+          prefetch: bool, dev: torch.device, probe, start_chunk: int = 0):
+    """One pass over the dataset from superchunk ``start_chunk`` on:
+    ``(chunk (count, T, bs, s), row-valid masks or None)`` for each
+    superchunk of C blocks (one block at a time when C is 1), ``probe``
+    after each.  The pass drops its references to a chunk before the next
+    one is staged; so must the consumer (``del chunk``)."""
     _, bs = ds.block_geometry(block_size)
     for b0, chunk, _ in ds.blocks_prefetched(block_size, with_labels, C,
-                                             prefetch, device=dev):
+                                             prefetch, device=dev,
+                                             start_chunk=start_chunk):
         ok = _rows_ok(b0, chunk.shape[0], bs, ds.n, dev)
         yield chunk, ok
         del chunk, ok
@@ -251,14 +276,24 @@ def _block_masses(sc: torch.Tensor) -> torch.Tensor:
     return torch.stack(cols, dim=1)
 
 
-def _mass_table(scan, scores) -> torch.Tensor:
+def _mass_table(ds: VFLDataset, block_size: int, with_labels: bool, C: int,
+                prefetch: bool, dev: torch.device, probe, scores,
+                ckpt: Optional[StreamCheckpoint] = None) -> torch.Tensor:
     """The (T, nb) block-mass table from one pass: ``scores(chunk, ok)``
-    scores a superchunk, one launch of each kernel."""
-    cols = []
-    for chunk, ok in scan:
+    scores a superchunk, one launch of each kernel.  Checkpointed as the
+    ``mass`` phase: the columns so far after every superchunk."""
+    start, saved = _ckpt_load(ckpt, "mass", dev)
+    cols = [] if saved is None else list(saved)
+    # a counter, not enumerate: its reused result tuple would keep the last
+    # chunk alive while the next one is staged (so in every pass below)
+    done = start
+    for chunk, ok in _scan(ds, block_size, with_labels, C, prefetch, dev, probe,
+                           start):
         sc = scores(chunk, ok)
         del chunk          # drop the slot before the next one is staged
         cols.append(_block_masses(sc))
+        done += 1
+        _ckpt_save(ckpt, "mass", done, tuple(cols))
     return torch.cat(cols, dim=1)
 
 
@@ -288,13 +323,14 @@ def _norm_scores(X: torch.Tensor, ok: Optional[torch.Tensor],
 
 def _norm_scorer(key, ds: VFLDataset, block_size: int, with_labels: bool,
                  probe, dev: torch.device, C: int, prefetch: bool,
-                 masses: Optional[torch.Tensor]) -> StreamScorer:
+                 masses: Optional[torch.Tensor],
+                 ckpt: Optional[StreamCheckpoint]) -> StreamScorer:
     def scores(X, ok):
         return _norm_scores(X, ok, ds.n)
 
     if masses is None:
-        masses = _mass_table(_scan(ds, block_size, with_labels, C, prefetch,
-                                   dev, probe), scores)
+        masses = _mass_table(ds, block_size, with_labels, C, prefetch, dev,
+                             probe, scores, ckpt)
         passes = 1
     else:
         masses, passes = _supplied(masses, ds, block_size, dev), 0
@@ -340,6 +376,7 @@ def vrlr_stream_scorer(
     probe: Optional[Callable[[], None]] = None, rcond: float = 1e-6,
     device: DeviceLike = "cuda", chunk_blocks: int = 1, prefetch: bool = False,
     masses: Optional[torch.Tensor] = None,
+    ckpt: Optional[StreamCheckpoint] = None,
 ) -> StreamScorer:
     """Algorithm 2's scores without ever holding (n, d): one block-scan
     pass accumulates each party's (s, s) Gram, the eigen-pseudo-inverse is
@@ -348,19 +385,25 @@ def vrlr_stream_scorer(
     task.  Each pass runs over superchunks of ``chunk_blocks`` blocks
     (``prefetch``: double-buffered): the same Gram and mass table at any
     width, nb / C launches of each kernel a pass.  A supplied ``masses``
-    table skips the mass pass (the Gram pass still runs: one data pass)."""
+    table skips the mass pass (the Gram pass still runs: one data pass).
+    ``ckpt`` checkpoints the ``gram`` and ``mass`` passes."""
     use_kernel, dev = _setup(backend, device)
     probe = probe or _noop
     key = key.to(dev)
     C = _superchunk(chunk_blocks, ds, block_size)
     if backend == "norm":
         return _norm_scorer(key, ds, block_size, True, probe, dev, C, prefetch,
-                            masses)
+                            masses, ckpt)
     widths, s = ds.stacked_widths(with_labels=True)
-    G = torch.zeros((ds.T, s, s), dtype=torch.float32, device=dev)
-    for chunk, ok in _scan(ds, block_size, True, C, prefetch, dev, probe):
+    start, G = _ckpt_load(ckpt, "gram", dev)
+    if G is None:
+        G = torch.zeros((ds.T, s, s), dtype=torch.float32, device=dev)
+    done = start
+    for chunk, ok in _scan(ds, block_size, True, C, prefetch, dev, probe, start):
         G = _gram_chunk(G, chunk, ok, use_kernel)
         del chunk          # drop the slot before the next one is staged
+        done += 1
+        _ckpt_save(ckpt, "gram", done, G)
     M, gram_conds = batched_gram_pinv(G, rcond, return_cond=True,
                                       expected_rank=widths)
 
@@ -368,8 +411,8 @@ def vrlr_stream_scorer(
         return _vrlr_scores(X, M, ok, ds.n, use_kernel)
 
     if masses is None:
-        masses = _mass_table(_scan(ds, block_size, True, C, prefetch, dev,
-                                   probe), scores)
+        masses = _mass_table(ds, block_size, True, C, prefetch, dev, probe,
+                             scores, ckpt)
         passes = 2
     else:
         masses, passes = _supplied(masses, ds, block_size, dev), 1
@@ -468,6 +511,8 @@ def vkmc_stream_scorer(
     center_sample: int = 16384, device: DeviceLike = "cuda",
     chunk_blocks: int = 1, prefetch: bool = False,
     masses: Optional[torch.Tensor] = None,
+    ckpt: Optional[StreamCheckpoint] = None,
+    centers: Optional[torch.Tensor] = None,
 ) -> StreamScorer:
     """Algorithm 3's sensitivities with one block (or superchunk) resident:
     party j's local k-means on a uniform row subsample
@@ -477,7 +522,11 @@ def vkmc_stream_scorer(
     ``vkmc`` task.  ``chunk_blocks``/``prefetch`` set the passes'
     superchunks as in :func:`vrlr_stream_scorer`; a supplied ``masses``
     table skips the mass pass (centers and stats still run: two data
-    passes)."""
+    passes).  ``centers`` supplies :func:`vkmc_local_centers`' (T, k, s)
+    centers for this key (the sharded build solves them once for its table
+    and the scorer).  ``ckpt`` checkpoints the ``stats`` and ``mass``
+    passes; the centers are not checkpointed: a rerun solves them again on
+    the same key, to the same bits."""
     use_kernel, dev = _setup(backend, device)
     probe = probe or _noop
     T = ds.T
@@ -485,26 +534,37 @@ def vkmc_stream_scorer(
     if backend == "norm":
         _, dis_key = _vkmc_key_chain(key.to(dev), T)   # the task's key budget
         return _norm_scorer(dis_key, ds, block_size, False, probe, dev, C,
-                            prefetch, masses)
+                            prefetch, masses, ckpt)
 
-    centers, dis_key = vkmc_local_centers(
-        key, ds, k=k, local_iters=local_iters, center_sample=center_sample,
-        use_kernel=use_kernel, device=dev)
+    if centers is None:
+        centers, dis_key = vkmc_local_centers(
+            key, ds, k=k, local_iters=local_iters, center_sample=center_sample,
+            use_kernel=use_kernel, device=dev)
+    else:
+        centers = centers.to(dev)
+        _, dis_key = _vkmc_key_chain(key.to(dev), T)
     probe()
-    csize = torch.zeros((T, k), dtype=torch.float32, device=dev)
-    ccost = torch.zeros((T, k), dtype=torch.float32, device=dev)
-    for chunk, ok in _scan(ds, block_size, False, C, prefetch, dev, probe):
+    start, saved = _ckpt_load(ckpt, "stats", dev)
+    if saved is None:
+        csize = torch.zeros((T, k), dtype=torch.float32, device=dev)
+        ccost = torch.zeros((T, k), dtype=torch.float32, device=dev)
+    else:
+        csize, ccost = saved
+    done = start
+    for chunk, ok in _scan(ds, block_size, False, C, prefetch, dev, probe, start):
         csize, ccost = _vkmc_stats_chunk(csize, ccost, chunk, centers, ok,
                                          use_kernel)
         del chunk          # drop the slot before the next one is staged
+        done += 1
+        _ckpt_save(ckpt, "stats", done, (csize, ccost))
     alpha = float(alpha)
 
     def scores(X, ok):
         return _vkmc_scores(X, centers, csize, ccost, ok, alpha, use_kernel)
 
     if masses is None:
-        masses = _mass_table(_scan(ds, block_size, False, C, prefetch, dev,
-                                   probe), scores)
+        masses = _mass_table(ds, block_size, False, C, prefetch, dev, probe,
+                             scores, ckpt)
         passes = 3
     else:
         masses, passes = _supplied(masses, ds, block_size, dev), 2
@@ -730,13 +790,15 @@ def vkmc_block_masses_sharded(
     ds: VFLDataset, block_size: int, *, key: rng.Key, k: int = 10,
     alpha: float = 2.0, local_iters: int = 15, center_sample: int = 16384,
     backend: str = "pallas", device: DeviceLike = "cuda",
+    centers: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """VKMC's (T, nb) block-mass table with rows split over the ranks of a
     default process group — the mirror of :func:`vrlr_block_masses_sharded` for
     Algorithm 3.
 
     The party-local centers come from :func:`vkmc_local_centers` on the
-    scorer's key chain.  Each rank assigns its (T, n/D, s) shard (the
+    scorer's key chain, or are supplied (``centers``, the same solve: the
+    sharded build solves them once for the table and the scorer).  Each rank assigns its (T, n/D, s) shard (the
     ``kmeans_assign`` kernel, one launch), and the GLOBAL per-party
     cluster sizes and costs — the (T, 2k) one-hot sums, VKMC's sufficient
     statistic — are combined by ONE all-reduce; scores follow locally and a
@@ -752,9 +814,11 @@ def vkmc_block_masses_sharded(
     _check_shard_grid(n, D, bs, "world")
     rows = n // D
     widths, s = ds.stacked_widths(with_labels=False)
-    centers, _ = vkmc_local_centers(
-        key, ds, k=k, local_iters=local_iters, center_sample=center_sample,
-        use_kernel=use_kernel, device=dev)
+    if centers is None:
+        centers, _ = vkmc_local_centers(
+            key, ds, k=k, local_iters=local_iters, center_sample=center_sample,
+            use_kernel=use_kernel, device=dev)
+    centers = centers.to(dev)
     f = _stacked_rows(ds, r * rows, (r + 1) * rows, widths, s, False, dev)
     assign, d2 = kops.kmeans_assign(f, centers, use_kernel)        # (T, n/D)
     del f

@@ -299,7 +299,7 @@ class VFLDataset:
     def blocks_prefetched(
         self, block_size: int, with_labels: bool = False,
         chunk_blocks: int = 1, prefetch: bool = True,
-        device: Optional[DeviceLike] = None,
+        device: Optional[DeviceLike] = None, start_chunk: int = 0,
     ) -> Iterator[Tuple[int, torch.Tensor, np.ndarray]]:
         """Iterate ``(b0, chunk (count, T, bs, s), nvalids (count,))`` over
         superchunks of ``chunk_blocks`` row blocks on ``device`` (default:
@@ -324,15 +324,27 @@ class VFLDataset:
         used and c + 1 is staged only after c was consumed.  The generator
         drops its reference to a chunk before it stages the next but one: a
         consumer that drops its own (``del chunk``) keeps at most two
-        superchunks resident."""
+        superchunks resident.
+
+        ``start_chunk`` skips the first superchunks entirely, neither
+        filled nor staged (``staged_bytes`` counts only what is copied):
+        the checkpointed resume, which continues a scan at its first
+        unprocessed superchunk and sees the chunks a full traversal yields
+        from there.  The prefetch slots alternate from the first staged
+        superchunk."""
         _, s = self.stacked_widths(with_labels)
         nb, bs = self.block_geometry(block_size)
         if chunk_blocks < 1:
             raise ValueError(f"chunk_blocks must be >= 1, got {chunk_blocks}")
         C = int(chunk_blocks)
+        nchunks = -(-nb // C)
+        if not 0 <= start_chunk <= nchunks:
+            raise ValueError(
+                f"start_chunk {start_chunk} out of range [0, {nchunks}]"
+            )
         dev = self.device if device is None else resolve_device(device)
         dtype = self._stacked_dtype()
-        starts = range(0, nb, C)
+        starts = range(start_chunk * C, nb, C)
         if self.device.type != "cpu" or dev.type != "cuda":
             for b0 in starts:
                 out = torch.empty((min(C, nb - b0), self.T, bs, s), dtype=dtype,

@@ -2,12 +2,18 @@
 from the reference package so the port bills the same bits.
 
 Numpy-only, like the reference: it sits below the ledger and imports
-nothing from the rest of ``repro_torch.core``.  The plan-time bit
-prediction (``budget.py``) waits for the planner's codec axis.
+nothing from the rest of ``repro_torch.core``.  ``budget.py`` holds the
+plan-time bit prediction and the ``comm_budget_bits`` codec walk.
 """
 
+from repro_torch.core.wire.budget import (
+    choose_codec,
+    predict_dis_bits,
+    predict_uniform_bits,
+)
 from repro_torch.core.wire.codecs import (
     CODEC_LADDER,
+    INT8_BLOCK,
     SPEC_CODECS,
     UNIT_BITS,
     WIRE_CODECS,
@@ -19,11 +25,15 @@ from repro_torch.core.wire.payload import WirePayload, encode_payloads, fmt_bits
 __all__ = [
     "CODEC_LADDER",
     "Codec",
+    "INT8_BLOCK",
     "SPEC_CODECS",
     "UNIT_BITS",
     "WIRE_CODECS",
     "WirePayload",
+    "choose_codec",
     "encode_payloads",
     "fmt_bits",
     "get_codec",
+    "predict_dis_bits",
+    "predict_uniform_bits",
 ]

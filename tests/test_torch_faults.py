@@ -455,8 +455,8 @@ def test_build_and_spec_refusals():
     with pytest.raises(ValueError, match="fused jit path"):
         pipe.build(CoresetSpec(**_spec_kw(jit=True)), key=kt, transport=Transport(),
                    device="cpu")
-    with pytest.raises(ValueError, match="item 15"):
-        CoresetSpec(codec="auto")
+    # codec="auto" resolves at plan time: raw_fp32 when no bit budget binds
+    assert pipe.plan(CoresetSpec(**_spec_kw(codec="auto"))).codec == "raw_fp32"
     for bad in (dict(fault_policy="bogus"), dict(codec="zstd"),
                 dict(engine="batched", fault_policy="retry"),
                 dict(codec="fp16", jit=True), dict(codec="fp16", engine="batched")):

@@ -359,3 +359,47 @@ def test_sharded_masses_refusals_match_reference():
         assert "sharded_masses" in str(te.value)
     with pytest.raises(ValueError, match="sharded_masses must be a bool"):
         CoresetSpec(sharded_masses=1)
+
+
+@pytest.mark.parametrize("backend", ["ref", "pallas"])
+def test_sharded_vkmc_build_solves_its_centers_once(monkeypatch, backend):
+    """A sharded ``vkmc`` build solves the party-local centers once, for the
+    table and the scorer, to the bits of a build whose table and scorer each
+    solve them on the same key; a quarantine rebuild solves them again on
+    the survivors, whose draw is a build on ``select_parties``."""
+    from repro_torch.core import FaultPlan, Transport
+    from repro_torch.core import api as tapi
+    from repro_torch.core import streaming as tst
+
+    _, tds = _both(labels=False)
+    _, kt = _keys(31)
+    spec = CoresetSpec(task="vkmc", budgets=40, engine="pipelined", backend=backend,
+                       block_size=BLOCK, chunk_blocks=3, prefetch=False,
+                       sharded_masses=True, params={"k": K})
+    # the old path: the table and the scorer solve the centers each
+    table = vkmc_block_masses_sharded(tds, BLOCK, key=kt, k=K, backend=backend,
+                                      device="cpu")
+    scorer = make_stream_scorer("vkmc", kt, tds, BLOCK, backend, device="cpu", k=K,
+                                chunk_blocks=3, masses=table)
+    calls = []
+    real = tst.vkmc_local_centers
+
+    def counted(*a, **kw):
+        calls.append(a[1].T)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tapi, "vkmc_local_centers", counted)
+    monkeypatch.setattr(tst, "vkmc_local_centers", counted)
+    cs = CoresetPipeline(tds).build(spec, key=kt, device="cpu")
+    assert calls == [3]
+    want = tst.dis_plan_streamed_batched(scorer, 40)
+    assert torch.equal(cs.indices, want.indices) and torch.equal(cs.weights, want.weights)
+
+    calls.clear()
+    tr = Transport(FaultPlan(seed=11, silent_corrupt={0: 1.0}, silent_kind="sign"),
+                   verify=False)
+    got = CoresetPipeline(tds).build(spec.replace(fault_policy="quarantine"), key=kt,
+                                     device="cpu", transport=tr)
+    assert calls == [3, 2] and got.degraded.surviving == (1, 2)
+    sub = CoresetPipeline(tds.select_parties([1, 2])).build(spec, key=kt, device="cpu")
+    assert torch.equal(got.indices, sub.indices) and torch.equal(got.weights, sub.weights)
