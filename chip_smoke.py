@@ -152,7 +152,9 @@ and never JAX or the JAX package ``repro``.  Phases, each fatal on failure:
    planner's ``predicted_peak_bytes`` beside each engine's measured own
    peak (materialized at phase 4's shape, streamed at blocks 65,536 and
    16,384, pipelined at 65,536 and at 16,384 with prefetch on and off),
-   each prediction at or above it; (c) memory budgets at and one byte
+   each build run through ``build_failover`` under a memory budget of its
+   own prediction with no attempt, and each prediction at or above its
+   peak; (c) memory budgets at and one byte
    below the model's values selecting materialized, pipelined, streamed
    and streamed flagged, the pipelined and streamed auto builds equal bit
    for bit, the host dataset planned onto the streaming engines,
@@ -160,10 +162,28 @@ and never JAX or the JAX package ``repro``.  Phases, each fatal on failure:
    picking them as the reference's ladder walk does, a transported build's
    realised bits within the prediction, and a repeated plan a cache hit;
    (d) ``build_failover`` of the pipelined spec under a memory budget
-   between the streamed and pipelined builds' own peaks: the watchdog
+   from the model alone, its streamed prediction at 16,384 (the budget
+   counts the build's own bytes, as the watchdog does): the watchdog
    trips, the streamed rung's coreset is the forced streamed build's bit
    for bit and its ledger that build's bill plus a zero-unit
-   ``fallback/pipelined->streamed`` entry.
+   ``fallback/pipelined->streamed`` entry;
+13. the merge-and-reduce serving tree: phase 4's host copy inserted in
+   superchunks of 65,536 rows (8 inserts, the last of 4,963) into a
+   ``CoresetTree`` per task, budget 1000, nodes of 2000 rows, leaves
+   pipelined at block 16,384 with prefetch: (a) every leaf bit for bit the
+   direct pipelined build at ``leaf_key(i)`` (indices plus the offset,
+   weights, bill); (b) merges per insert 0, 1, 0, 2, 0, 1, 0, 3, the
+   rescored rows the chunk's plus 4000 a merge, height 4; (c) the ledger
+   exactly 8 leaf DIS bills and 7 merges each with its union's DIS bill;
+   (d) two queries between inserts bit for bit, and a second ``vrlr``
+   tree with the same key replaying the first; (e) ``query(reduce_to=
+   1000)`` fit on the card and evaluated at full n, its ``rel_error``
+   finite, < 0.25 and <= max(8 x the flat build's, 0.05); (f) a ``vrlr``
+   tree with ``failover=True`` under the model's streamed prediction for
+   one leaf, built alone and again with 1 GiB resident: the seven full
+   leaves fall back to streamed both times, the nodes are (a)'s bit for
+   bit and the ledger (a)'s bill plus one 0-unit ``fallback/`` entry a
+   fallback.
 
 Every path is driven with all five launch counters set to 0 just before
 it and read just after.  With the default seed, the drawn indices of
@@ -274,6 +294,12 @@ PIPE_PEAK_FACTOR = 2.5
 # phase 11's block: 463,715 = 5 x 7 x 13,249, and 66,245 (7 blocks) is the
 # divisor nearest the default 65,536 that the shard grid accepts at D = 1
 SHARD_BLOCK = 66_245
+# phase 13, the serving tree: superchunks of the main path's rows inserted one
+# at a time (8 inserts, the last of 4,963 rows), a budget of phase 4's smaller m,
+# nodes keeping twice it (the reference tree's default headroom)
+TREE_CHUNK = 65_536
+TREE_BUDGET = 1000
+TREE_HEADROOM = 2
 # indices_sha256 of phases 4 and 5 at --seed 0, recorded on the card with
 # the plain draw (PERF.md); phase 7's vrlr cell (0, 1) is phase 4's m = 5000
 # build
@@ -1777,8 +1803,13 @@ def planner_phase(torch, dev, seed, ds_host, ds, launches, card, reset_counts, r
                        prefetch=True)
         pipe = CoresetPipeline(ds_host)
         led0 = CommLedger()
-        cs0, s0, counts0, peak0, h2d0 = run(lambda: pipe.build(spec, key=keys[task],
-                                                                ledger=led0))
+        pred0 = pipe.plan(spec, dev).predicted_peak_bytes
+        out0, s0, counts0, peak0, h2d0 = run(lambda: pipe.build_failover(
+            spec, key=keys[task], ledger=led0, memory_budget_bytes=pred0))
+        if out0.attempts:
+            fail(f"resume {task}: the build under its own prediction {pred0} failed over: "
+                 f"{out0.attempts}")
+        cs0 = out0.coreset
         full[task] = (cs0, counts0, peak0)
         off = 1 if task == "vkmc" else 0         # vkmc probes once after its centers
         first = "gram" if task == "vrlr" else "stats"
@@ -1847,18 +1878,24 @@ def planner_phase(torch, dev, seed, ds_host, ds, launches, card, reset_counts, r
             if kw is None:                                 # (a)'s uninterrupted build
                 spec = spec_of(task, engine="pipelined", block_size=PIPE_BLOCK,
                                chunk_blocks=C, prefetch=True)
+                pred = CoresetPipeline(data).plan(spec, dev).predicted_peak_bytes
                 cs, secs, counts, peak = full[task][0], None, full[task][1], full[task][2]
             else:
                 params = {} if task == "vrlr" else dict(vk_params)
                 if label == "materialized":
                     params.pop("center_sample", None)         # k-means on every row
                 spec = CoresetSpec(task=task, budgets=mb, params=params, **kw)
+                pred = CoresetPipeline(data).plan(spec, dev).predicted_peak_bytes
                 led = CommLedger()
-                cs, secs, counts, peak, _ = run(
-                    lambda: CoresetPipeline(data).build(spec, key=keys[task], ledger=led),
+                out, secs, counts, peak, _ = run(
+                    lambda: CoresetPipeline(data).build_failover(
+                        spec, key=keys[task], ledger=led, memory_budget_bytes=pred),
                     data)
+                if out.attempts:
+                    fail(f"memory model: {task} {label} under its own prediction {pred} "
+                         f"failed over: {out.attempts}")
+                cs = out.coreset
                 builds[(task, label)] = (cs, led)
-            pred = CoresetPipeline(data).plan(spec, dev).predicted_peak_bytes
             name = f"{label}" + (f" m={mb}" if label == "materialized" else "")
             peaks[(task, label)] = peak
             rows.append(f"{task} {name}: predicted {pred} measured {peak} "
@@ -1867,7 +1904,8 @@ def planner_phase(torch, dev, seed, ds_host, ds, launches, card, reset_counts, r
             if pred < peak:
                 low.append(rows[-1])
     log("memory model (the plan's predicted_peak_bytes against the build's own peak "
-        f"device memory, bytes; {card}):")
+        "device memory, bytes; each build ran through build_failover under a "
+        f"memory_budget_bytes of its prediction, with no attempt; {card}):")
     for r in rows:
         log("  " + r)
     if low:
@@ -1943,24 +1981,22 @@ def planner_phase(torch, dev, seed, ds_host, ds, launches, card, reset_counts, r
     stage_s["auto plan (c)"] = time.perf_counter() - t_stage
 
     # -- (d) failover: a pipelined spec at block 16,384 under a memory budget
-    #    between the streamed and the pipelined build's own peaks, checked
-    #    by the watchdog at every probe, falls back to streamed
+    #    from the model alone, its streamed prediction at 16,384 (the build's
+    #    own bytes, as the watchdog counts them), falls back to streamed
     t_stage = time.perf_counter()
     for task in ("vrlr", "vkmc"):
-        _, s = ds_host.stacked_widths(task == "vrlr")
         spec = spec_of(task, engine="pipelined", block_size=PIPE_BLOCK, chunk_blocks=C,
                        prefetch=True)
         streamed_peak = peaks[(task, f"streamed {PIPE_BLOCK}")]
         pipelined_peak = peaks[(task, f"pipelined {PIPE_BLOCK} on")]
-        budget = streamed_peak + C * 4 * T * bs * s // 2
-        if not streamed_peak < budget < pipelined_peak:
-            fail(f"failover {task}: no budget between the streamed and pipelined peaks")
+        budget = CoresetPipeline(ds_host).plan(spec, dev).memory_model["streamed"]
+        if not streamed_peak <= budget < pipelined_peak:
+            fail(f"failover {task}: the streamed prediction {budget} is not between the "
+                 f"streamed and pipelined peaks")
         ref, ref_led = builds[(task, f"streamed {PIPE_BLOCK}")]
         led = CommLedger()
-        torch.cuda.synchronize()
-        allocated = torch.cuda.memory_allocated()
         out, secs, counts, _, _ = run(lambda: CoresetPipeline(ds_host).build_failover(
-            spec, key=keys[task], ledger=led, memory_budget_bytes=allocated + budget))
+            spec, key=keys[task], ledger=led, memory_budget_bytes=budget))
         fb = {t: u for t, u in led.by_tag().items() if t.startswith("fallback/")}
         rest = {t: u for t, u in led.by_tag().items() if not t.startswith("fallback/")}
         if out.fallback != "pipelined->streamed" or \
@@ -1970,13 +2006,259 @@ def planner_phase(torch, dev, seed, ds_host, ds, launches, card, reset_counts, r
                 fb != {"fallback/pipelined->streamed": 0} or led.total != ref_led.total:
             fail(f"failover {task}: the build or its ledger differs from the forced "
                  f"streamed build's (fallback entries {fb})")
-        log(f"failover {task} m={m}: memory_budget_bytes = allocated + {budget} (streamed "
-            f"peak {streamed_peak}, pipelined {pipelined_peak}): "
+        log(f"failover {task} m={m}: memory_budget_bytes = {budget}, the model's streamed "
+            f"prediction (measured own peaks: streamed {streamed_peak}, pipelined "
+            f"{pipelined_peak}): "
             f"{out.fallback} ({out.attempts[0].error}); == the forced streamed build bit for "
             f"bit, ledger its bill {ref_led.total} + fallback/pipelined->streamed 0; "
             f"build_s={secs:.4f}, launches {counts}; {card}")
     stage_s["failover (d)"] = time.perf_counter() - t_stage
     log(f"phase 12 took {time.perf_counter() - phase_t0:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in stage_s.items()) + f"); {card}")
+
+
+def tree_phase(torch, dev, seed, ds_host, ds, lam, launches, card, reset_counts,
+               read_counts):
+    """Phase 13, the merge-and-reduce serving tree on the card: phase 4's
+    host copy ``ds_host`` inserted in superchunks of TREE_CHUNK rows into a
+    ``CoresetTree`` per task (leaves pipelined at block PIPE_BLOCK, prefetch
+    on; merges over 2 x node_budget-row unions on the card).  (a) every leaf
+    bit for bit the direct pipelined build at ``leaf_key(i)``; (b) the
+    insert census; (c) the composed ledger; (d) query determinism and a
+    replayed tree; (e) the reduced query fit and evaluated at full n against
+    the flat build; (f) leaf failover under a budget from the memory model
+    alone, with and without 1 GiB resident.  ``ds`` is the same data on the
+    card (for the fits); adds its counted runs to ``launches``."""
+    import numpy as np
+
+    from repro_torch import rng
+    from repro_torch.core import (
+        DEFAULT_CHUNK_BLOCKS, CommLedger, CommSchedule, PlanCache, VFLDataset,
+        build_coreset, build_coreset_streaming, evaluate, fit_kmeans, fit_ridge,
+        full_data_coreset, memory_model)
+    from repro_torch.serve import CoresetTree
+
+    T, n = T_PARTIES, N_FULL
+    phase_t0 = time.perf_counter()
+    m, nb = TREE_BUDGET, TREE_HEADROOM * TREE_BUDGET
+    bounds = [(a, min(a + TREE_CHUNK, n)) for a in range(0, n, TREE_CHUNK)]
+    host_parts = [p.numpy() for p in ds_host.parts]
+    host_y = ds_host.y.numpy()
+    params = {"vrlr": {}, "vkmc": {"k": K_CLUSTERS, "alpha": ALPHA,
+                                   "local_iters": LOCAL_ITERS}}
+    keys = {task: rng.PRNGKey(seed + 700 + (task == "vkmc")) for task in ("vrlr", "vkmc")}
+    # the binary counter's carry chain: insert i merges once per trailing one of i
+    want_merges = [((i + 1) & -(i + 1)).bit_length() - 1 for i in range(len(bounds))]
+
+    class RecordingTree(CoresetTree):
+        """A CoresetTree that keeps the leaves its level-0 merges consume and
+        the host time of every merge (each ends in host copies)."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.leaves, self.merge_s = [], []
+
+        def _merge(self, left, right):
+            if left.level == 0:
+                self.leaves += [left.cs, right.cs]
+            t0 = time.perf_counter()
+            out = super()._merge(left, right)
+            self.merge_s.append(time.perf_counter() - t0)
+            return out
+
+    def chunk(i, labels):
+        a, b = bounds[i]
+        return [p[a:b] for p in host_parts], (host_y[a:b] if labels else None)
+
+    def counted(fn):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        reset_counts()
+        for nm in launches:
+            launches[nm] += counts[nm]
+        return out, secs, counts
+
+    def grow(task, tree):
+        stats = []
+        for i in range(len(bounds)):
+            stats.append(tree.insert(*chunk(i, task == "vrlr")))
+        return stats
+
+    def same_mat(a, b):
+        return (np.array_equal(a.indices, b.indices) and np.array_equal(a.weights, b.weights)
+                and all(np.array_equal(p, q) for p, q in zip(a.parts, b.parts))
+                and (a.y is None) == (b.y is None)
+                and (a.y is None or np.array_equal(a.y, b.y))
+                and (a.comm_units, a.comm_bits) == (b.comm_units, b.comm_bits))
+
+    def same_levels(t1, t2):
+        return len(t1.levels) == len(t2.levels) and all(
+            (x is None and y is None) or (x is not None and y is not None
+                                          and same_mat(x.cs, y.cs))
+            for x, y in zip(t1.levels, t2.levels))
+
+    def tree_of(task, cls=CoresetTree, **kw):
+        return cls(task, m, key=keys[task], block_size=PIPE_BLOCK, prefetch=True,
+                   params=params[task], plan_cache=PlanCache(), **kw)
+
+    log(f"tree: phase 4's host copy in {len(bounds)} superchunks of {TREE_CHUNK} rows "
+        f"(the last {bounds[-1][1] - bounds[-1][0]}), budget {m}, headroom "
+        f"{TREE_HEADROOM} (nodes keep {nb}), leaves pipelined at block {PIPE_BLOCK}, "
+        f"prefetch on; {card}")
+    stage_s = {}
+    trees, bills = {}, {}
+    for task in ("vrlr", "vkmc"):
+        t_stage = time.perf_counter()
+        tree = tree_of(task, RecordingTree)
+        stats, grow_s, counts = counted(lambda: grow(task, tree))
+        need = (("weighted_gram", "leverage", "categorical") if task == "vrlr"
+                else ("kmeans_assign_update", "kmeans_assign", "categorical"))
+        if any(counts[nm] == 0 for nm in need):
+            fail(f"tree {task}: a kernel of the path was not launched: {counts}")
+        messages = list(tree.ledger.messages)
+        bills[task] = (messages, tree.ledger.total, tree.ledger.total_bits)
+        trees[task] = tree
+        # (b) the census: the carry chain, never a full-data rescore
+        got = [s.merges for s in stats]
+        if got != want_merges or tree.height != 4 or tree.n_total != n or \
+                tree.num_chunks != len(bounds):
+            fail(f"tree {task}: merges {got} (want {want_merges}), height {tree.height}, "
+                 f"rows {tree.n_total}")
+        for i, s in enumerate(stats):
+            rows = bounds[i][1] - bounds[i][0]
+            if s.chunk_rows != rows or s.leaf_builds != 1 or \
+                    s.rescored_rows != rows + 2 * nb * s.merges or \
+                    (i > 0 and s.rescored_rows >= bounds[i][1]):
+                fail(f"tree {task}: insert {i} census {s}")
+        # (c) the ledger: 8 leaf DIS bills + 7 x (merge + the union's DIS)
+        leaf_bill = CommSchedule.dis_total(T, nb)
+        merge_bill = CommSchedule.merge(T, nb, nb).total + leaf_bill
+        want_total = len(bounds) * leaf_bill + sum(want_merges) * merge_bill
+        if tree.ledger.total != want_total or sum(s.comm_delta for s in stats) != want_total:
+            fail(f"tree {task}: ledger {tree.ledger.total}, want {want_total}")
+        if tree.query().comm_units != tree.ledger.total:
+            fail(f"tree {task}: the root's composed comm_units differs from the ledger")
+        # (a) every leaf bit for bit the direct pipelined build at leaf_key(i)
+        if len(tree.leaves) != len(bounds):
+            fail(f"tree {task}: {len(tree.leaves)} leaves recorded")
+        leaf_s = []
+        for i, leaf in enumerate(tree.leaves):
+            parts, y = chunk(i, task == "vrlr")
+            cds = VFLDataset([torch.from_numpy(p) for p in parts],
+                             None if y is None else torch.from_numpy(y))
+            led = CommLedger()
+            direct, secs, _ = counted(lambda: build_coreset_streaming(
+                task, cds, nb, key=tree.leaf_key(i), block_size=PIPE_BLOCK, prefetch=True,
+                ledger=led, **params[task]))
+            leaf_s.append(secs)
+            idx = direct.indices.cpu().numpy().astype(np.int64) + bounds[i][0]
+            if not (np.array_equal(idx, leaf.indices)
+                    and np.array_equal(direct.weights.cpu().numpy(), leaf.weights)
+                    and (direct.comm_units, direct.comm_bits) == (leaf.comm_units,
+                                                                  leaf.comm_bits)
+                    and led.total == leaf.comm_units):
+                fail(f"tree {task}: leaf {i} differs from the direct pipelined build")
+        lat = sorted(s.latency_s for s in stats)
+        merge_s = sorted(tree.merge_s)
+        log(f"tree {task}: {len(bounds)} inserts in {grow_s:.4f} s, merges per insert {got}, "
+            f"height {tree.height}, rescored rows {[s.rescored_rows for s in stats]} (never "
+            f"n_total); ledger {tree.ledger.total} = {len(bounds)} x {leaf_bill} + "
+            f"{sum(want_merges)} x {merge_bill} ({tree.ledger.total_bits} bits); every leaf "
+            f"== the direct pipelined build at leaf_key(i) bit for bit (indices + offset, "
+            f"weights, bill); leaf build_s median {leaf_s[len(leaf_s) // 2]:.4f} max "
+            f"{max(leaf_s):.4f} (direct builds), merge median {merge_s[len(merge_s) // 2]:.4f} "
+            f"max {merge_s[-1]:.4f} s, insert latency_s median {lat[len(lat) // 2]:.4f} max "
+            f"{lat[-1]:.4f}; plan cache {tree.plan_cache.stats()['hits']} hits "
+            f"{tree.plan_cache.stats()['misses']} misses; launches {counts}; {card}")
+        if (tree.plan_cache.hits, tree.plan_cache.misses) != (len(bounds) - 2, 2):
+            fail(f"tree {task}: plan cache {tree.plan_cache.stats()}")
+        # (d) two queries between inserts give the same bits
+        (q1, q2), q_s, _ = counted(lambda: (tree.query(reduce_to=m), tree.query(reduce_to=m)))
+        if not same_mat(q1, q2) or q1.m != m:
+            fail(f"tree {task}: two queries of an unchanged tree differ")
+        # (e) the reduced query fit on the card, evaluated at full n against the
+        #     flat equal-budget build
+        def quality():
+            flat = build_coreset(task, ds, m, key=rng.PRNGKey(seed + 760))
+            if task == "vrlr":
+                base = fit_ridge(ds, full_data_coreset(ds), lam).params
+                r_tree = evaluate(ds, fit_ridge(ds, q1.coreset(dev), lam),
+                                  baseline=base).rel_error
+                r_flat = evaluate(ds, fit_ridge(ds, flat, lam), baseline=base).rel_error
+            else:
+                kev = rng.PRNGKey(seed + 770)
+                base = fit_kmeans(ds, full_data_coreset(ds), K_CLUSTERS, key=kev,
+                                  restarts=3).params
+                r_tree = evaluate(ds, fit_kmeans(ds, q1.coreset(dev), K_CLUSTERS,
+                                                 key=rng.fold_in(kev, 1), restarts=3),
+                                  baseline=base).rel_error
+                r_flat = evaluate(ds, fit_kmeans(ds, flat, K_CLUSTERS,
+                                                 key=rng.fold_in(kev, 2), restarts=3),
+                                  baseline=base).rel_error
+            return r_tree, r_flat
+
+        (r_tree, r_flat), fit_s, _ = counted(quality)
+        if not (math.isfinite(r_tree) and r_tree < 0.25
+                and r_tree <= max(8.0 * max(r_flat, 0.0), 0.05)):
+            fail(f"tree {task}: query rel_error {r_tree} (flat {r_flat}) outside the "
+                 f"reference test's bounds")
+        ratio = r_tree / r_flat if r_flat > 0 else float("inf")
+        log(f"tree {task}: query(reduce_to={m}) twice, the same bits "
+            f"(indices_sha256={digest(torch.from_numpy(q1.indices))}, {q_s:.4f} s for "
+            f"both); rel_error {r_tree:.6g} against the flat build's {r_flat:.6g} (ratio "
+            f"{ratio:.3f}; benchmarks/serve.py gates the seed average at 2x; held here to "
+            f"< 0.25 and <= max(8 x flat, 0.05)); fits and evaluation {fit_s:.4f} s; {card}")
+        stage_s[task] = time.perf_counter() - t_stage
+
+    # (d) a second vrlr tree with the same key replays the first bit for bit
+    t_stage = time.perf_counter()
+    replay = tree_of("vrlr")
+    _, replay_s, _ = counted(lambda: grow("vrlr", replay))
+    if not same_levels(replay, trees["vrlr"]) or replay.ledger.messages != bills["vrlr"][0]:
+        fail("tree vrlr: a second tree with the same key does not replay the first")
+    log(f"tree vrlr: a second tree with the same key replays the first bit for bit "
+        f"(nodes, ledger) in {replay_s:.4f} s")
+    stage_s["replay"] = time.perf_counter() - t_stage
+
+    # (f) leaf failover under a budget from the memory model alone: the
+    #     streamed prediction for one full leaf; again with 1 GiB resident
+    t_stage = time.perf_counter()
+    _, s = ds_host.stacked_widths(True)
+    budget = memory_model(T, TREE_CHUNK, s, PIPE_BLOCK, DEFAULT_CHUNK_BLOCKS,
+                          m_cap=nb)["streamed"]
+    outcomes = []
+    for resident in (0, 1 << 30):
+        extra = torch.empty(resident, dtype=torch.uint8, device=dev) if resident else None
+        tree = tree_of("vrlr", failover=True, memory_budget_bytes=budget)
+        stats, secs, counts = counted(lambda: grow("vrlr", tree))
+        fb = [st.fallback for st in stats]
+        messages = tree.ledger.messages
+        rest = [msg for msg in messages if not msg.tag.startswith("fallback/")]
+        fbs = [msg for msg in messages if msg.tag.startswith("fallback/")]
+        if fb[:-1] != ["pipelined->streamed"] * (len(bounds) - 1) or \
+                tree.fallbacks != sum(f is not None for f in fb) or tree.fallbacks < 7:
+            fail(f"failover tree ({resident} bytes resident): fallbacks {fb}")
+        if not same_levels(tree, trees["vrlr"]) or rest != bills["vrlr"][0] or \
+                len(fbs) != tree.fallbacks or any(msg.units for msg in fbs) or \
+                tree.ledger.total != bills["vrlr"][1]:
+            fail(f"failover tree ({resident} bytes resident): the nodes or the ledger "
+                 f"differ from (a)'s tree")
+        outcomes.append((fb, tree.fallbacks))
+        log(f"failover tree vrlr, memory_budget_bytes={budget} (memory_model's streamed "
+            f"prediction for one {TREE_CHUNK}-row leaf), {resident} bytes resident before "
+            f"it: fallbacks {tree.fallbacks} {fb}; nodes == (a)'s tree bit for bit, ledger "
+            f"its bill {bills['vrlr'][1]} + {len(fbs)} x fallback/ 0; {secs:.4f} s, "
+            f"launches {counts}; {card}")
+        del extra
+    if outcomes[0] != outcomes[1]:
+        fail(f"failover tree: 1 GiB resident changed the outcome: {outcomes}")
+    stage_s["failover (f)"] = time.perf_counter() - t_stage
+    log(f"phase 13 took {time.perf_counter() - phase_t0:.1f} s (" + ", ".join(
         f"{k} {v:.1f} s" for k, v in stage_s.items()) + f"); {card}")
 
 
@@ -3006,6 +3288,12 @@ def main() -> None:
     planner_phase(torch, dev, args.seed, ds_host, ds, launches, smi[0], reset_counts,
                   read_counts)
     log(f"phase 12 launches: {({nm: launches[nm] - before[nm] for nm in launches})}")
+
+    # ---- 13. the merge-and-reduce serving tree ----------------------------------
+    before = dict(launches)
+    tree_phase(torch, dev, args.seed, ds_host, ds, lam, launches, smi[0], reset_counts,
+               read_counts)
+    log(f"phase 13 launches: {({nm: launches[nm] - before[nm] for nm in launches})}")
     del ds_host
     lev_err = max(lev_err, errs["leverage"])
     gram_err = max(gram_err, errs["weighted_gram"])

@@ -3,8 +3,9 @@ reference package.
 
 This system has no model weights: what the two packages must share is the
 dataset, the PRNG keys, to fit a reference-built coreset with the port the
-coreset itself, and to score against a reference fit its k-means centers.  Everything crosses as numpy — the port never
-sees a jax array.
+coreset itself, to score against a reference fit its k-means centers, and
+to merge the reference tree's nodes with the port the materialized
+coresets.  Everything crosses as numpy — the port never sees a jax array.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.coreset import Coreset
+from repro_torch.core.coreset import Coreset, MaterializedCoreset
 from repro_torch.core.vfl import VFLDataset, _as_tensor
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -56,3 +57,18 @@ def centers_from_numpy(centers, device: DeviceLike = "cuda") -> torch.Tensor:
     if c.ndim != 2:
         raise ValueError(f"centers must be (k, d), got shape {c.shape}")
     return torch.as_tensor(c.astype(np.float32), device=resolve_device(device))
+
+
+def materialized_from_numpy(mat) -> MaterializedCoreset:
+    """A port :class:`MaterializedCoreset` from a reference one (its
+    ``indices``, ``weights``, ``parts`` and ``y`` are already host numpy):
+    the arrays copied across unchanged, indices as int64 and weights as
+    float32, with the bill."""
+    return MaterializedCoreset(
+        indices=np.array(mat.indices, dtype=np.int64),
+        weights=np.array(mat.weights, dtype=np.float32),
+        parts=[np.array(p) for p in mat.parts],
+        y=None if mat.y is None else np.array(mat.y),
+        comm_units=int(mat.comm_units),
+        comm_bits=int(mat.comm_bits),
+    )

@@ -4,7 +4,15 @@ engine and the streamed and pipelined engines (block masses optionally
 sharded over a ``torch.distributed`` process group; checkpointed resume),
 the planner (memory model, codec axis, plan cache, engine failover),
 Algorithm 1 (flat and hierarchical) and its seed API, the party fault and
-integrity seam, and the regression and k-means solvers."""
+integrity seam, the regression and k-means solvers, the materialized
+coresets the serving tree keeps, and the seed-era builders as deprecation
+shims over ``build_coreset``."""
+
+import warnings
+from typing import Optional
+
+from repro_torch import rng as _rng
+from repro_torch.device import DeviceLike as _DeviceLike
 
 from repro_torch.core.api import (
     CORESET_TASKS,
@@ -28,7 +36,12 @@ from repro_torch.core.comm import (
     null_ledger,
     theoretical_dis_cost,
 )
-from repro_torch.core.coreset import Coreset, vkmc_coreset_ratio, vrlr_coreset_ratio
+from repro_torch.core.coreset import (
+    Coreset,
+    MaterializedCoreset,
+    vkmc_coreset_ratio,
+    vrlr_coreset_ratio,
+)
 from repro_torch.core.faults import (
     FAULT_POLICIES,
     SILENT_KINDS,
@@ -131,6 +144,67 @@ from repro_torch.core.vrlr import (
     sq_loss,
 )
 
+
+# --------------------------------------------------------------------------
+# Deprecated seed-era builders — thin shims over build_coreset.
+# Same PRNG key => bit-identical (S, w) and identical ledger totals.
+# --------------------------------------------------------------------------
+
+def _deprecated(old: str, new: str) -> None:
+    warnings.warn(f"{old} is deprecated; use {new}",
+                  DeprecationWarning, stacklevel=3)
+
+
+def build_vrlr_coreset(
+    key: _rng.Key,
+    ds: VFLDataset,
+    m: int,
+    ledger: Optional[CommLedger] = None,
+    use_kernel: bool = True,
+    device: _DeviceLike = "cuda",
+) -> Coreset:
+    """Deprecated: use ``build_coreset("vrlr", ds, m, key=key, ...)``."""
+    _deprecated("build_vrlr_coreset", 'build_coreset("vrlr", ...)')
+    # use_kernel=True maps to "auto" (the kernels on the card, the plain
+    # versions on the CPU), so the shim resolves to build_coreset's default
+    # backend and stays draw-identical to it on every device.
+    return build_coreset("vrlr", ds, m, key=key,
+                         backend="auto" if use_kernel else "ref",
+                         ledger=ledger, device=device)
+
+
+def build_vkmc_coreset(
+    key: _rng.Key,
+    ds: VFLDataset,
+    k: int,
+    m: int,
+    alpha: float = 2.0,
+    local_iters: int = 15,
+    ledger: Optional[CommLedger] = None,
+    use_kernel: bool = True,
+    device: _DeviceLike = "cuda",
+) -> Coreset:
+    """Deprecated: use ``build_coreset("vkmc", ds, m, key=key, k=k, ...)``."""
+    _deprecated("build_vkmc_coreset", 'build_coreset("vkmc", ...)')
+    return build_coreset("vkmc", ds, m, key=key,
+                         backend="auto" if use_kernel else "ref",
+                         ledger=ledger, device=device, k=k, alpha=alpha,
+                         local_iters=local_iters)
+
+
+def build_uniform_coreset(
+    key: _rng.Key,
+    ds: VFLDataset,
+    m: int,
+    ledger: Optional[CommLedger] = None,
+    device: _DeviceLike = "cuda",
+) -> Coreset:
+    """Deprecated: use ``build_coreset("uniform", ds, m, key=key, ...)``."""
+    _deprecated("build_uniform_coreset", 'build_coreset("uniform", ...)')
+    return build_coreset("uniform", ds, m, key=key, ledger=ledger,
+                         device=device)
+
+
 __all__ = [
     "as_numpy",
     "BatchedCoresets",
@@ -139,6 +213,9 @@ __all__ = [
     "build_coreset_jit",
     "build_coreset_streaming",
     "build_coresets_batched",
+    "build_uniform_coreset",
+    "build_vkmc_coreset",
+    "build_vrlr_coreset",
     "central_comm_cost",
     "check_mass_table",
     "check_merge_children",
@@ -198,6 +275,7 @@ __all__ = [
     "live_bytes",
     "lloyd",
     "make_stream_scorer",
+    "MaterializedCoreset",
     "memory_model",
     "MemoryBudgetExceeded",
     "MemoryWatchdog",

@@ -71,6 +71,7 @@ from repro_torch.core.plan import (
     MemoryWatchdog,
     PlanCache,
     compile_plan,
+    live_bytes,
 )
 from repro_torch.core.streaming import (
     dis_plan_streamed_batched,
@@ -1070,10 +1071,17 @@ class CoresetPipeline:
         Runs the plan's engine under a
         :class:`~repro_torch.core.plan.MemoryWatchdog` of ``device`` when
         ``memory_budget_bytes`` is given (checked at every probe of the
-        streaming engines and once after the build; it reads the whole
-        device, process-wide); a breach or an engine crash retries once on
-        each remaining rung of ``plan.fallback_chain`` (materialized ->
-        pipelined -> streamed).  The last rung runs without the watchdog:
+        streaming engines and once after the build); a breach or an engine
+        crash retries once on each remaining rung of
+        ``plan.fallback_chain`` (materialized -> pipelined -> streamed).
+        The budget counts the build's own bytes, as the planner's
+        ``memory_model`` does: the watchdog's baseline is
+        :func:`~repro_torch.core.plan.live_bytes` of ``device`` taken once
+        at the start (after a ``torch.cuda.synchronize()`` on the card),
+        so tensors resident before the call (the caller's, a dataset on
+        the card, another tenant's) count against no rung.  A failed rung
+        keeps only its error string, so its tensors are freed before the
+        next rung starts.  The last rung runs without the watchdog:
         streamed is the minimum-footprint engine.  Every rung runs on
         ``device`` with the same kernels; a kernel that fails to build or
         launch is an engine crash like any other, recorded in
@@ -1091,10 +1099,15 @@ class CoresetPipeline:
         checkpoint goes to streaming rungs only; its signature carries the
         engine's knobs, so a rung never resumes another's state.
         """
+        watchdog = None
+        if memory_budget_bytes is not None:
+            dev = resolve_device(device)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            watchdog = MemoryWatchdog(memory_budget_bytes, dev,
+                                      baseline=live_bytes(dev))
         first = self.plan(spec, device)
         chain = (first.engine,) + first.fallback_chain
-        watchdog = (None if memory_budget_bytes is None
-                    else MemoryWatchdog(memory_budget_bytes, first.device))
         attempts = []
         tried = set()
         ep = first

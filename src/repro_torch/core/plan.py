@@ -15,10 +15,13 @@ against a dataset and the device the build computes on:
     ``engine="auto"`` picks the fastest engine whose predicted peak fits
     ``memory_budget_bytes`` (:func:`memory_model`, fitted to the card):
     materialized, then pipelined, then streamed (flagged
-    ``budget_exceeded`` when even that does not fit).  One adaptation of
-    the reference: only the streaming engines read a dataset from the CPU,
-    so for a host-resident dataset bound for the card ``auto`` chooses
-    between pipelined and streamed alone, and says so in ``notes``.
+    ``budget_exceeded`` when even that does not fit).  The budget counts
+    the build's own bytes, above what was allocated when it began, here
+    and in the :class:`MemoryWatchdog` that ``build_failover`` arms.  One
+    adaptation of the reference: only the streaming engines read a dataset
+    from the CPU, so for a host-resident dataset bound for the card
+    ``auto`` chooses between pipelined and streamed alone, and says so in
+    ``notes``.
   * **Wire.**  ``codec`` sets what the round-1 table crosses the wire as;
     ``codec="auto"`` walks :data:`~repro_torch.core.wire.CODEC_LADDER`
     against ``comm_budget_bits`` (:func:`~repro_torch.core.wire.choose_codec`),
@@ -374,9 +377,10 @@ def live_bytes(device: DeviceLike = "cuda") -> int:
     counted once.  On CUDA the caching allocator's
     ``torch.cuda.memory_allocated``; on the CPU a census of the tensors the
     garbage collector tracks, counted once per storage (as the reference
-    dedups ``jax.live_arrays()`` by buffer).  Unlike the planner's model,
-    which predicts a build's own bytes, this is the whole device's
-    residency: the number an out-of-memory error cares about."""
+    dedups ``jax.live_arrays()`` by buffer).  This is the whole device's
+    residency; a :class:`MemoryWatchdog` with a ``baseline`` subtracts what
+    was resident before its build, which leaves the build's own bytes, the
+    quantity :func:`memory_model` predicts."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         return int(torch.cuda.memory_allocated(dev))
@@ -396,46 +400,72 @@ def live_bytes(device: DeviceLike = "cuda") -> int:
 
 
 class MemoryBudgetExceeded(RuntimeError):
-    """The live-bytes census breached the build's ``memory_budget_bytes``.
+    """The watchdog's census breached the build's ``memory_budget_bytes``.
 
     Raised by :class:`MemoryWatchdog` at a probe (after a superchunk or a
     redraw group, or after a build); the failover ladder catches it and
-    retries on the next cheaper engine."""
+    retries on the next cheaper engine.  ``observed`` is the number held
+    against ``budget``: live device bytes less ``baseline`` (the bytes
+    resident before the build; 0 for an absolute census)."""
 
-    def __init__(self, observed: int, budget: int) -> None:
+    def __init__(self, observed: int, budget: int, baseline: int = 0) -> None:
+        if baseline:
+            what = (f"the build's own device bytes {observed} (live "
+                    f"{observed + baseline} less a baseline of {baseline} "
+                    f"resident before it)")
+        else:
+            what = f"live device bytes {observed}"
         super().__init__(
-            f"live device bytes {observed} exceed memory_budget_bytes="
+            f"{what} exceed memory_budget_bytes="
             f"{budget} ({_fmt_bytes(observed)} > {_fmt_bytes(budget)})"
         )
         self.observed = int(observed)
         self.budget = int(budget)
+        self.baseline = int(baseline)
 
 
 class MemoryWatchdog:
-    """Runtime guard: compare :func:`live_bytes` of ``device`` against a
-    budget at every check.  Callable, so it plugs into the streaming
-    engines' ``probe`` hook; ``peak`` and ``checks`` are the census read
-    back.  It sees the whole device, process-wide (the dataset and other
-    builds included), where the planner's model predicts a build's own
-    bytes."""
+    """Runtime guard: compare :func:`live_bytes` of ``device``, less
+    ``baseline``, against a budget at every check.  Callable, so it plugs
+    into the streaming engines' ``probe`` hook.
 
-    def __init__(self, budget_bytes: int, device: DeviceLike = "cuda") -> None:
+    With the default ``baseline=0`` the check is absolute: the whole
+    device, process-wide, as in the reference.  ``build_failover`` sets
+    the baseline to the bytes resident when its build starts, so the
+    watchdog counts the build's own bytes, the quantity the planner's
+    :func:`memory_model` predicts, and bytes resident before the build (a
+    card-resident dataset, another tenant's tensors) count against
+    neither.  ``peak`` keeps the absolute census, ``own_peak`` the bytes
+    above the baseline, and ``checks`` the number of checks."""
+
+    def __init__(self, budget_bytes: int, device: DeviceLike = "cuda",
+                 baseline: int = 0) -> None:
         if not _is_int(budget_bytes) or budget_bytes < 1:
             raise ValueError(
                 f"budget_bytes must be a positive int, got {budget_bytes!r}"
             )
+        if not _is_int(baseline) or baseline < 0:
+            raise ValueError(
+                f"baseline must be a non-negative int, got {baseline!r}"
+            )
         self.budget_bytes = int(budget_bytes)
         self.device = resolve_device(device)
+        self.baseline = int(baseline)
         self.checks = 0
         self.peak = 0
+        self.own_peak = 0
 
     def check(self) -> int:
+        """One census; returns the bytes held against the budget (live
+        bytes less the baseline)."""
         b = live_bytes(self.device)
+        own = b - self.baseline
         self.checks += 1
         self.peak = max(self.peak, b)
-        if b > self.budget_bytes:
-            raise MemoryBudgetExceeded(b, self.budget_bytes)
-        return b
+        self.own_peak = max(self.own_peak, own)
+        if own > self.budget_bytes:
+            raise MemoryBudgetExceeded(own, self.budget_bytes, self.baseline)
+        return own
 
     __call__ = check
 
@@ -685,7 +715,11 @@ def compile_plan(spec: CoresetSpec, ds: VFLDataset,
     """Compile ``spec`` against ``ds`` — pure planning, no scoring work.
     ``device`` is where the build computes (default: where ``ds`` lives);
     ``backend="auto"``, the prefetch default and the host-dataset rule of
-    ``engine="auto"`` resolve from it.  Raises the task's label
+    ``engine="auto"`` resolve from it.  ``memory_budget_bytes`` is held
+    against :func:`memory_model`, the build's own bytes above what was
+    allocated when it began (the dataset's residency and any other
+    tensor resident before it are not part of it); ``build_failover``'s
+    watchdog counts the same bytes.  Raises the task's label
     requirement and every invalid combination before any engine runs."""
     from repro_torch.core.api import get_task, resolve_backend
 

@@ -3,7 +3,9 @@ reference on shared inputs: the DIS cost bounds, Theorem 4.2's total
 sensitivity, ``standardize``, the ``m_cap`` capacity of DIS and of the
 uniform plan, the seed API (``dis_sample``, ``uniform_sample``,
 ``dis_marginals``), the coreset ratios, and the spec's ``m_cap``,
-``replace`` and ``describe``.
+``replace`` and ``describe``; and the seed-era builders' deprecation shims
+(``tests/test_api.py``'s: the same key gives ``build_coreset``'s indices,
+weights and bill, with the reference's warning text).
 
 Integers, draws and bills are exact.  Float results are fp32 sums taken in
 another order by XLA and torch: weights and standardized values at
@@ -18,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+import repro.core as jcore
+import repro_torch.core as tcore
 from repro.core import CommLedger as JLedger
 from repro.core import CoresetSpec as JSpec
 from repro.core import VFLDataset as JDataset
@@ -27,7 +31,7 @@ from repro.core import dis as jdis
 from repro.core import sensitivity as jsens
 from repro.core import vfl as jvfl
 from repro_torch.convert import coreset_from_numpy, dataset_from_numpy, key_from_numpy
-from repro_torch.core import CommLedger, CoresetSpec, compile_plan
+from repro_torch.core import CommLedger, CoresetSpec, build_coreset, compile_plan
 from repro_torch.core import comm as tcomm
 from repro_torch.core import coreset as tcoreset
 from repro_torch.core import dis as tdis
@@ -238,3 +242,78 @@ def test_spec_m_cap_replace_and_describe():
     assert one.predicted_comm_units == tcomm.CommSchedule.uniform(3, 7).total
     with pytest.raises(ValueError, match="grid"):
         compile_plan(CoresetSpec(budgets=(10, 20), engine="materialized"), tds)
+
+
+# --------------------------------------------------------------------------
+# tests/test_api.py's shims: the seed-era builders over build_coreset
+# --------------------------------------------------------------------------
+
+def _shim_warning(fn):
+    """The call's result and the text of its one DeprecationWarning."""
+    with pytest.warns(DeprecationWarning) as rec:
+        out = fn()
+    assert len(rec) == 1
+    return out, str(rec[0].message)
+
+
+def _reference_shim_text(name, *args, **kw):
+    """The reference shim's warning text, from a call on a tiny dataset."""
+    jds, _ = _datasets(99, n=40, d=4, T=2)
+    _, text = _shim_warning(lambda: getattr(jcore, name)(jax.random.PRNGKey(0), jds,
+                                                         *args, **kw))
+    return text
+
+
+def test_vrlr_shim_bit_identical_with_seed_ledger_total():
+    jds, tds = _datasets(4, n=1200, d=12)
+    m, T = 150, tds.T
+    led_old, led_new = CommLedger(), CommLedger()
+    key = _tkey(jax.random.PRNGKey(5))
+    cs_old, text = _shim_warning(lambda: tcore.build_vrlr_coreset(
+        key, tds, m, ledger=led_old, device="cpu"))
+    cs_new = build_coreset("vrlr", tds, m, key=key, ledger=led_new, device="cpu")
+    assert torch.equal(cs_old.indices, cs_new.indices)
+    assert torch.equal(cs_old.weights, cs_new.weights)
+    # the seed's exact bill: 2T (round 1) + m (round 2 up) + 2mT (bcast + round 3)
+    assert led_old.total == led_new.total == 2 * T + m + 2 * m * T
+    tags = led_new.by_tag()
+    assert tags["dis/round1/G_j"] == T and tags["dis/round1/a_j"] == T
+    assert tags["dis/round2/S_up"] == m
+    assert tags["dis/round2/S_bcast"] == m * T
+    assert tags["dis/round3/g_scores"] == m * T
+    assert text == 'build_vrlr_coreset is deprecated; use build_coreset("vrlr", ...)'
+    assert text == _reference_shim_text("build_vrlr_coreset", 8)
+    # use_kernel=False is backend="ref", which the CPU resolves "auto" to
+    cs_ref, _ = _shim_warning(lambda: tcore.build_vrlr_coreset(
+        key, tds, m, use_kernel=False, device="cpu"))
+    assert torch.equal(cs_ref.indices, cs_new.indices)
+
+
+def test_vkmc_shim_bit_identical():
+    jds, tds = _datasets(8, n=1200, d=12, labels=False)
+    m, k = 120, 4
+    led_old, led_new = CommLedger(), CommLedger()
+    key = _tkey(jax.random.PRNGKey(9))
+    cs_old, text = _shim_warning(lambda: tcore.build_vkmc_coreset(
+        key, tds, k=k, m=m, ledger=led_old, device="cpu"))
+    cs_new = build_coreset("vkmc", tds, m, key=key, k=k, ledger=led_new, device="cpu")
+    assert torch.equal(cs_old.indices, cs_new.indices)
+    assert torch.equal(cs_old.weights, cs_new.weights)
+    assert led_old.total == led_new.total
+    assert text == 'build_vkmc_coreset is deprecated; use build_coreset("vkmc", ...)'
+    assert text == _reference_shim_text("build_vkmc_coreset", 2, 8, local_iters=2)
+
+
+def test_uniform_shim_bit_identical():
+    _, tds = _datasets(10, n=1200, d=12)
+    m = 80
+    led = CommLedger()
+    key = _tkey(jax.random.PRNGKey(11))
+    cs_old, text = _shim_warning(lambda: tcore.build_uniform_coreset(key, tds, m,
+                                                                     device="cpu"))
+    cs_new = build_coreset("uniform", tds, m, key=key, ledger=led, device="cpu")
+    assert torch.equal(cs_old.indices, cs_new.indices)
+    assert torch.equal(cs_old.weights, cs_new.weights)
+    assert led.total == m * tds.T                        # broadcast only
+    assert text == 'build_uniform_coreset is deprecated; use build_coreset("uniform", ...)'
+    assert text == _reference_shim_text("build_uniform_coreset", 8)

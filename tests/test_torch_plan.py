@@ -426,6 +426,90 @@ def test_watchdog_raises_with_census():
     assert roomy() <= roomy.budget_bytes and roomy.checks == 1
 
 
+def test_watchdog_without_a_baseline_keeps_the_absolute_check():
+    """The reference's contract: no baseline, the whole census against the
+    budget.  With a baseline only the bytes above it count; ``peak`` keeps
+    the absolute census, ``own_peak`` the bytes above the baseline, and the
+    refusal says which bytes it counted."""
+    gc.collect()
+    keep = torch.zeros(1 << 16, dtype=torch.float32)           # 256 KiB resident
+    live = live_bytes("cpu")
+    absolute = MemoryWatchdog(live - 1, "cpu")
+    assert absolute.baseline == 0
+    with pytest.raises(MemoryBudgetExceeded) as ei:
+        absolute.check()
+    assert ei.value.baseline == 0 and ei.value.observed >= keep.numel() * 4
+    assert str(ei.value).startswith(f"live device bytes {ei.value.observed} exceed")
+    own = MemoryWatchdog(1 << 20, "cpu", baseline=live)
+    assert own() <= 0 and own.own_peak <= 0 and own.peak >= keep.numel() * 4
+    extra = torch.ones(1 << 19, dtype=torch.float32)            # 2 MiB above it
+    with pytest.raises(MemoryBudgetExceeded) as ei:
+        own.check()
+    assert ei.value.baseline == live and ei.value.observed >= extra.numel() * 4
+    assert f"less a baseline of {live} resident before it" in str(ei.value)
+    assert own.own_peak >= extra.numel() * 4 and own.peak >= live + extra.numel() * 4
+    with pytest.raises(ValueError, match="baseline"):
+        MemoryWatchdog(1, "cpu", baseline=-1)
+    del keep, extra
+
+
+@pytest.mark.parametrize("engine", ["materialized", "pipelined"])
+def test_a_build_under_its_own_prediction_makes_no_attempt(engine):
+    """The budget means the build's own bytes on both sides: a build under
+    a budget equal to its plan's ``predicted_peak_bytes`` keeps its engine,
+    with tensors resident before it that are larger than that budget."""
+    ds = _ds(5, n=2048)
+    resident = torch.zeros(1 << 24, dtype=torch.float32)          # 64 MiB
+    for task in ("vrlr", "vkmc"):
+        params = ({} if task == "vrlr" else {"k": 4} if engine == "materialized"
+                  else {"k": 4, "center_sample": 512})
+        spec = CoresetSpec(task=task, budgets=48, engine=engine, block_size=256,
+                           chunk_blocks=4, prefetch=engine == "pipelined", params=params)
+        pipe = CoresetPipeline(ds)
+        pred = pipe.plan(spec, "cpu").predicted_peak_bytes
+        assert pred < resident.numel() * 4
+        gc.collect()
+        out = pipe.build_failover(spec, key=_key(6), memory_budget_bytes=pred,
+                                  device="cpu")
+        assert out.attempts == () and out.engine == engine and out.fallback is None
+    del resident
+
+
+def test_a_resident_tensor_changes_neither_the_engine_nor_a_trip():
+    """64 MiB allocated before the build: the engine a budget selects is
+    the same, and so is whether ``build_failover``'s watchdog trips — it
+    does not at the pipelined prediction, it does at one byte."""
+    ds = _ds(7, n=2048)
+    base = dict(task="vrlr", budgets=48, block_size=256, chunk_blocks=4, prefetch=True)
+    mm = CoresetPipeline(ds).plan(CoresetSpec(**base), "cpu").memory_model
+
+    def outcome():
+        pipe = CoresetPipeline(ds)
+        engines = [pipe.plan(CoresetSpec(memory_budget_bytes=B, **base), "cpu").engine
+                   for B in (mm["materialized"], mm["pipelined"], mm["streamed"])]
+        forced = CoresetSpec(engine="pipelined", **base)
+        runs = []
+        for B in (mm["pipelined"], 1):
+            gc.collect()
+            led = CommLedger()
+            out = pipe.build_failover(forced, key=_key(8), ledger=led,
+                                      memory_budget_bytes=B, device="cpu")
+            runs.append((out.fallback, [a.engine for a in out.attempts], led.total,
+                         out.coreset.indices.tolist(), out.coreset.weights.tolist()))
+        return engines, runs
+
+    alone = outcome()
+    resident = torch.zeros(1 << 24, dtype=torch.float32)          # 64 MiB
+    with_resident = outcome()
+    del resident
+    assert alone == with_resident
+    engines, runs = alone
+    assert engines == ["materialized", "pipelined", "streamed"]
+    assert runs[0][:2] == (None, []) and runs[1][:2] == ("pipelined->streamed",
+                                                        ["pipelined"])
+    assert runs[0][3] == runs[1][3]               # the streamed rung, bit for bit
+
+
 def test_fallback_chain_follows_ladder():
     ds = _ds(0)
     chains = {}
