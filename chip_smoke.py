@@ -183,7 +183,40 @@ and never JAX or the JAX package ``repro``.  Phases, each fatal on failure:
    one leaf, built alone and again with 1 GiB resident: the seven full
    leaves fall back to streamed both times, the nodes are (a)'s bit for
    bit and the ledger (a)'s bill plus one 0-unit ``fallback/`` entry a
-   fallback.
+   fallback; phase 13's (a) trees also leave, for phase 14, the digests of
+   their levels and of ``query(reduce_to=1000)`` after every insert;
+14. the multi-tenant ``CoresetService`` on the card at phase 13's shapes:
+   (a) tenants ``v`` (``vrlr``) and ``k`` (``vkmc``) with phase 13's keys and
+   ``v2`` (``vrlr``, a third seed) inserted round robin with a reduced query
+   after each insert: ``v`` and ``k`` bit for bit phase 13's trees after
+   every insert (levels and queries), ``v2``'s leaves hitting ``v``'s plans,
+   each ledger the sum of its receipts' deltas, insert and query
+   ``latency_s`` p50 / p99 per task and the first insert against the warm
+   ones; (b) a hostile mix on a ``SimClock`` ticking 1 s a read over three
+   superchunks: a rate-limited tenant shed with ``rate_limit`` and
+   recovering, a deadline breached mid-leaf returning a ``deadline`` receipt
+   with the tree and ledger bit for bit unchanged, a tenant whose
+   ``Transport`` drops every party opening its breaker and shed with
+   ``breaker_open``, a normal tenant's final query bit for bit the same
+   tenant alone on a fresh service and its ``failover=True`` twin (under one
+   leaf's streamed prediction, ``"pipelined->streamed"`` receipts), every
+   request a receipt or a party failure its breaker recorded; (c) six
+   one-shot requests of two tenants on phase 4's card dataset (``vrlr`` at
+   m in {1000, 5000}, ``vkmc`` at 1000, k = 10) flushed as two batched
+   builds, K1 once for the ``vrlr`` group, the m = m_cap cells bit for bit
+   their eager builds, every bill exact, ``flush_s`` beside the requests
+   built one by one, and a host dataset refused at ``attach_dataset``;
+15. the synthetic datasets: ``rng.normal``'s words bit for bit on the card
+   and the CPU, ``year_prediction_like`` and ``correlated_vfl_data`` at
+   n = 51,534 (the reference's ``--fast`` size) on the card against the
+   port's CPU ones within the tests' tolerances; then
+   ``benchmarks/common.py``'s recipe at n = 515,345 on the card:
+   ``vrlr`` from ``PRNGKey(7)`` with targets centred on the train split and
+   a 10% test split, ``end_to_end`` at m in {1000, 5000}; ``vkmc`` from
+   ``PRNGKey(11)``, standardized, k = 10, ``end_to_end`` at m = 5000; each
+   ``rel_error`` finite and under the gate, the bill ``dis_total`` + 2mT,
+   the launches of one ``end_to_end``, and the generation's time and own
+   peak device memory.
 
 Every path is driven with all five launch counters set to 0 just before
 it and read just after.  With the default seed, the drawn indices of
@@ -300,6 +333,15 @@ SHARD_BLOCK = 66_245
 TREE_CHUNK = 65_536
 TREE_BUDGET = 1000
 TREE_HEADROOM = 2
+# phase 15, the synthetic datasets: the reference's --fast n and the paper's
+# YearPredictionMSD n (benchmarks/common.py), the assumption sweep's width for
+# correlated_vfl_data, and the tolerances tests/test_torch_synthetic.py holds the
+# generators to (X is O(1)-O(10) after a library's Z @ W; y is near 2000)
+SYNTH_FAST_N = 51_534
+SYNTH_FULL_N = 515_345
+SYNTH_CORR_D = 30
+SYNTH_X_ATOL = 1e-5
+SYNTH_Y_RTOL = 1e-6
 # indices_sha256 of phases 4 and 5 at --seed 0, recorded on the card with
 # the plain draw (PERF.md); phase 7's vrlr cell (0, 1) is phase 4's m = 5000
 # build
@@ -414,6 +456,29 @@ def digest(indices) -> str:
     import hashlib
 
     return hashlib.sha256(indices.cpu().numpy().astype("int64").tobytes()).hexdigest()[:16]
+
+
+def mat_digest(mat) -> str:
+    """A short hash of a materialized coreset's rows, weights, feature
+    slices, labels and bill: equal digests are the same node bit for bit."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for a in (mat.indices, mat.weights, *mat.parts, *([] if mat.y is None else [mat.y])):
+        h.update(np.ascontiguousarray(a).tobytes())
+    h.update(f"{mat.comm_units},{mat.comm_bits}".encode())
+    return h.hexdigest()[:16]
+
+
+def levels_digest(tree) -> str:
+    """A short hash of a serving tree's occupied levels (level, node)."""
+    import hashlib
+
+    return hashlib.sha256("".join(
+        f"{lvl}:{mat_digest(nd.cs)};" for lvl, nd in enumerate(tree.levels)
+        if nd is not None).encode()).hexdigest()[:16]
 
 
 def check_kernel(torch, name, kern, plain, args, scale_fn, tol):
@@ -2028,7 +2093,14 @@ def tree_phase(torch, dev, seed, ds_host, ds, lam, launches, card, reset_counts,
     replayed tree; (e) the reduced query fit and evaluated at full n against
     the flat build; (f) leaf failover under a budget from the memory model
     alone, with and without 1 GiB resident.  ``ds`` is the same data on the
-    card (for the fits); adds its counted runs to ``launches``."""
+    card (for the fits); adds its counted runs to ``launches``.
+
+    Returns the trees' keys and, per task, (a)'s tree after each insert:
+    the digest of its levels and of ``query(reduce_to=TREE_BUDGET)`` at that
+    point (taken after the counted run on a copy of the tree with its
+    levels of the time and a ledger of its own), for phase 14's tenants."""
+    import copy
+
     import numpy as np
 
     from repro_torch import rng
@@ -2083,11 +2155,23 @@ def tree_phase(torch, dev, seed, ds_host, ds, lam, launches, card, reset_counts,
             launches[nm] += counts[nm]
         return out, secs, counts
 
-    def grow(task, tree):
+    def grow(task, tree, snaps=None):
         stats = []
         for i in range(len(bounds)):
             stats.append(tree.insert(*chunk(i, task == "vrlr")))
+            if snaps is not None:
+                snaps.append(list(tree.levels))
         return stats
+
+    def trail_of(tree, snaps):
+        """(levels digest, query digest) after each insert: the query of a
+        copy of the tree holding the levels and insert count of the time."""
+        out = []
+        for i, levels in enumerate(snaps):
+            view = copy.copy(tree)
+            view.levels, view.num_chunks, view.ledger = levels, i + 1, CommLedger()
+            out.append((levels_digest(view), mat_digest(view.query(reduce_to=m))))
+        return out
 
     def same_mat(a, b):
         return (np.array_equal(a.indices, b.indices) and np.array_equal(a.weights, b.weights)
@@ -2111,11 +2195,12 @@ def tree_phase(torch, dev, seed, ds_host, ds, lam, launches, card, reset_counts,
         f"{TREE_HEADROOM} (nodes keep {nb}), leaves pipelined at block {PIPE_BLOCK}, "
         f"prefetch on; {card}")
     stage_s = {}
-    trees, bills = {}, {}
+    trees, bills, trail = {}, {}, {}
     for task in ("vrlr", "vkmc"):
         t_stage = time.perf_counter()
         tree = tree_of(task, RecordingTree)
-        stats, grow_s, counts = counted(lambda: grow(task, tree))
+        snaps = []
+        stats, grow_s, counts = counted(lambda: grow(task, tree, snaps))
         need = (("weighted_gram", "leverage", "categorical") if task == "vrlr"
                 else ("kmeans_assign_update", "kmeans_assign", "categorical"))
         if any(counts[nm] == 0 for nm in need):
@@ -2177,6 +2262,7 @@ def tree_phase(torch, dev, seed, ds_host, ds, lam, launches, card, reset_counts,
             f"{tree.plan_cache.stats()['misses']} misses; launches {counts}; {card}")
         if (tree.plan_cache.hits, tree.plan_cache.misses) != (len(bounds) - 2, 2):
             fail(f"tree {task}: plan cache {tree.plan_cache.stats()}")
+        trail[task] = trail_of(tree, snaps)
         # (d) two queries between inserts give the same bits
         (q1, q2), q_s, _ = counted(lambda: (tree.query(reduce_to=m), tree.query(reduce_to=m)))
         if not same_mat(q1, q2) or q1.m != m:
@@ -2260,6 +2346,384 @@ def tree_phase(torch, dev, seed, ds_host, ds, lam, launches, card, reset_counts,
     stage_s["failover (f)"] = time.perf_counter() - t_stage
     log(f"phase 13 took {time.perf_counter() - phase_t0:.1f} s (" + ", ".join(
         f"{k} {v:.1f} s" for k, v in stage_s.items()) + f"); {card}")
+    return keys, trail
+
+
+def service_phase(torch, dev, seed, ds_host, ds, launches, card, reset_counts, read_counts,
+                  tree_keys, tree_trail):
+    """Phase 14, the multi-tenant ``CoresetService`` on the card, at phase
+    13's shapes (superchunks of TREE_CHUNK rows of phase 4's host copy,
+    budget TREE_BUDGET, headroom TREE_HEADROOM, leaves pipelined at block
+    PIPE_BLOCK with prefetch).  (a) three streaming tenants inserted round
+    robin, a reduced query after each insert: ``v`` and ``k`` (phase 13's
+    keys) bit for bit phase 13's trees after every insert (``tree_trail``),
+    ``v2`` hitting ``v``'s plans, each ledger the sum of its receipts'
+    deltas; (b) a hostile mix on a ticking ``SimClock``: a rate limit shed
+    and recovered, a deadline breached mid-leaf leaving tree and ledger
+    bit for bit, a tenant whose transport drops everything opening its
+    breaker, a normal tenant bit for bit alone on a fresh service, a
+    failover tenant bit for bit its unforced twin, every request a receipt
+    or a party failure its breaker recorded; (c) a flush of six requests
+    from two tenants on phase 4's card dataset ``ds``: two batched builds,
+    K1 once for the ``vrlr`` group, the m = m_cap cells bit for bit their
+    eager builds, the bills exact."""
+    import numpy as np
+
+    from repro_torch import rng
+    from repro_torch.core import (
+        DEFAULT_CHUNK_BLOCKS, CommSchedule, Deadline, FaultPlan, PartyUnavailable,
+        SimClock, Transport, build_coreset, memory_model)
+    from repro_torch.serve import CoresetService, InsertReceipt, QueryReceipt, ShedReceipt
+
+    T, n = T_PARTIES, N_FULL
+    phase_t0 = time.perf_counter()
+    m = TREE_BUDGET
+    bounds = [(a, min(a + TREE_CHUNK, n)) for a in range(0, n, TREE_CHUNK)]
+    host_parts = [p.numpy() for p in ds_host.parts]
+    host_y = ds_host.y.numpy()
+    vk_params = {"k": K_CLUSTERS, "alpha": ALPHA, "local_iters": LOCAL_ITERS}
+    tree_kw = dict(budget=m, block_size=PIPE_BLOCK, prefetch=True, headroom=TREE_HEADROOM)
+
+    def chunk(i, labels):
+        a, b = bounds[i]
+        return [p[a:b] for p in host_parts], (host_y[a:b] if labels else None)
+
+    def counted(fn):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        reset_counts()
+        for nm in launches:
+            launches[nm] += counts[nm]
+        return out, secs, counts
+
+    def pct(xs, q):
+        return float(np.percentile(np.asarray(xs), q))
+
+    stage_s = {}
+    # (a) three streaming tenants, round robin, a reduced query after each insert
+    t_stage = time.perf_counter()
+    svc = CoresetService(device=dev)
+    tasks = {"v": "vrlr", "k": "vkmc", "v2": "vrlr"}
+    svc.register("v", task="vrlr", key=tree_keys["vrlr"], **tree_kw)
+    svc.register("k", task="vkmc", key=tree_keys["vkmc"], **tree_kw, **vk_params)
+    svc.register("v2", task="vrlr", seed=seed + 702, **tree_kw)
+    recs = {name: [] for name in tasks}
+
+    def stream():
+        for i in range(len(bounds)):
+            for name, task in tasks.items():
+                ins = svc.insert(name, *chunk(i, task == "vrlr"))
+                q = svc.query(name, reduce_to=m)
+                if not (isinstance(ins, InsertReceipt) and isinstance(q, QueryReceipt)):
+                    fail(f"service (a): tenant {name} insert {i} was shed: {ins} {q}")
+                recs[name].append((ins, q, levels_digest(svc.state(name).tree),
+                                   mat_digest(q.result)))
+
+    _, stream_s, counts = counted(stream)
+    if any(c == 0 for c in counts.values()):
+        fail(f"service (a): a kernel of the path was not launched: {counts}")
+    for name, task in (("v", "vrlr"), ("k", "vkmc")):
+        got = [(lv, qd) for _, _, lv, qd in recs[name]]
+        if got != tree_trail[task]:
+            bad = [i for i, (a, b) in enumerate(zip(got, tree_trail[task])) if a != b]
+            fail(f"service (a): tenant {name} differs from phase 13's {task} tree after "
+                 f"inserts {bad}")
+    for name in tasks:
+        st = svc.state(name)
+        delta = sum(ins.stats.comm_delta + q.comm_delta for ins, q, _, _ in recs[name])
+        last = recs[name][-1][1]
+        if not (st.ledger.total == delta == last.ledger_total
+                and st.ledger.total_bits == last.ledger_bits):
+            fail(f"service (a): tenant {name}: ledger {st.ledger.total}, receipts' deltas "
+                 f"{delta}, last receipt {last.ledger_total}")
+    hits = {name: [ins.plan_hit for ins, _, _, _ in recs[name]] for name in tasks}
+    if not all(hits["v2"]) or hits["v"][0] or hits["k"][0]:
+        fail(f"service (a): plan hits {hits}")
+    log(f"service (a): tenants v (vrlr), k (vkmc) and v2 (vrlr, seed + 702) on {dev}, "
+        f"{len(bounds)} superchunks each round robin, query(reduce_to={m}) after every "
+        f"insert, {stream_s:.4f} s; v and k bit for bit phase 13's trees after every insert "
+        f"(levels and queries); v2's leaves hit v's plans {hits['v2']}; each ledger the sum "
+        f"of its receipts' deltas ({ {nm: svc.state(nm).ledger.total for nm in tasks} }); "
+        f"plan cache {svc.plan_cache.stats()['hits']} hits "
+        f"{svc.plan_cache.stats()['misses']} misses; launches {counts}; {card}")
+    for task, names in (("vrlr", ("v", "v2")), ("vkmc", ("k",))):
+        ins_l = [ins.latency_s for nm in names for ins, _, _, _ in recs[nm]]
+        q_l = [q.latency_s for nm in names for _, q, _, _ in recs[nm]]
+        first = [recs[nm][0][0].latency_s for nm in names]
+        warm = [ins.latency_s for nm in names for ins, _, _, _ in recs[nm][1:-1]]
+        log(f"service (a) {task}: insert latency_s p50 {pct(ins_l, 50):.4f} p99 "
+            f"{pct(ins_l, 99):.4f}, query latency_s p50 {pct(q_l, 50):.4f} p99 "
+            f"{pct(q_l, 99):.4f} ({len(ins_l)} each); first insert(s) "
+            f"{[round(x, 4) for x in first]} against the full warm inserts' median "
+            f"{pct(warm, 50):.4f} (no gate: the port compiles nothing); {card}")
+    stage_s["tenants (a)"] = time.perf_counter() - t_stage
+    del svc, recs
+
+    # (b) the hostile mix on a SimClock that ticks a second every read, three
+    #     full superchunks
+    t_stage = time.perf_counter()
+    clock = SimClock(tick=1.0)
+    svc = CoresetService(device=dev, clock=clock)
+    _, s_w = ds_host.stacked_widths(True)
+    fo_budget = memory_model(T, TREE_CHUNK, s_w, PIPE_BLOCK, DEFAULT_CHUNK_BLOCKS,
+                             m_cap=TREE_HEADROOM * m)["streamed"]
+    svc.register("g", task="vrlr", seed=seed + 710, rate_limit=(0.01, 2), **tree_kw)
+    svc.register("d", task="vrlr", seed=seed + 711, **tree_kw)
+    svc.register("bad", task="vrlr", seed=seed + 712, fault_policy="retry",
+                 transport=Transport(FaultPlan(seed=3, drop=1.0, max_retries=1),
+                                     clock=clock),
+                 breaker_threshold=2, breaker_cooldown_s=50.0, **tree_kw)
+    svc.register("n", task="vrlr", seed=seed + 713, **tree_kw)
+    svc.register("f", task="vrlr", seed=seed + 713, failover=True,
+                 memory_budget_bytes=fo_budget, **tree_kw)
+    issued, outcomes = 0, []
+
+    def call(fn, *a, **kw):
+        nonlocal issued
+        issued += 1
+        try:
+            out = fn(*a, **kw)
+        except PartyUnavailable as e:
+            outcomes.append(("party_failure", str(e)))
+            return None
+        outcomes.append(out)
+        return out
+
+    def mix():
+        for i in range(3):
+            for name in ("n", "f", "bad"):
+                call(svc.insert, name, *chunk(i, True))
+        g = [call(svc.insert, "g", *chunk(i, True)) for i in range(3)]
+        clock.advance(200.0)                      # the bucket refills
+        g.append(call(svc.insert, "g", *chunk(2, True)))
+        call(svc.insert, "d", *chunk(0, True))
+        st = svc.state("d")
+        before = (levels_digest(st.tree), list(st.ledger.messages), st.ledger.total,
+                  st.ledger.total_bits, st.tree.num_chunks)
+        # admission reads the clock twice (the deadline, the breaker), then the
+        # leaf's first superchunk probe reads past the 2.5 s budget
+        d = call(svc.insert, "d", *chunk(1, True), deadline=Deadline.after(clock, 2.5))
+        after = (levels_digest(st.tree), list(st.ledger.messages), st.ledger.total,
+                 st.ledger.total_bits, st.tree.num_chunks)
+        qs = {name: call(svc.query, name, reduce_to=m) for name in ("n", "f")}
+        return g, d, before, after, qs
+
+    (g, d, before, after, qs), mix_s, counts = counted(mix)
+    shed_g = [isinstance(r, ShedReceipt) and r.reason for r in g]
+    if shed_g != [False, False, "rate_limit", False]:
+        fail(f"service (b): the rate-limited tenant's inserts: {g}")
+    if not (isinstance(d, ShedReceipt) and d.reason == "deadline") or before != after:
+        fail(f"service (b): the deadlined insert gave {d}; tree and ledger unchanged: "
+             f"{before == after}")
+    bad_out = [o for o in outcomes if isinstance(o, tuple)]
+    br = svc.stats()["breakers"]["bad"]
+    shed_bad = [o for o in outcomes if isinstance(o, ShedReceipt) and o.tenant == "bad"]
+    if len(bad_out) != 2 or br["state"] != "open" or br["trips"] != 1 or \
+            [o.reason for o in shed_bad] != ["breaker_open"]:
+        fail(f"service (b): the dropping tenant: failures {bad_out}, breaker {br}, sheds "
+             f"{shed_bad}")
+    fb = [o.fallback for o in outcomes if isinstance(o, InsertReceipt) and o.tenant == "f"]
+    if fb != ["pipelined->streamed"] * 3:
+        fail(f"service (b): the failover tenant's receipts: {fb}")
+    receipts = [o for o in outcomes if not isinstance(o, tuple)]
+    if issued != len(receipts) + len(bad_out) or br["failures"] != len(bad_out):
+        fail(f"service (b): {issued} requests, {len(receipts)} receipts, {len(bad_out)} "
+             f"party failures")
+    # the normal tenant alone on a fresh service, and its failover twin
+    alone = CoresetService(device=dev)
+    alone.register("n", task="vrlr", seed=seed + 713, **tree_kw)
+    for i in range(3):
+        alone.insert("n", *chunk(i, True))
+    q_alone = alone.query("n", reduce_to=m)
+    dg = {name: mat_digest(q.result) for name, q in qs.items()}
+    if not (dg["n"] == dg["f"] == mat_digest(q_alone.result)
+            and levels_digest(alone.state("n").tree) == levels_digest(svc.state("n").tree)
+            == levels_digest(svc.state("f").tree)
+            and alone.state("n").ledger.total == svc.state("n").ledger.total
+            == svc.state("f").ledger.total):
+        fail(f"service (b): the normal tenant, alone and its failover twin differ: {dg}, "
+             f"{mat_digest(q_alone.result)}")
+    reasons = sorted({o.reason for o in receipts if isinstance(o, ShedReceipt)})
+    log(f"service (b): hostile mix on a SimClock ticking 1 s a read, {issued} requests in "
+        f"{mix_s:.4f} s: {len(receipts)} receipts ({sum(isinstance(o, ShedReceipt) for o in receipts)} "
+        f"shed: {reasons}) + {len(bad_out)} party failures recorded by the breaker (state "
+        f"{br['state']}, {br['trips']} trip); rate limit shed then recovered after 200 s; "
+        f"the deadline breached mid-leaf left tree and ledger bit for bit; the failover "
+        f"tenant's receipts {fb}, memory_budget_bytes={fo_budget}; tenants n, f and n alone "
+        f"on a fresh service query the same bits ({dg['n']}); launches {counts}; {card}")
+    stage_s["hostile mix (b)"] = time.perf_counter() - t_stage
+    del svc, alone
+
+    # (c) the batched flush on phase 4's card dataset
+    t_stage = time.perf_counter()
+    svc = CoresetService(device=dev)
+    for name, off in (("a", 720), ("b", 721)):
+        svc.register(name, task="vrlr", seed=seed + off, **tree_kw)
+    svc.attach_dataset("main", ds)
+    try:
+        svc.attach_dataset("host", ds_host)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        fail("service (c): a host dataset was attached to a service on the card")
+    reqs = [("a", "vrlr", BUDGETS[0]), ("a", "vrlr", BUDGETS[1]), ("b", "vrlr", BUDGETS[0]),
+            ("b", "vrlr", BUDGETS[1]), ("a", "vkmc", BUDGETS[0]), ("b", "vkmc", BUDGETS[0])]
+    keys = [rng.fold_in(rng.PRNGKey(seed + 730), i) for i in range(len(reqs))]
+    tickets = [svc.submit(t, "main", mb, key=k, task=task,
+                          **(vk_params if task == "vkmc" else {}))
+               for (t, task, mb), k in zip(reqs, keys)]
+    out, flush_s, counts = counted(svc.flush)
+    want = {"leverage": 1, "weighted_gram": 0, "kmeans_assign": 0,
+            "kmeans_assign_update": 2 * (LOCAL_ITERS + 1),
+            "categorical": 4 * len(BUDGETS) * 2 + 2 * (T * K_CLUSTERS + 2)}
+    if (svc.batched_flushes, svc.batched_cells) != (2, len(reqs)) or counts != want:
+        fail(f"service (c): {svc.batched_flushes} batched builds of {svc.batched_cells} "
+             f"cells, launches {counts}; counted {want} from the code")
+    solo_s = 0.0
+    for (t, task, mb), k, tk in zip(reqs, keys, tickets):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solo = build_coreset(task, ds, mb, key=k, **(vk_params if task == "vkmc" else {}))
+        torch.cuda.synchronize()
+        solo_s += time.perf_counter() - t0
+        cell = out[tk]
+        cap = BUDGETS[-1] if task == "vrlr" else BUDGETS[0]
+        if cell.comm_units != CommSchedule.dis_total(T, mb) or cell.indices.shape != (mb,):
+            fail(f"service (c): ticket {tk} billed {cell.comm_units} for m={mb}")
+        if mb == cap and not (torch.equal(cell.indices, solo.indices)
+                              and torch.equal(cell.weights, solo.weights)):
+            fail(f"service (c): the {task} m={mb} cell of ticket {tk} differs from its "
+                 f"eager build")
+    for name in ("a", "b"):
+        want_units = sum(CommSchedule.dis_total(T, mb) for t, _, mb in reqs if t == name)
+        if svc.state(name).ledger.total != want_units:
+            fail(f"service (c): tenant {name} billed {svc.state(name).ledger.total}, "
+                 f"want {want_units}")
+    log(f"service (c): flush of {len(reqs)} requests from two tenants on phase 4's card "
+        f"dataset (vrlr at m in {BUDGETS}, vkmc at m={BUDGETS[0]}, k={K_CLUSTERS}): "
+        f"{svc.batched_flushes} batched builds, flush_s={flush_s:.4f} against "
+        f"{solo_s:.4f} s for the same requests built one by one; launches {counts} (K1 "
+        f"once for the vrlr group); the m = m_cap cells bit for bit their eager builds, "
+        f"every cell billed dis_total, each tenant's ledger exact; a host dataset refused "
+        f"at attach: {refused!r}; {card}")
+    stage_s["flush (c)"] = time.perf_counter() - t_stage
+    log(f"phase 14 took {time.perf_counter() - phase_t0:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in stage_s.items()) + f"); {card}")
+
+
+def synthetic_phase(torch, dev, seed, launches, card, reset_counts, read_counts):
+    """Phase 15, the synthetic datasets on the card: ``rng.normal``'s words
+    on the card bit for bit the CPU's, ``year_prediction_like`` and
+    ``correlated_vfl_data`` at the reference's ``--fast`` n against the
+    port's CPU ones; then ``benchmarks/common.py``'s recipe at the paper's
+    YearPredictionMSD n on the card, each build through ``end_to_end``."""
+    from repro_torch import rng
+    from repro_torch.core import (
+        CommLedger, CommSchedule, CoresetSpec, VFLDataset, end_to_end, standardize)
+    from repro_torch.data import correlated_vfl_data, year_prediction_like
+
+    T = T_PARTIES
+    phase_t0 = time.perf_counter()
+    n_fast = SYNTH_FAST_N
+    # the normal words of year_prediction_like's largest draw, card and CPU
+    k3 = rng.split(rng.split(rng.PRNGKey(7), 3)[0], 4)[2]
+    z_card = rng.normal(k3.to(dev), (n_fast, D_FULL)).cpu()
+    z_cpu = rng.normal(k3, (n_fast, D_FULL))
+    if not torch.equal(z_card.view(torch.int32), z_cpu.view(torch.int32)):
+        fail("synthetic: rng.normal's words differ on the card and the CPU")
+    X_c, y_c = year_prediction_like(rng.PRNGKey(7), n=n_fast, device=dev)
+    X_h, y_h = year_prediction_like(rng.PRNGKey(7), n=n_fast, device="cpu")
+    x_err = float((X_c.cpu() - X_h).abs().max())
+    y_err = float(((y_c.cpu() - y_h).abs() / y_h.abs()).max())
+    C_c = correlated_vfl_data(rng.PRNGKey(seed + 60), n_fast, SYNTH_CORR_D, T,
+                              cross_correlation=0.6, k_clusters=K_CLUSTERS, device=dev)
+    C_h = correlated_vfl_data(rng.PRNGKey(seed + 60), n_fast, SYNTH_CORR_D, T,
+                              cross_correlation=0.6, k_clusters=K_CLUSTERS, device="cpu")
+    c_err = float((C_c.cpu() - C_h).abs().max())
+    if not (x_err <= SYNTH_X_ATOL and y_err <= SYNTH_Y_RTOL and c_err <= SYNTH_X_ATOL):
+        fail(f"synthetic: card against CPU at n={n_fast}: X {x_err:.3e}, y {y_err:.3e} "
+             f"(rtol), correlated {c_err:.3e}")
+    log(f"synthetic: rng.normal's {n_fast * D_FULL} words of year_prediction_like's noise "
+        f"bit for bit on the card and the CPU; at n={n_fast}: X max abs {x_err:.3e} (atol "
+        f"{SYNTH_X_ATOL}), y max rel {y_err:.3e} (rtol {SYNTH_Y_RTOL}), correlated_vfl_data "
+        f"(d={SYNTH_CORR_D}, k={K_CLUSTERS}) max abs {c_err:.3e}")
+    del X_c, y_c, X_h, y_h, C_c, C_h, z_card, z_cpu
+
+    def generate(key):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        X, y = year_prediction_like(key, n=SYNTH_FULL_N, device=dev)
+        torch.cuda.synchronize()
+        return X, y, time.perf_counter() - t0, torch.cuda.max_memory_allocated() - base
+
+    # vrlr: PRNGKey(7), targets centred on the train split, a 10% test split
+    X, y, gen_s, gen_peak = generate(rng.PRNGKey(7))
+    n_test = SYNTH_FULL_N // 10
+    y = y - y[:-n_test].mean()
+    full = VFLDataset.from_dense(X, y, T=T)
+    train = VFLDataset([p[:-n_test] for p in full.parts], full.y[:-n_test])
+    X_test, y_test = X[-n_test:], y[-n_test:]
+    del X, full
+    log(f"synthetic: year_prediction_like(PRNGKey(7), n={SYNTH_FULL_N}) on the card in "
+        f"{gen_s:.4f} s, its own peak {gen_peak} bytes (X is {SYNTH_FULL_N * D_FULL * 4}); "
+        f"train {train.n} rows, test {n_test}; {card}")
+    lam = 0.1 * train.n
+    per_e2e = {"vrlr": {"leverage": 1, "weighted_gram": 2, "kmeans_assign": 0,
+                        "kmeans_assign_update": 0, "categorical": 2},
+               "vkmc": {"leverage": 0, "weighted_gram": 0, "kmeans_assign": 4,
+                        "kmeans_assign_update": LOCAL_ITERS + 1 + 2 * FIT_ITERS,
+                        "categorical": T * K_CLUSTERS + 2 + 2 * K_CLUSTERS}}
+
+    def run(task, ds_, mb, key, **kw):
+        led = CommLedger()
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cs, fit, rep = end_to_end(CoresetSpec(task=task, budgets=mb, params=kw.pop("params", {})),
+                                  ds_, key=key, ledger=led, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        reset_counts()
+        for nm in launches:
+            launches[nm] += counts[nm]
+        want = CommSchedule.dis_total(T, mb)
+        if not (math.isfinite(rep.rel_error) and rep.rel_error < REL_ERROR_GATE):
+            fail(f"synthetic {task} m={mb}: rel_error {rep.rel_error}")
+        if cs.comm_units != want or led.total != want + 2 * mb * T or counts != per_e2e[task]:
+            fail(f"synthetic {task} m={mb}: bill {cs.comm_units} (dis_total {want}), ledger "
+                 f"{led.total}, launches {counts} (want {per_e2e[task]})")
+        return fit, rep, secs, counts
+
+    for mb in BUDGETS:
+        fit, rep, secs, counts = run("vrlr", train, mb, rng.fold_in(rng.PRNGKey(seed + 800), mb),
+                                     lam=lam)
+        test_mse = float(((X_test @ fit.params - y_test) ** 2).mean())
+        log(f"synthetic vrlr m={mb}: end_to_end {secs:.4f} s, rel_error {rep.rel_error:.6g} "
+            f"(gate {REL_ERROR_GATE}), test MSE {test_mse:.6g}, bill dis_total + 2mT, "
+            f"launches {counts}; {card}")
+    del train, X_test, y_test
+
+    # vkmc: PRNGKey(11), standardize, k = 10
+    X, _, gen_s, gen_peak = generate(rng.PRNGKey(11))
+    ds_k = standardize(VFLDataset.from_dense(X, None, T=T))
+    del X
+    mb = BUDGETS[-1]
+    fit, rep, secs, counts = run(
+        "vkmc", ds_k, mb, rng.fold_in(rng.PRNGKey(seed + 900), mb), k=K_CLUSTERS,
+        iters=FIT_ITERS,
+        params={"k": K_CLUSTERS, "alpha": ALPHA, "local_iters": LOCAL_ITERS})
+    log(f"synthetic vkmc m={mb}: year_prediction_like(PRNGKey(11)) {gen_s:.4f} s (own peak "
+        f"{gen_peak} bytes), standardized; end_to_end {secs:.4f} s, rel_error "
+        f"{rep.rel_error:.6g}, bill dis_total + 2mT, launches {counts}; {card}")
+    log(f"phase 15 took {time.perf_counter() - phase_t0:.1f} s; {card}")
 
 
 def main() -> None:
@@ -3291,10 +3755,21 @@ def main() -> None:
 
     # ---- 13. the merge-and-reduce serving tree ----------------------------------
     before = dict(launches)
-    tree_phase(torch, dev, args.seed, ds_host, ds, lam, launches, smi[0], reset_counts,
-               read_counts)
+    tree_keys, tree_trail = tree_phase(torch, dev, args.seed, ds_host, ds, lam, launches,
+                                       smi[0], reset_counts, read_counts)
     log(f"phase 13 launches: {({nm: launches[nm] - before[nm] for nm in launches})}")
-    del ds_host
+
+    # ---- 14. the multi-tenant service ---------------------------------------------
+    before = dict(launches)
+    service_phase(torch, dev, args.seed, ds_host, ds, launches, smi[0], reset_counts,
+                  read_counts, tree_keys, tree_trail)
+    log(f"phase 14 launches: {({nm: launches[nm] - before[nm] for nm in launches})}")
+    del ds_host, ds
+
+    # ---- 15. the synthetic datasets ------------------------------------------------
+    before = dict(launches)
+    synthetic_phase(torch, dev, args.seed, launches, smi[0], reset_counts, read_counts)
+    log(f"phase 15 launches: {({nm: launches[nm] - before[nm] for nm in launches})}")
     lev_err = max(lev_err, errs["leverage"])
     gram_err = max(gram_err, errs["weighted_gram"])
     ka_err = max(ka_err, errs["kmeans_assign"])

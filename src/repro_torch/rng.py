@@ -1,9 +1,10 @@
-"""Bit-exact threefry2x32 and the ``jax.random`` subset the DIS draws use.
+"""Bit-exact threefry2x32 and the ``jax.random`` subset the port draws with.
 
 The reference package samples with ``jax.random`` (``split``, ``fold_in``,
-``categorical``); comparing the port with it draw for draw needs the same
-bits.  This module reproduces jax's threefry2x32 PRNG in torch, on the
-key's device, in the NON-partitionable layout
+``categorical`` for the DIS draws, ``normal``, ``uniform`` and ``randint``
+for the synthetic datasets); comparing the port with it draw for draw
+needs the same bits.  This module reproduces jax's threefry2x32 PRNG in
+torch, on the key's device, in the NON-partitionable layout
 (``jax_threefry_partitionable=False``): an array of ``size`` random words
 is ``threefry_2x32(key, iota(size))``, which hashes the counter pair
 ``(p, p + half)`` for flat position ``p < half`` and keeps lane 0, and
@@ -209,14 +210,17 @@ def _to_unit(bits: torch.Tensor) -> torch.Tensor:
     return fb.view(torch.float32) - 1.0
 
 
+def _uniform_of(bits: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
+    lo = _f32(minval)
+    span = float(np.float32(maxval) - np.float32(minval))
+    return torch.clamp_min(_fma(_to_unit(bits), span, lo), lo)
+
+
 def uniform(key: Key, shape: Sequence[int], minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform`` in float32 (the scaling ``f * span + minval``
     fused into one rounding, as jax's CPU backend compiles it)."""
-    lo = _f32(minval)
-    span = float(np.float32(maxval) - np.float32(minval))
-    f = _to_unit(random_bits(key, shape))
-    return torch.clamp_min(_fma(f, span, lo), lo)
+    return _uniform_of(random_bits(key, shape), minval, maxval)
 
 
 def _f32(c: float) -> float:
@@ -278,6 +282,91 @@ def log(x: torch.Tensor) -> torch.Tensor:
     out = torch.where(x.abs() < _TINY, torch.full_like(out, -float("inf")), out)
     return torch.where((x <= -_TINY) | torch.isnan(x),
                        torch.full_like(out, float("nan")), out)
+
+
+# XLA's log1p below sqrt(2) - 1: Cephes' rational approximation
+# x - x^2/2 + x^3 * N(x)/D(x), coefficients highest degree first, as float32
+_LOG1P_NUM = tuple(_f32(c) for c in (
+    4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+    6.5787325942061044846969e0, 2.9911919328553073277375e1,
+    6.0949667980987787057556e1, 5.7112963590585538103336e1,
+    2.0039553499201281259648e1))
+_LOG1P_DEN = tuple(_f32(c) for c in (
+    1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+    2.2176239823732856465394e2, 3.0909872225312059774938e2,
+    2.1642788614495947685003e2, 6.0118660497603843919306e1))
+_LOG1P_SMALL = _f32(0.41421356237309504880)
+
+
+def log1p(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``log(1 + x)``, bit-identical to ``jnp.log1p`` on jax's CPU
+    backend: below ``|x| < sqrt(2) - 1`` the rational approximation XLA
+    emits (each Horner step one fused multiply-add, the ``-x^2/2`` term
+    fused with ``x^3 N/D``), elsewhere :func:`log` of ``1 + x``.  Every
+    step is one IEEE-rounded torch operation, so the card gives the same
+    bits as the CPU.  ``torch.log1p`` differs from it in about one input
+    in twelve on [-1, 0]."""
+    x = x.float()
+    num = torch.full_like(x, _LOG1P_NUM[0])
+    for c in _LOG1P_NUM[1:]:
+        num = _fma(num, x, c)
+    den = torch.full_like(x, _LOG1P_DEN[0])
+    for c in _LOG1P_DEN[1:]:
+        den = _fma(den, x, c)
+    x2 = x * x
+    small = x + _fma(x2, -0.5, (x * x2) * (num / den))
+    return torch.where(x.abs() < _LOG1P_SMALL, small, log(x + 1.0))
+
+
+# Giles' single-precision erf^-1 as XLA expands it: a 9-term Horner in
+# w - 2.5 for w = -log1p(-x^2) < 5, else in sqrt(w) - 3; highest degree first
+_ERFINV_LT5 = tuple(_f32(c) for c in (
+    2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+    0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941))
+_ERFINV_GE5 = tuple(_f32(c) for c in (
+    -0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+    0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682))
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``lax.erf_inv``, bit-identical on jax's CPU backend: each
+    Horner step one fused multiply-add, ``sqrt`` correctly rounded (taken
+    in float64: torch's float32 ``sqrt`` on the CPU is not always), and
+    ``erf_inv(+-1) = +-inf``."""
+    x = x.float()
+    w = -log1p(x * -x)
+    lt = w < 5.0
+    t = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
+    p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0])
+    for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = _fma(p, t, torch.where(lt, a, b))
+    return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
+
+
+#: Flat positions of a :func:`normal` draw computed at once: the
+#: temporaries of 2**22 words (int64 counters and hash words, the float64
+#: steps of the emulated fused multiply-adds) peak near 0.6 GB, whatever
+#: the draw's size.
+NORMAL_CHUNK = 1 << 22
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_SQRT2 = _f32(np.sqrt(2.0))
+
+
+def normal(key: Key, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.normal`` in float32, bit for bit: ``sqrt(2) *
+    erf_inv(u)`` for ``u = uniform(key, shape, nextafter(-1, 0), 1)``.
+    Positions are drawn :data:`NORMAL_CHUNK` at a time (each word depends
+    on its own flat position), so a large draw never holds its int64 hash
+    words at once."""
+    shape = tuple(int(s) for s in shape)
+    size = int(np.prod(shape, dtype=np.int64))
+    out = torch.empty(size, dtype=torch.float32, device=key.device)
+    for a in range(0, size, NORMAL_CHUNK):
+        pos = torch.arange(a, min(a + NORMAL_CHUNK, size), dtype=torch.int64,
+                           device=key.device)
+        u = _uniform_of(_bits_at(key, pos, size), _NORMAL_LO, 1.0)
+        out[a:a + pos.numel()] = _SQRT2 * erf_inv(u)
+    return out.reshape(shape)
 
 
 def _gumbel_of(bits: torch.Tensor) -> torch.Tensor:

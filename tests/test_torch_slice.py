@@ -205,6 +205,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.kernels.kmeans_assign_update\n"
         "import repro_torch.core.faults, repro_torch.core.integrity, torch.distributed\n"
         "import repro_torch.serve, repro_torch.serve.tree\n"
+        "import repro_torch.serve.resilience, repro_torch.serve.service\n"
+        "import repro_torch.data, repro_torch.data.synthetic\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
         "import torch\n"
