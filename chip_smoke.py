@@ -216,7 +216,26 @@ and never JAX or the JAX package ``repro``.  Phases, each fatal on failure:
    ``PRNGKey(11)``, standardized, k = 10, ``end_to_end`` at m = 5000; each
    ``rel_error`` finite and under the gate, the bill ``dis_total`` + 2mT,
    the launches of one ``end_to_end``, and the generation's time and own
-   peak device memory.
+   peak device memory;
+16. the LM side at ``llama3.2-1b``'s published width (16 layers, d_model
+   2048, GQA 32 / 8 heads of 64, d_ff 8192, vocab 128,256, tied, bf16):
+   (a) ``models.init_params`` from a CUDA generator, 1,235,814,400
+   parameters in 2,471,628,800 bytes, its time and own peak; (b) a float32
+   copy's ``decode_step`` over 32 positions of 4 ``TokenStream`` prompts
+   against its ``forward`` at every position, full and with a window of 8,
+   and the bf16 model's forward logits against the float32 copy's;
+   (c) ``ServeEngine(cache_len=4096).generate`` of 32 tokens, greedy and at
+   temperature 0.8, each twice bit for bit, the prefill and decode times a
+   token step, the bf16 prefill's logits against the float32 forward, and
+   the KV cache's 536,870,912 bytes; (d) the coreset batch
+   selector on the mean-pooled bf16 embeddings of a (256, 512) batch:
+   ``select`` at fraction 0.25 (m = 64) one K5 launch, bit for bit the
+   plain draw on the same scores, weights G/(m g_S) exactly;
+   ``ridge_leverage_scores(use_kernel=True)`` one K1 launch (the wide
+   variant at (256, 2048)) against the plain form, timed; ``uniform`` and
+   ``norm``; the group selector in an NCCL world of one bit for bit the
+   groupless one; (e) the reduced model in float32 on the card against the
+   CPU, logits and greedy tokens.
 
 Every path is driven with all five launch counters set to 0 just before
 it and read just after.  With the default seed, the drawn indices of
@@ -342,6 +361,30 @@ SYNTH_FULL_N = 515_345
 SYNTH_CORR_D = 30
 SYNTH_X_ATOL = 1e-5
 SYNTH_Y_RTOL = 1e-6
+# phase 16, the LM side: llama3.2-1b at its published width (hf:meta-llama/
+# Llama-3.2-1B; 1,235,814,400 parameters with the vocab padded to 128,256),
+# 4 prompts of 32 tokens and 32 new ones against a 4,096-slot cache (16 layers
+# x 4 x 4096 x 8 KV heads x 64 x (k, v) x 2 bytes), a window-8 variant; the
+# selector on a (256, 512) batch, where K1's wide variant takes 5 rows a tile
+# at d = 2048.  Tolerances, each about 4x what the card showed at --seed 0
+# (PERF.md): decode against forward in float32 relative to the largest |logit|
+# (2.6e-6); K1 against the plain form absolute, the scores lying in [0, 1]
+# (6.1e-6); the reduced model's logits on the card against the CPU absolute,
+# max |logit| about 4 (3.9e-6); the bf16 model's logits against its float32
+# copy's, forward and prefill, relative to the largest |logit|, every op of
+# the 16 layers rounding to bf16 (1.4e-2)
+LM_ARCH = "llama3.2-1b"
+LM_PARAMS = 1_235_814_400
+LM_BATCH, LM_PROMPT_LEN, LM_NEW = 4, 32, 32
+LM_CACHE_LEN = 4096
+LM_KV_BYTES = 16 * 4 * 4096 * 8 * 64 * 2 * 2
+LM_WINDOW = 8
+LM_DECODE_TOL = 1e-5
+SEL_BATCH, SEL_SEQ = 256, 512
+LM_WIDE_ROWS = 5
+SEL_K1_TOL = 2.5e-5
+LM_CPU_TOL = 1.5e-5
+LM_BF16_TOL = 0.06
 # indices_sha256 of phases 4 and 5 at --seed 0, recorded on the card with
 # the plain draw (PERF.md); phase 7's vrlr cell (0, 1) is phase 4's m = 5000
 # build
@@ -2726,6 +2769,306 @@ def synthetic_phase(torch, dev, seed, launches, card, reset_counts, read_counts)
     log(f"phase 15 took {time.perf_counter() - phase_t0:.1f} s; {card}")
 
 
+def lm_phase(torch, dev, seed, launches, card, reset_counts, read_counts):
+    """Phase 16, the LM side on the card at ``llama3.2-1b``'s published
+    width: (a) the model in bf16 from a CUDA generator; (b) a float32 copy's
+    ``decode_step`` against its ``forward`` at every position, full and
+    windowed, and the bf16 model's forward against the copy's; (c)
+    ``ServeEngine.generate`` greedy and sampled, each twice, bit for bit,
+    with the prefill and decode step times and the bf16 prefill's logits
+    against the copy's forward; (d) the coreset
+    batch selector on mean-pooled embeddings of a (256, 512) batch: the K5
+    draw bit for bit its plain version, K1's wide variant at (256, 2048)
+    against the plain form and timed, ``uniform`` and ``norm``, and the
+    group selector in an NCCL world of one; (e) the reduced model on the
+    card against the CPU.  Returns K1's timed row for the JSON line."""
+    import dataclasses
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch import rng
+    from repro_torch.configs import get_arch
+    from repro_torch.core import selector as sel
+    from repro_torch.core.sensitivity import ridge_leverage_scores
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import leverage as klev
+    from repro_torch.models import api, layers, lm
+    from repro_torch.models.lm_serve import ServeEngine, make_serve_step
+
+    phase_t0 = time.perf_counter()
+    cfg = get_arch(LM_ARCH)
+
+    def count(fn, want):
+        """Run ``fn`` with the counters at 0; its launches must be ``want``
+        (the kernels not named there none); they join the JSON line's."""
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = read_counts()
+        reset_counts()
+        for nm in launches:
+            launches[nm] += got[nm]
+        expect = {nm: want.get(nm, 0) for nm in got}
+        if got != expect:
+            fail(f"lm: launches {got}, want {expect}")
+        return out
+
+    # -- (a) the model, bf16, at the published width
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = count(lambda: api.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(seed), device=dev), {})
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() - base
+    n_params = api.param_count(model)
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    if n_params != LM_PARAMS or n_bytes != 2 * LM_PARAMS:
+        fail(f"lm: {LM_ARCH} has {n_params} parameters in {n_bytes} bytes, want "
+             f"{LM_PARAMS} in {2 * LM_PARAMS}")
+    if any(p.dtype != torch.bfloat16 or p.device != dev for p in model.parameters()):
+        fail("lm: a parameter is not bf16 on the card")
+    log(f"lm (a): {LM_ARCH} ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, tied) in bf16 on the card: {n_params} parameters, {n_bytes} bytes, "
+        f"init {init_s:.4f} s from a CUDA generator, own peak {init_peak} bytes; {card}")
+    prompts = TokenStream(vocab=cfg.vocab_size, seq_len=LM_PROMPT_LEN, batch_size=LM_BATCH,
+                          seed=seed, device=dev).next_batch()["tokens"]
+
+    # -- (b) decode against forward, float32 copy, full and windowed
+    cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32)
+    model32 = api.init_params(cfg32, device="meta").to_empty(device=dev)
+    with torch.no_grad():
+        for p32, p in zip(model32.parameters(), model.parameters()):
+            p32.copy_(p)
+    bytes32 = sum(p.numel() * p.element_size() for p in model32.parameters())
+    if bytes32 != 4 * LM_PARAMS:
+        fail(f"lm (b): the float32 copy holds {bytes32} bytes, want {4 * LM_PARAMS}")
+    errs = {}
+    with torch.inference_mode():
+        for label, c in (("full", cfg32),
+                         (f"window {LM_WINDOW}", dataclasses.replace(cfg32,
+                                                                     sliding_window=LM_WINDOW))):
+            hidden, _ = count(lambda: lm.forward(model32, c, prompts), {})
+            fwd = lm.logits_of(model32, c, hidden)
+            cache = api.init_cache(c, LM_BATCH, LM_PROMPT_LEN, device=dev)
+            ring = cache["layers"]["k"].shape[2]
+            worst = 0.0
+            for t in range(LM_PROMPT_LEN):
+                step, cache = count(lambda: api.decode_step(model32, c, cache,
+                                                            prompts[:, t:t + 1]), {})
+                worst = max(worst, float((step[:, 0] - fwd[:, t]).abs().max()))
+            scale = float(fwd.abs().max())
+            errs[label] = (worst, scale)
+            if label == "full":
+                fwd32, scale32 = fwd, scale
+            if not (math.isfinite(worst) and worst <= LM_DECODE_TOL * scale):
+                fail(f"lm (b) {label}: decode against forward {worst:.3e} at max |logit| "
+                     f"{scale:.4g} (tolerance {LM_DECODE_TOL} x max |logit|)")
+            log(f"lm (b) {label}: float32 copy ({bytes32} bytes), decode_step over "
+                f"{LM_PROMPT_LEN} positions (ring {ring}) against forward: max abs "
+                f"{worst:.3e}, {worst / scale:.3e} of max |logit| {scale:.4g} (tolerance "
+                f"{LM_DECODE_TOL}); {card}")
+        # the bf16 model against its float32 copy, the same weights
+        hidden, _ = count(lambda: lm.forward(model, cfg, prompts), {})
+        fwd16 = lm.logits_of(model, cfg, hidden)
+    bf16_err = float((fwd16 - fwd32).abs().max())
+    top1 = float((fwd16.argmax(-1) == fwd32.argmax(-1)).float().mean())
+    if not (fwd16.dtype == torch.float32 and math.isfinite(bf16_err)
+            and bf16_err <= LM_BF16_TOL * scale32):
+        fail(f"lm (b): the bf16 model's forward logits {bf16_err:.3e} from the float32 copy's "
+             f"at max |logit| {scale32:.4g} (tolerance {LM_BF16_TOL} x max |logit|)")
+    log(f"lm (b) bf16 against float32: forward logits max abs {bf16_err:.3e}, "
+        f"{bf16_err / scale32:.3e} of max |logit| {scale32:.4g} (tolerance {LM_BF16_TOL}); "
+        f"the same top token at {top1:.4f} of the positions; {card}")
+    del model32, hidden, fwd, fwd16, cache, step
+    torch.cuda.empty_cache()
+
+    # -- (c) serving in bf16: greedy and sampled, each twice, bit for bit
+    eng = ServeEngine(cfg, model, cache_len=LM_CACHE_LEN)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    greedy = count(lambda: eng.generate(prompts, max_new_tokens=LM_NEW), {})
+    gen_s = time.perf_counter() - t0
+    gen_peak = torch.cuda.max_memory_allocated() - base
+    again = count(lambda: eng.generate(prompts, max_new_tokens=LM_NEW), {})
+    key = rng.PRNGKey(seed + 16)
+    sampled = count(lambda: eng.generate(prompts, max_new_tokens=LM_NEW, temperature=0.8,
+                                         key=key), {})
+    sampled2 = count(lambda: eng.generate(prompts, max_new_tokens=LM_NEW, temperature=0.8,
+                                          key=key), {})
+    for label, a, b in (("greedy", greedy, again), ("sampled", sampled, sampled2)):
+        if not (torch.equal(a, b) and a.shape == (LM_BATCH, LM_NEW) and a.dtype == torch.int32
+                and int(a.min()) >= 0 and int(a.max()) < cfg.vocab_size):
+            fail(f"lm (c) {label}: generate is not bitwise repeatable or malformed "
+                 f"({tuple(a.shape)} {a.dtype}, range {int(a.min())}..{int(a.max())})")
+    # the same loop by hand, each step timed on the host clock around a
+    # synchronize: its tokens are generate's
+    step_fn = make_serve_step(cfg)
+
+    def timed_step(tokens):
+        t0 = time.perf_counter()
+        out = step_fn(model, cache, tokens)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    with torch.inference_mode():
+        cache = api.init_cache(cfg, LM_BATCH, LM_CACHE_LEN, device=dev)
+        kv_bytes = sum(t.numel() * t.element_size() for t in cache["layers"].values())
+        torch.cuda.synchronize()
+        pre_ms, dec_ms, toks, pre_logits = [], [], [], []
+        for t in range(LM_PROMPT_LEN):
+            (logits, cache), ms = timed_step(prompts[:, t:t + 1])
+            pre_ms.append(ms)
+            pre_logits.append(logits[:, 0])
+        tok = ServeEngine._sample(logits, 0.0, None, 0)
+        for i in range(LM_NEW):
+            toks.append(tok)
+            (logits, cache), ms = timed_step(tok)
+            dec_ms.append(ms)
+            tok = ServeEngine._sample(logits, 0.0, None, i + 1)
+    if not torch.equal(torch.cat(toks, dim=1), greedy):
+        fail("lm (c): the timed loop's greedy tokens differ from generate's")
+    if kv_bytes != LM_KV_BYTES:
+        fail(f"lm (c): KV cache {kv_bytes} bytes, want {LM_KV_BYTES}")
+    pre_err = float((torch.stack(pre_logits, dim=1) - fwd32).abs().max())
+    if not (math.isfinite(pre_err) and pre_err <= LM_BF16_TOL * scale32):
+        fail(f"lm (c): the bf16 prefill's logits {pre_err:.3e} from the float32 forward's at "
+             f"max |logit| {scale32:.4g} (tolerance {LM_BF16_TOL} x max |logit|)")
+    med = lambda xs: sorted(xs)[len(xs) // 2]
+    log(f"lm (c): ServeEngine(cache_len={LM_CACHE_LEN}).generate({LM_BATCH} x "
+        f"{LM_PROMPT_LEN} prompts, {LM_NEW} new tokens) greedy and at temperature 0.8, each "
+        f"twice bit for bit; generate {gen_s:.4f} s ({LM_BATCH * LM_NEW / gen_s:.1f} new "
+        f"tokens/s with its prefill), own peak {gen_peak} bytes (KV cache {kv_bytes}); a "
+        f"token step, median (min-max): prefill {med(pre_ms):.4f} ({min(pre_ms):.4f}-"
+        f"{max(pre_ms):.4f}) ms, decode {med(dec_ms):.4f} ({min(dec_ms):.4f}-"
+        f"{max(dec_ms):.4f}) ms, {LM_BATCH / (med(dec_ms) / 1e3):.1f} tokens/s at "
+        f"B={LM_BATCH}; the bf16 prefill's logits {pre_err:.3e} ({pre_err / scale32:.3e} of "
+        f"max |logit|) from the float32 forward's (tolerance {LM_BF16_TOL}); {card}")
+    del cache, logits, pre_logits, fwd32
+    torch.cuda.empty_cache()
+
+    # -- (d) the coreset batch selector at the published width
+    t_sel = time.perf_counter()
+    batch = TokenStream(vocab=cfg.vocab_size, seq_len=SEL_SEQ, batch_size=SEL_BATCH,
+                        seed=seed + 1, device=dev).next_batch()
+    with torch.inference_mode():
+        # the reference trainer's _score_features: the float32 mean over S of
+        # the bf16 token embeddings
+        feats = torch.mean(layers.embed(batch["tokens"], model.embed).to(torch.float32), dim=1)
+    del batch
+    skey = rng.PRNGKey(seed + 17)
+    scfg = sel.SelectorConfig(mode="coreset", fraction=0.25)
+    m = scfg.m_of(SEL_BATCH)
+    t0 = time.perf_counter()
+    S, w = count(lambda: sel.select(skey, feats, scfg), {"categorical": 1})
+    select_s = time.perf_counter() - t0
+    g = sel.local_scores(feats, "leverage", scfg.ridge)
+    want_S = rng.categorical_plain(skey.to(dev), rng.log(torch.clamp_min(g, 1e-30)), m)
+    want_w = g.sum() / (m * torch.clamp_min(g[want_S], 1e-30))
+    if not (S.shape == (m,) and torch.equal(S, want_S) and torch.equal(w, want_w)):
+        fail(f"lm (d): select's draw differs from the plain draw on the same g "
+             f"({int((S != want_S).sum())} of {m} indices) or its weights from G/(m g_S)")
+    # K1's wide variant at (B, d): ridge_leverage_scores(use_kernel=True)
+    f32 = feats.to(torch.float32)
+    d = f32.shape[1]
+    M = torch.linalg.inv(f32.T @ f32 + scfg.ridge * torch.eye(d, device=dev))
+    lev_k = count(lambda: ridge_leverage_scores(feats, scfg.ridge, use_kernel=True),
+                  {"leverage": 1})
+    lev_p = ridge_leverage_scores(feats, scfg.ridge, use_kernel=False)
+    k1 = klev.leverage(f32, M)
+    k1_err = float((k1 - klev.plain(f32, M)).abs().max())
+    clip_err = float((lev_k - lev_p).abs().max())
+    if not (klev.wide_rows(d) == LM_WIDE_ROWS and k1_err <= SEL_K1_TOL
+            and clip_err <= SEL_K1_TOL):
+        fail(f"lm (d): K1 wide at {tuple(f32.shape)} ({klev.wide_rows(d)} rows a tile): "
+             f"{k1_err:.3e} from plain on the same M, the clipped scores {clip_err:.3e} "
+             f"(tolerance {SEL_K1_TOL})")
+    # the wide variant takes over 0.1 s a launch here: 3 timed launches
+    k1_ms = cuda_ms(torch, lambda: klev.leverage(f32, M), iters=3, warmup=1)
+    k1_plain = cuda_ms(torch, lambda: klev.plain(f32, M))
+    k1_lib = cuda_ms(torch, lambda: torch.einsum("nd,de,ne->n", f32, M, f32))
+    k1_bound, k1_by = bound_ms(4 * (SEL_BATCH * d + d * d + SEL_BATCH),
+                               2 * SEL_BATCH * (d * d + d))
+    reset_counts()
+    log(f"lm (d): select(mode=coreset, fraction=0.25) on ({SEL_BATCH}, {d}) mean-pooled "
+        f"embeddings of a ({SEL_BATCH}, {SEL_SEQ}) batch in {select_s:.4f} s: m={m}, one K5 "
+        f"launch, indices bit for bit the plain draw on the same g, weights G/(m g_S) exactly; g in "
+        f"[{float(g.min()):.4g}, {float(g.max()):.4g}]; {card}")
+    log(f"time leverage ({SEL_BATCH}, {d}) x ({d}, {d}) (wide variant, {LM_WIDE_ROWS} rows a "
+        f"tile): kernel {k1_ms:.4f} ms, plain {k1_plain:.4f} ms, einsum {k1_lib:.4f} ms, "
+        f"bound {k1_bound:.4f} ms ({k1_by}); max abs {k1_err:.3e} from plain, clipped "
+        f"scores {clip_err:.3e} (tolerance {SEL_K1_TOL}); {card}")
+    # uniform and norm
+    Su, wu = count(lambda: sel.select(skey, feats, dataclasses.replace(scfg, mode="uniform")),
+                   {})
+    Sn, wn = count(lambda: sel.select(skey, feats, dataclasses.replace(scfg, score="norm")),
+                   {"categorical": 1})
+    gn = sel.local_scores(feats, "norm", scfg.ridge)
+    if not (Su.shape == (m,) and bool((wu == SEL_BATCH / m).all()) and int(Su.max()) < SEL_BATCH
+            and torch.equal(Sn, rng.categorical_plain(skey.to(dev), rng.log(gn), m))
+            and bool(torch.isfinite(wn).all())):
+        fail("lm (d): the uniform or the norm selection is malformed or differs from its "
+             "plain draw")
+    # the group selector in an NCCL world of one: the groupless selection's bits
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        real_all_reduce = dist.all_reduce
+        calls = []
+
+        def counted_all_reduce(*a, **kw):
+            calls.append(1)
+            return real_all_reduce(*a, **kw)
+
+        dist.all_reduce = counted_all_reduce
+        Sg, wg = count(lambda: sel.make_mesh_selector(scfg)(skey, feats), {"categorical": 1})
+    finally:
+        dist.all_reduce = real_all_reduce
+        dist.destroy_process_group()
+    if not (len(calls) == 1 and torch.equal(Sg, S) and torch.equal(wg, w)):
+        fail(f"lm (d): the NCCL world of one made {len(calls)} all-reduces or differs from "
+             f"the groupless selection")
+    log(f"lm (d): uniform (no kernel, weights B/m) and norm (one K5, the plain draw) "
+        f"selections; the group selector in an NCCL world of one: 1 all-reduce, bit for bit "
+        f"the groupless selection; (d) {time.perf_counter() - t_sel:.2f} s; {card}")
+    del feats, f32, M, model, eng
+    torch.cuda.empty_cache()
+
+    # -- (e) the reduced model, float32, on the card against the CPU
+    small = get_arch(LM_ARCH).reduced()
+    cpu_model = api.init_params(small, generator=torch.Generator().manual_seed(seed),
+                                device="cpu")
+    card_model = api.init_params(small, device="meta").to_empty(device=dev)
+    with torch.no_grad():
+        for a, b in zip(card_model.parameters(), cpu_model.parameters()):
+            a.copy_(b)
+    toks = TokenStream(vocab=small.vocab_size, seq_len=16, batch_size=2, seed=seed,
+                       device="cpu").next_batch()["tokens"]
+    with torch.inference_mode():
+        l_cpu = cpu_model(toks)
+        l_card = count(lambda: card_model(toks.to(dev)), {}).cpu()
+    e_err = float((l_card - l_cpu).abs().max())
+    g_cpu = ServeEngine(small, cpu_model, cache_len=64).generate(toks[:, :4], max_new_tokens=8)
+    g_card = count(lambda: ServeEngine(small, card_model, cache_len=64).generate(
+        toks[:, :4].to(dev), max_new_tokens=8), {}).cpu()
+    if not (e_err <= LM_CPU_TOL and torch.equal(g_card, g_cpu)):
+        fail(f"lm (e): reduced {LM_ARCH} card against CPU: logits {e_err:.3e} (tolerance "
+             f"{LM_CPU_TOL}), greedy tokens equal {torch.equal(g_card, g_cpu)}")
+    log(f"lm (e): reduced {LM_ARCH} (float32) on the card against the CPU: logits max abs "
+        f"{e_err:.3e} (tolerance {LM_CPU_TOL}), greedy tokens equal; {card}")
+    log(f"phase 16 took {time.perf_counter() - phase_t0:.1f} s; {card}")
+    return {"shape": f"({SEL_BATCH}, {d}) x ({d}, {d})", "max_abs_err": k1_err, "ms": k1_ms,
+            "plain_ms": k1_plain, "library_ms": k1_lib, "bound_ms": k1_bound,
+            "bound_by": k1_by}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3773,6 +4116,12 @@ def main() -> None:
     lev_err = max(lev_err, errs["leverage"])
     gram_err = max(gram_err, errs["weighted_gram"])
     ka_err = max(ka_err, errs["kmeans_assign"])
+
+    # ---- 16. the LM side: llama3.2-1b serving and the coreset batch selector ----
+    before = dict(launches)
+    variants["leverage"].append(lm_phase(torch, dev, args.seed, launches, smi[0],
+                                         reset_counts, read_counts))
+    log(f"phase 16 launches: {({nm: launches[nm] - before[nm] for nm in launches})}")
 
     # ---- records ----------------------------------------------------------------
     record = {"kernels": [

@@ -1,20 +1,22 @@
-"""Carry data, keys, coresets and fitted parameters across from the
-reference package.
+"""Carry data, keys, coresets, fitted parameters and language-model
+weights across from the reference package.
 
-This system has no model weights: what the two packages must share is the
-dataset, the PRNG keys, to fit a reference-built coreset with the port the
-coreset itself, to score against a reference fit its k-means centers, and
-to merge the reference tree's nodes with the port the materialized
-coresets.  Everything crosses as numpy — the port never sees a jax array.
+What the two packages must share is the dataset, the PRNG keys, to fit a
+reference-built coreset with the port the coreset itself, to score against
+a reference fit its k-means centers, to merge the reference tree's nodes
+with the port the materialized coresets, and to compare the language
+models their parameters and decode caches.  Everything crosses as numpy —
+the port never sees a jax array.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.coreset import Coreset, MaterializedCoreset
 from repro_torch.core.vfl import VFLDataset, _as_tensor
 from repro_torch.device import DeviceLike, resolve_device
@@ -72,3 +74,93 @@ def materialized_from_numpy(mat) -> MaterializedCoreset:
         comm_units=int(mat.comm_units),
         comm_bits=int(mat.comm_bits),
     )
+
+
+def _tensor_of(a, device: torch.device) -> torch.Tensor:
+    """A numpy leaf as a tensor of its dtype; a bfloat16 leaf (numpy has
+    none of its own) goes across through its 16-bit words."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        words = torch.from_numpy(np.array(a).view(np.int16))
+        return words.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _flat(tree: Dict[str, Any], prefix: str = ""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def lm_params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
+                         device: DeviceLike = "cuda"):
+    """A port :class:`repro_torch.models.lm.DecoderLM` holding the
+    reference's parameter pytree (numpy leaves, ``layers`` stacked on a
+    leading L axis): every leaf copied into the parameter of the same name
+    and dtype, layer l's from row l of its stack."""
+    from repro_torch.models import lm
+
+    dev = resolve_device(device)
+    model = lm.init_params(cfg, device="meta").to_empty(device=dev)
+    state = dict(model.named_parameters())
+    seen = set()
+    for name, leaf in _flat(tree):
+        t = _tensor_of(leaf, dev)
+        if name.startswith("layers."):
+            rest = name[len("layers."):]
+            if t.shape[0] != cfg.num_layers:
+                raise ValueError(f"{name}: {t.shape[0]} stacked layers, config has "
+                                 f"{cfg.num_layers}")
+            pairs = [(f"layers.{i}.{rest}", t[i]) for i in range(cfg.num_layers)]
+        else:
+            pairs = [(name, t)]
+        for pname, val in pairs:
+            if pname not in state:
+                raise ValueError(f"the reference's {name} has no parameter in the port")
+            p = state[pname]
+            if p.shape != val.shape or p.dtype != val.dtype:
+                raise ValueError(f"{pname}: the reference's {tuple(val.shape)} {val.dtype} "
+                                 f"against the port's {tuple(p.shape)} {p.dtype}")
+            with torch.no_grad():
+                p.copy_(val)
+            seen.add(pname)
+    missing = sorted(set(state) - seen)
+    if missing:
+        raise ValueError(f"the reference's tree has no leaf for {missing}")
+    return model
+
+
+def lm_params_to_numpy(model) -> Dict[str, Any]:
+    """The reference's parameter pytree of a port model: numpy leaves,
+    ``layers`` stacked on a leading L axis.  bfloat16 leaves come back as
+    float32 (exact; numpy has no bfloat16)."""
+    out: Dict[str, Any] = {}
+    stacks: Dict[str, list] = {}
+    for name, p in model.named_parameters():
+        a = p.detach().cpu()
+        a = (a.float() if a.dtype == torch.bfloat16 else a).numpy()
+        if name.startswith("layers."):
+            rest = name.split(".", 2)[2]
+            stacks.setdefault(rest, []).append(a)
+        else:
+            out[name] = a
+    layers: Dict[str, Any] = {}
+    for rest, arrs in stacks.items():
+        node = layers
+        *path, leaf = rest.split(".")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = np.stack(arrs)
+    out["layers"] = layers
+    return out
+
+
+def lm_cache_from_numpy(cache: Dict[str, Any], device: DeviceLike = "cuda"):
+    """A port decode cache from the reference's (``layers`` {``k``,
+    ``v``} (L, B, ring, KV, hd), int32 ``pos`` and ``kpos``) as numpy."""
+    dev = resolve_device(device)
+    return {"layers": {k: _tensor_of(v, dev) for k, v in cache["layers"].items()},
+            "pos": _tensor_of(np.asarray(cache["pos"], np.int32), dev),
+            "kpos": _tensor_of(np.asarray(cache["kpos"], np.int32), dev)}

@@ -5,8 +5,10 @@ sharded over a ``torch.distributed`` process group; checkpointed resume),
 the planner (memory model, codec axis, plan cache, engine failover),
 Algorithm 1 (flat and hierarchical) and its seed API, the party fault and
 integrity seam, the regression and k-means solvers, the materialized
-coresets the serving tree keeps, and the seed-era builders as deprecation
-shims over ``build_coreset``."""
+coresets the serving tree keeps, the seed-era builders as deprecation
+shims over ``build_coreset``, and the score and draw primitives of the LM
+batch selector (``core.selector``: ``ridge_leverage_scores``,
+``norm_scores``, ``server_plan``)."""
 
 import warnings
 from typing import Optional
@@ -81,6 +83,7 @@ from repro_torch.core.dis import (
     dis_plan_blocked,
     dis_plan_full,
     dis_sample,
+    server_plan,
     uniform_plan,
     uniform_sample,
 )
@@ -109,6 +112,8 @@ from repro_torch.core.streaming import (
     with_masses,
 )
 from repro_torch.core.sensitivity import (
+    norm_scores,
+    ridge_leverage_scores,
     total_sensitivity_bound_vkmc,
     total_sensitivity_bound_vrlr,
 )
@@ -279,6 +284,7 @@ __all__ = [
     "memory_model",
     "MemoryBudgetExceeded",
     "MemoryWatchdog",
+    "norm_scores",
     "null_ledger",
     "PartyUnavailable",
     "payload_digest",
@@ -289,8 +295,10 @@ __all__ = [
     "require_valid_masses",
     "resolve_backend",
     "ridge_closed_form",
+    "ridge_leverage_scores",
     "ridge_cost",
     "saga_ridge",
+    "server_plan",
     "SCORE_BACKENDS",
     "SILENT_KINDS",
     "SimClock",

@@ -216,6 +216,24 @@ def dis_plan(key: rng.Key, scores: torch.Tensor, m: int,
     return plan.indices, plan.weights
 
 
+def server_plan(key: rng.Key, g: torch.Tensor, m: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One-round server-side DIS: m categorical draws ~ g/G with importance
+    weights G/(m*g_S).
+
+    The degenerate T=1 view of Algorithm 1, used when the combined scores
+    g already live at the sampler — the group selector after its
+    all-reduce (rounds 1+3 collapse into the all-reduce, round 2's
+    broadcast into the shared key).  The draw is one ``categorical``
+    launch on the card, ``jax.random.categorical(key, log g, shape=(m,))``
+    bit for bit."""
+    m = int(m)
+    G = torch.sum(g)
+    S = kops.categorical(key, rng.log(torch.clamp_min(g, 1e-30)), m)
+    w = G / (m * torch.clamp_min(g[S], 1e-30))
+    return S, w
+
+
 def split_uploads(indices, counts):
     """Recover the round-2 per-party uploads from a realized plan.
 

@@ -42,6 +42,21 @@ def leverage_scores(Xj: torch.Tensor, rcond: float = 1e-6,
     return torch.clamp(kops.leverage(Xj, M, use_kernel), 0.0, 1.0)
 
 
+def ridge_leverage_scores(X: torch.Tensor, ridge: float = 1e-4,
+                          use_kernel: bool = False) -> torch.Tensor:
+    """Regularised leverage x_i^T (X^T X + ridge*I)^{-1} x_i in float32,
+    clipped to [0, 1] — the selector's per-shard scores.
+
+    ``use_kernel=False`` (the reference's default) is the plain row-wise
+    quadratic form; ``use_kernel=True`` is the ``leverage`` kernel, which at
+    a width past 238 launches its wide variant."""
+    f32 = X.to(torch.float32)
+    dl = f32.shape[-1]
+    G = f32.T @ f32 + ridge * torch.eye(dl, dtype=torch.float32, device=f32.device)
+    M = torch.linalg.inv(G)
+    return torch.clamp(kops.leverage(f32, M, use_kernel), 0.0, 1.0)
+
+
 def norm_scores(X: torch.Tensor) -> torch.Tensor:
     """Plain row-norm^2 — the cheap ablation backend (``norm``)."""
     f32 = X.to(torch.float32)

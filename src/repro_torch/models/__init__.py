@@ -1,0 +1,22 @@
+"""Language models of the port (port of :mod:`repro.models`): the dense
+and VLM decoder family and its serving engine (:mod:`repro_torch.models.lm_serve`)."""
+
+from repro_torch.models.api import (
+    active_param_count,
+    decode_step,
+    forward_hidden,
+    init_cache,
+    init_params,
+    loss_fn,
+    param_count,
+)
+
+__all__ = [
+    "init_params",
+    "loss_fn",
+    "forward_hidden",
+    "init_cache",
+    "decode_step",
+    "param_count",
+    "active_param_count",
+]

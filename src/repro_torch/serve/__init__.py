@@ -10,9 +10,12 @@
     isolation: :class:`TokenBucket`, :class:`CircuitBreaker`, and the
     :class:`ShedReceipt` every refused request returns.
 
-The language model's ``ServeEngine`` comes with the LM side.
+(The language model's ``ServeEngine`` lives in
+:mod:`repro_torch.models.lm_serve`; it is re-exported here — deprecated —
+as the reference re-exports it.)
 """
 
+from repro_torch.models.lm_serve import ServeEngine, make_serve_step   # deprecated
 from repro_torch.serve.resilience import CircuitBreaker, ShedReceipt, TokenBucket
 from repro_torch.serve.service import (
     CoresetService,
@@ -36,4 +39,7 @@ __all__ = [
     "ShedReceipt",
     "TokenBucket",
     "CircuitBreaker",
+    # deprecated LM re-exports
+    "ServeEngine",
+    "make_serve_step",
 ]

@@ -1,0 +1,170 @@
+"""The port's LM in bfloat16 (``param_dtype=torch.bfloat16``, the dtype
+it serves in) against the reference's bfloat16 model on the CPU, from the
+same bf16 weights (``convert.lm_params_from_numpy`` of the reference's
+init) and tokens.
+
+Two checks, because bf16 rounding flips grow through the layers:
+
+* **Op for op, block by block.**  Each block is fed the reference's own
+  bf16 input: a forward over a sequence, and ``_layer_decode`` step by
+  step over a ring that wraps.  The reference's block is compiled with
+  ``xla_allow_excess_precision`` off, which rounds every op to bf16 as
+  its eager evaluation does, bit for bit.  At least ``EXACT_ROWS`` of the
+  output's token rows must be bit for bit the reference's block, and no
+  element may be more than ``BLOCK_TOL`` x max |y| away (2**-6: two bf16
+  ulps at the largest magnitude).  The port gives 95-96 % exact rows.
+  Every wrong cast tried gives 0-15 %: probabilities left in float32
+  before the PV product, bf16 score products, RoPE or either norm in
+  bf16, ``F.silu``'s single rounding in place of ``jax.nn.silu``'s four.
+  The rows that differ come from f32 sums taken in another order.
+* **The model.**  The forward and decode logits must be within
+  ``MODEL_TOL`` x max |logit| of the reference's compiled model.  On every
+  teacher-forced step whose top-2 margin on the port exceeds twice that,
+  the greedy token must be the reference's.  One-ulp flips spread: 2 % of
+  the elements after the first block, 20 % after the second.  XLA also
+  keeps excess precision between fused bf16 ops in the compiled scan, so
+  75 % of its final hidden state differs from its own op-by-op
+  evaluation.  The gap measured is 6.1e-3 to 8.1e-3 x max |logit|.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_arch as j_get_arch
+from repro.models import api as japi
+from repro.models import attention as jattn
+from repro.models import lm as jlm
+from repro_torch.configs import get_arch
+from repro_torch.convert import lm_params_from_numpy
+from repro_torch.models import lm
+
+CPU = torch.device("cpu")
+EXACT_ROWS = 0.8
+BLOCK_TOL = 2.0 ** -6
+MODEL_TOL = 2e-2
+B, S, RING = 2, 12, 8
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True)
+def nonpartitionable():
+    with jax.threefry_partitionable(False), torch.no_grad():
+        yield
+
+
+def _bf16(a) -> torch.Tensor:
+    """A jax bf16 array as a torch bf16 tensor, through its 16-bit words."""
+    words = np.array(np.asarray(a)).view(np.int16)
+    return torch.from_numpy(words).view(torch.bfloat16)
+
+
+def _pair(arch, **replace):
+    jc = dataclasses.replace(j_get_arch(arch).reduced(), param_dtype=jnp.bfloat16, **replace)
+    tc = dataclasses.replace(get_arch(arch).reduced(), param_dtype=torch.bfloat16, **replace)
+    params = japi.init_params(jax.random.PRNGKey(3), jc)
+    model = lm_params_from_numpy(jax.tree_util.tree_map(np.asarray, params), tc, CPU)
+    toks = np.random.default_rng(5).integers(0, tc.vocab_size, (B, S)).astype(np.int32)
+    return jc, tc, params, model, toks
+
+
+def _layer(params, i):
+    return jax.tree_util.tree_map(lambda a: a[i], params["layers"])
+
+
+def _strict(fn, *args):
+    """``fn`` compiled for ``args``' shapes with every bf16 op rounded (no
+    excess precision kept between fused ops)."""
+    return jax.jit(fn).lower(*args).compile(
+        compiler_options={"xla_allow_excess_precision": False})
+
+
+@pytest.mark.parametrize("arch,replace", [
+    ("llama3.2-1b", {}), ("qwen3-14b", {}), ("starcoder2-3b", {}),
+    ("llama3.2-1b", {"sliding_window": 4})])
+def test_bf16_blocks_match_the_reference_op_for_op(arch, replace):
+    jc, tc, params, model, toks = _pair(arch, **replace)
+    rows = exact = 0
+
+    def hold(got, want, where):
+        nonlocal rows, exact
+        got, want = got.float().numpy(), np.asarray(want).astype(np.float32)
+        assert got.shape == want.shape, where
+        gap = float(np.abs(got - want).max())
+        assert gap <= BLOCK_TOL * float(np.abs(want).max()), f"{arch} {where}: {gap:.3e}"
+        same = np.all(got == want, axis=-1)
+        rows, exact = rows + same.size, exact + int(same.sum())
+
+    x = params["embed"][toks]
+    block = _strict(lambda x, p: jlm._layer_fwd(jc, x, p, jnp.arange(S))[0], x, _layer(params, 0))
+    for i in range(jc.num_layers):
+        y = block(x, _layer(params, i))
+        hold(lm._layer_fwd(tc, _bf16(x), model.layers[i], torch.arange(S)), y, f"forward {i}")
+        x = y
+
+    cache = jlm.init_cache(jc, B, RING)
+    lc0 = {k: v[0] for k, v in cache["layers"].items()}
+    step = _strict(lambda x, p, lc, pos, kpos: jlm._layer_decode(jc, x, p, lc, pos, kpos),
+                   x[:, :1], _layer(params, 0), lc0, cache["pos"][None], cache["kpos"])
+    for t in range(S):
+        positions = cache["pos"][None]
+        kpos = jattn.update_kpos(cache["kpos"], positions)
+        x = params["embed"][toks[:, t:t + 1]]
+        new = {"k": [], "v": []}
+        for i in range(jc.num_layers):
+            lc = {k: v[i] for k, v in cache["layers"].items()}
+            y, nl = step(x, _layer(params, i), lc, positions, kpos)
+            ck, cv = _bf16(lc["k"]), _bf16(lc["v"])
+            got = lm._layer_decode(tc, _bf16(x), model.layers[i], ck, cv, torch.tensor([t]),
+                                   torch.from_numpy(np.array(kpos)))
+            hold(got, y, f"decode t={t} layer {i}")
+            for kind, mine in (("k", ck), ("v", cv)):
+                ref = np.asarray(nl[kind]).astype(np.float32)
+                gap = float(np.abs(mine.float().numpy() - ref).max())
+                assert gap <= BLOCK_TOL * float(np.abs(ref).max()), f"{arch} {kind} t={t}"
+            new["k"].append(nl["k"])
+            new["v"].append(nl["v"])
+            x = y
+        cache = {"layers": {k: jnp.stack(v) for k, v in new.items()},
+                 "pos": cache["pos"] + 1, "kpos": kpos}
+    assert exact >= EXACT_ROWS * rows, f"{arch}: {exact} of {rows} rows bit for bit"
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen3-14b"])
+def test_bf16_model_logits_and_greedy_tokens_near_the_reference(arch):
+    jc, tc, params, model, toks = _pair(arch)
+    h, _ = jlm.forward(params, jc, jnp.asarray(toks))
+    want = np.asarray(jlm.logits_of(params, jc, h))
+    ht, _ = lm.forward(model, tc, torch.from_numpy(toks))
+    got = lm.logits_of(model, tc, ht)
+    assert got.dtype == torch.float32
+    tol = MODEL_TOL * float(np.abs(want).max())
+    np.testing.assert_allclose(got.numpy(), want, atol=tol, rtol=0)
+
+    step = jax.jit(lambda p, c, t: japi.decode_step(p, jc, c, t))
+    jcache = jlm.init_cache(jc, B, RING)
+    cache = lm.init_cache(tc, B, RING, device=CPU)
+    decided = 0
+    for t in range(S):
+        lj, jcache = step(params, jcache, jnp.asarray(toks[:, t:t + 1]))
+        lt, cache = lm.decode_step(model, tc, cache, torch.from_numpy(toks[:, t:t + 1]))
+        lj = np.asarray(lj)[:, 0]
+        np.testing.assert_allclose(lt[:, 0].numpy(), lj, atol=tol, rtol=0,
+                                   err_msg=f"{arch} decode at t={t}")
+        top2 = torch.topk(lt[:, 0], 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * tol
+        decided += int(clear.sum())
+        np.testing.assert_array_equal(torch.argmax(lt[:, 0], dim=-1).numpy()[clear.numpy()],
+                                      np.argmax(lj, axis=-1)[clear.numpy()])
+    assert decided > 0, f"{arch}: no step's margin exceeds {2 * tol:.3e}"

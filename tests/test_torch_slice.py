@@ -207,6 +207,13 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.serve, repro_torch.serve.tree\n"
         "import repro_torch.serve.resilience, repro_torch.serve.service\n"
         "import repro_torch.data, repro_torch.data.synthetic\n"
+        "import repro_torch.data.lm, repro_torch.core.selector, repro_torch.configs\n"
+        "import repro_torch.models, repro_torch.models.layers, repro_torch.models.attention\n"
+        "import repro_torch.models.lm, repro_torch.models.api, repro_torch.models.lm_serve\n"
+        "import repro_torch.serve.engine\n"
+        "from repro_torch.convert import lm_params_from_numpy\n"
+        "from repro_torch.core.sensitivity import ridge_leverage_scores\n"
+        "from repro_torch.core.dis import server_plan\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
         "import torch\n"
