@@ -236,6 +236,28 @@ and never JAX or the JAX package ``repro``.  Phases, each fatal on failure:
    ``norm``; the group selector in an NCCL world of one bit for bit the
    groupless one; (e) the reduced model in float32 on the card against the
    CPU, logits and greedy tokens.
+17. training at ``llama3.2-1b``'s published width in bf16 with ``remat``
+   (``train_phase``): (a) ``train.train_state_init`` from a CUDA generator
+   (AdamW moments in float32), then ``TRAIN_STEPS`` steps of a (8, 256)
+   ``TokenStream`` batch in each of ``none``, ``uniform`` and ``coreset``
+   (fraction 0.25) under ``cosine_with_warmup``: the loss and every
+   parameter finite after each step, the parameters changed, a coreset
+   step one K5 launch with its indices bit for bit the plain draw on the
+   same g and its weights G/(m g_S), step ms and own peak device memory per
+   mode; (b) the same bf16 loss and backward twice, and remat on against
+   off, within stated bounds; (c) the whole state through
+   ``save_checkpoint`` / ``load_checkpoint``, bit for bit; (d) a float32
+   copy at 2 layers of this width, one step on the card against the CPU;
+   (e) those weights rounded to bf16, a forward and backward in bf16
+   against float32 on the card, within stated bounds;
+18. ``granite-moe-3b-a800m`` at its published width in bf16
+   (``moe_phase``): (a) ``models.init_params``, its parameter count; (b) a
+   float32 copy's ``decode_step`` against its ``forward`` at
+   ``capacity_factor=8.0``, and the bf16 model's forward logits against the
+   copy's at ``LM_BF16_TOL``; (c) ``ServeEngine.generate`` greedy and
+   sampled, each twice bit for bit, and the decode step's time; (d) two
+   coreset-selected AdamW train steps: one K5 launch each, the draw bit for
+   bit the plain draw, ``aux`` > 0 and finite, their own peak.
 
 Every path is driven with all five launch counters set to 0 just before
 it and read just after.  With the default seed, the drawn indices of
@@ -385,6 +407,57 @@ LM_WIDE_ROWS = 5
 SEL_K1_TOL = 2.5e-5
 LM_CPU_TOL = 1.5e-5
 LM_BF16_TOL = 0.06
+# phase 17, training: llama3.2-1b at its published width in bf16 with remat
+# (1,235,814,400 parameters, AdamW moments in float32), B x S batches from
+# TokenStream, TRAIN_STEPS steps in each of the three modes, the first of a
+# run of TRAIN_HORIZON under cosine_with_warmup(TRAIN_LR, TRAIN_WARMUP,
+# TRAIN_HORIZON) (a bf16 weight of this width's 1/sqrt(2048) scale moves only
+# for an update past half its ulp, 6e-5: the cosine's floor would leave it
+# still), the coreset at fraction 0.25 (m = 2).  Tolerances: two identical
+# bf16 forward and backward passes, and remat on against off, differ by at
+# most TRAIN_LOSS_TOL x |loss| and TRAIN_GRAD_TOL (one bf16 ulp) of each
+# leaf's largest |g| (the card showed them bit for bit: the embedding's
+# backward, index_put_ with accumulate, sorts before it adds); a float32 copy at
+# TRAIN_CPU_LAYERS layers of this width, one step on the card against the
+# CPU: the loss relative TRAIN_CPU_LOSS_TOL, gradients TRAIN_CPU_GRAD_TOL
+# of each leaf's largest, parameters within 2 lr + 1e-5 with at most
+# TRAIN_CPU_SHARE of a leaf beyond 1e-5 (AdamW moves a near-zero-gradient
+# element by about lr whatever its sign; tests/test_torch_train.py)
+TRAIN_ARCH = "llama3.2-1b"
+TRAIN_PARAMS = LM_PARAMS
+TRAIN_BATCH, TRAIN_SEQ = 8, 256
+TRAIN_STEPS = 4
+TRAIN_FRACTION = 0.25
+TRAIN_LR, TRAIN_WARMUP, TRAIN_HORIZON = 3e-4, 2, 1000
+TRAIN_LOSS_TOL = 2.0 ** -8
+TRAIN_GRAD_TOL = 2.0 ** -8
+TRAIN_CPU_LAYERS, TRAIN_CPU_BATCH = 2, 4
+TRAIN_CPU_LOSS_TOL = 1e-5
+TRAIN_CPU_GRAD_TOL = 1e-4
+TRAIN_CPU_SHARE = 0.005
+# the same 2-layer weights rounded to bf16, a forward and backward in bf16
+# against one in float32 from exactly those weights, on the card: the loss
+# relative TRAIN_BF16_LOSS_TOL, gradients TRAIN_BF16_GRAD_TOL of each leaf's
+# largest |g| (on the CPU the bf16 step holds 1.43e-2 of the reference's:
+# tests/test_torch_train_bf16.py)
+TRAIN_BF16_LOSS_TOL = 2e-3
+TRAIN_BF16_GRAD_TOL = 2.0 ** -4
+# phase 18, MoE: granite-moe-3b-a800m at its published width (hf:ibm-granite/
+# granite-3.0-1b-a400m-base as the reference configures it: 32 layers, d_model
+# 1536, 24 / 8 heads of 64, 40 experts of d_ff 512, top-8, vocab 49,155 padded
+# to 49,408, tied; 3,299,182,080 parameters, the routers float32); a float32
+# copy's decode against its forward at capacity_factor 8.0 relative to the
+# largest |logit|; the bf16 model's forward at that capacity against the
+# float32 copy's: at LM_BF16_TOL, as phase 16 holds llama's, on the tokens
+# routed to the copy's 8 experts in every layer (2.3e-2 of max |logit| on
+# the card at the default seed), and at MOE_BF16_TOL on all tokens (5.4e-2
+# there): the float32 router, fed bf16 hidden states, picks another expert
+# set for 13 % of the token-layers
+MOE_ARCH = "granite-moe-3b-a800m"
+MOE_PARAMS = 3_299_182_080
+MOE_BYTES = 6_602_296_320
+MOE_DECODE_TOL = 1e-5
+MOE_BF16_TOL = 0.15
 # indices_sha256 of phases 4 and 5 at --seed 0, recorded on the card with
 # the plain draw (PERF.md); phase 7's vrlr cell (0, 1) is phase 4's m = 5000
 # build
@@ -2769,6 +2842,71 @@ def synthetic_phase(torch, dev, seed, launches, card, reset_counts, read_counts)
     log(f"phase 15 took {time.perf_counter() - phase_t0:.1f} s; {card}")
 
 
+def run_counted(torch, launches, reset_counts, read_counts, fn, want, label):
+    """Run ``fn`` with the counters at 0; its launches must be ``want``
+    (the kernels not named there none); they join the JSON line's."""
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = read_counts()
+    reset_counts()
+    for nm in launches:
+        launches[nm] += got[nm]
+    expect = {nm: want.get(nm, 0) for nm in got}
+    if got != expect:
+        fail(f"{label}: launches {got}, want {expect}")
+    return out
+
+
+def spy_draws(trainer):
+    """Wrap ``trainer.sample_coreset`` to record each draw's (key, g, S, w);
+    returns (the record list, a function that restores the original)."""
+    real = trainer.sample_coreset
+    seen = []
+
+    def spy(key, g, m):
+        S, w = real(key, g, m)
+        seen.append((key, g, m, S, w))
+        return S, w
+
+    trainer.sample_coreset = spy
+
+    def restore():
+        trainer.sample_coreset = real
+
+    return seen, restore
+
+
+def check_draw(torch, rng, draw, label):
+    """The coreset step's draw: indices bit for bit the plain draw on the
+    same g and key, weights G/(m g_S) exactly."""
+    key, g, m, S, w = draw
+    want_S = rng.categorical_plain(key, rng.log(torch.clamp_min(g, 1e-30)), m)
+    want_w = g.sum() / (m * torch.clamp_min(g[want_S], 1e-30))
+    if not (S.shape == (m,) and torch.equal(S, want_S) and torch.equal(w, want_w)):
+        fail(f"{label}: the step's draw differs from the plain draw on the same g "
+             f"({int((S != want_S).sum())} of {m} indices) or its weights from G/(m g_S)")
+
+
+def grad_gap(a, b):
+    """max over leaves of max |a - b| / max |a| (gradients by name)."""
+    return max(float((a[n].float() - b[n].float()).abs().max())
+               / max(float(a[n].float().abs().max()), 1e-30) for n in a)
+
+
+def adamw_gap(got, want):
+    """(max |got - want| over the parameters, the largest share of a leaf's
+    elements beyond 1e-5): AdamW moves an element by about lr a step
+    whatever its gradient's size, so elements with a near-zero gradient may
+    move differently; every element must stay within 2 x the summed lr."""
+    worst, share = 0.0, 0.0
+    for n in want:
+        d = (got[n].detach().float().cpu() - want[n].detach().float().cpu()).abs()
+        worst = max(worst, float(d.max()))
+        share = max(share, float((d > 1e-5).float().mean()))
+    return worst, share
+
+
 def lm_phase(torch, dev, seed, launches, card, reset_counts, read_counts):
     """Phase 16, the LM side on the card at ``llama3.2-1b``'s published
     width: (a) the model in bf16 from a CUDA generator; (b) a float32 copy's
@@ -2801,19 +2939,7 @@ def lm_phase(torch, dev, seed, launches, card, reset_counts, read_counts):
     cfg = get_arch(LM_ARCH)
 
     def count(fn, want):
-        """Run ``fn`` with the counters at 0; its launches must be ``want``
-        (the kernels not named there none); they join the JSON line's."""
-        reset_counts()
-        out = fn()
-        torch.cuda.synchronize()
-        got = read_counts()
-        reset_counts()
-        for nm in launches:
-            launches[nm] += got[nm]
-        expect = {nm: want.get(nm, 0) for nm in got}
-        if got != expect:
-            fail(f"lm: launches {got}, want {expect}")
-        return out
+        return run_counted(torch, launches, reset_counts, read_counts, fn, want, "lm")
 
     # -- (a) the model, bf16, at the published width
     torch.cuda.synchronize()
@@ -2969,11 +3095,7 @@ def lm_phase(torch, dev, seed, launches, card, reset_counts, read_counts):
     S, w = count(lambda: sel.select(skey, feats, scfg), {"categorical": 1})
     select_s = time.perf_counter() - t0
     g = sel.local_scores(feats, "leverage", scfg.ridge)
-    want_S = rng.categorical_plain(skey.to(dev), rng.log(torch.clamp_min(g, 1e-30)), m)
-    want_w = g.sum() / (m * torch.clamp_min(g[want_S], 1e-30))
-    if not (S.shape == (m,) and torch.equal(S, want_S) and torch.equal(w, want_w)):
-        fail(f"lm (d): select's draw differs from the plain draw on the same g "
-             f"({int((S != want_S).sum())} of {m} indices) or its weights from G/(m g_S)")
+    check_draw(torch, rng, (skey.to(dev), g, m, S, w), "lm (d) select")
     # K1's wide variant at (B, d): ridge_leverage_scores(use_kernel=True)
     f32 = feats.to(torch.float32)
     d = f32.shape[1]
@@ -3067,6 +3189,446 @@ def lm_phase(torch, dev, seed, launches, card, reset_counts, read_counts):
     return {"shape": f"({SEL_BATCH}, {d}) x ({d}, {d})", "max_abs_err": k1_err, "ms": k1_ms,
             "plain_ms": k1_plain, "library_ms": k1_lib, "bound_ms": k1_bound,
             "bound_by": k1_by}
+
+
+def train_phase(torch, dev, seed, launches, card, reset_counts, read_counts):
+    """Phase 17, training on the card at ``llama3.2-1b``'s published width
+    in bf16 with ``remat``: AdamW under ``cosine_with_warmup``, B x S from
+    ``TokenStream``, ``TRAIN_STEPS`` steps in each of ``none``, ``uniform``
+    and ``coreset``; repeatability and remat on against off; a checkpoint
+    written and read back; a float32 copy at 2 layers of this width, one
+    step on the card against the CPU, and its weights rounded to bf16, a
+    forward and backward in bf16 against float32 on the card."""
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+
+    from repro_torch import rng
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import train_state_from_numpy, train_state_to_numpy
+    from repro_torch.core.selector import SelectorConfig
+    from repro_torch.data import TokenStream
+    from repro_torch.models import api
+    from repro_torch.optim.schedules import constant, cosine_with_warmup
+    from repro_torch.train import load_checkpoint, make_train_step, save_checkpoint, trainer
+    from repro_torch.train import train_state_init
+    from repro_torch.utils.tree import named_leaves, tree_bytes, tree_finite
+
+    phase_t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    cfg = get_arch(TRAIN_ARCH)
+    if not cfg.remat:
+        fail(f"train: {TRAIN_ARCH}'s published config has remat off")
+    count = lambda fn, want, label: run_counted(torch, launches, reset_counts, read_counts,
+                                                fn, want, label)
+
+    # -- (a) the state and three modes of steps
+    torch.cuda.reset_peak_memory_stats()
+    state = count(lambda: train_state_init(
+        cfg, generator=torch.Generator(device=dev).manual_seed(seed), device=dev), {},
+        "train (a) init")
+    model = state["params"]
+    p_bytes, m_bytes = tree_bytes(model), tree_bytes(state["opt"]["m"])
+    if (api.param_count(model), p_bytes, m_bytes, tree_bytes(state["opt"]["v"])) != (
+            TRAIN_PARAMS, 2 * TRAIN_PARAMS, 4 * TRAIN_PARAMS, 4 * TRAIN_PARAMS):
+        fail(f"train (a): {api.param_count(model)} parameters in {p_bytes} bytes, moments "
+             f"{m_bytes}, want {TRAIN_PARAMS} in bf16 and float32 moments")
+    stream = TokenStream(vocab=cfg.vocab_size, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH,
+                         seed=seed + 17, device=dev)
+    key = rng.PRNGKey(seed + 17, device=dev)
+    total = 3 * TRAIN_STEPS
+    sched = cosine_with_warmup(TRAIN_LR, TRAIN_WARMUP, TRAIN_HORIZON)
+    draws, restore = spy_draws(trainer)
+    try:
+        for mode in ("none", "uniform", "coreset"):
+            sel = None if mode == "none" else SelectorConfig(mode=mode, fraction=TRAIN_FRACTION)
+            step_fn = make_train_step(cfg, sched, sel)
+            want = {"categorical": 1} if mode == "coreset" else {}
+            before = {n: p.detach().clone() for n, p in model.named_parameters()}
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ms, losses, lrs = [], [], []
+            for _ in range(TRAIN_STEPS):
+                batch = stream.next_batch()
+                i = int(state["step"])
+                del draws[:]
+                t0 = time.perf_counter()
+                state, met = count(lambda: step_fn(state, batch, rng.fold_in(key, i)), want,
+                                   f"train (a) {mode}")
+                ms.append((time.perf_counter() - t0) * 1e3)
+                finite = bool(tree_finite(model)) and math.isfinite(float(met["loss"]))
+                if not finite:
+                    fail(f"train (a) {mode}: step {i}: loss {float(met['loss'])} or a "
+                         f"parameter is not finite")
+                losses.append(float(met["loss"]))
+                lrs.append(float(met["lr"]))
+                if mode == "coreset":
+                    if len(draws) != 1:
+                        fail(f"train (a) coreset: {len(draws)} draws in a step")
+                    check_draw(torch, rng, draws[0], f"train (a) coreset step {i}")
+            peak = torch.cuda.max_memory_allocated() - base
+            changed = {n: float((p != before[n]).float().mean())
+                       for n, p in model.named_parameters()}
+            del before
+            share = sum(changed[n] * p.numel() for n, p in model.named_parameters()) / \
+                TRAIN_PARAMS
+            if share < 0.5 or any(changed[n] == 0.0 for n, p in model.named_parameters()
+                                  if p.dim() >= 2):
+                fail(f"train (a) {mode}: the parameters did not change (share {share:.4f}, "
+                     f"unchanged matrices {[n for n in changed if changed[n] == 0.0][:4]})")
+            med = sorted(ms)[len(ms) // 2]
+            m = TRAIN_BATCH if mode == "none" else SelectorConfig(
+                fraction=TRAIN_FRACTION).m_of(TRAIN_BATCH)
+            norms = [changed[n] for n in changed if n.endswith("norm")]
+            log(f"train (a) {mode}: {TRAIN_STEPS} steps of B={TRAIN_BATCH}, S={TRAIN_SEQ} "
+                f"({m} rows a step through forward and backward): step ms median {med:.4f} "
+                f"(min {min(ms):.4f}, max {max(ms):.4f}; the first {ms[0]:.4f}), "
+                f"{m * TRAIN_SEQ / (med / 1e3):.1f} trained tokens/s, "
+                f"{TRAIN_BATCH * TRAIN_SEQ / (med / 1e3):.1f} batch tokens/s; own peak {peak} "
+                f"bytes above the state; loss {losses[0]:.4f} -> {losses[-1]:.4f}, lr "
+                f"{lrs[0]:.3e} -> {lrs[-1]:.3e}; parameters and loss finite after every "
+                f"step, {share:.4f} of the elements changed (norm gains {min(norms):.4f}: "
+                f"bf16 ones move only past 2e-3); launches {want or 'none'} a step; {card}")
+    finally:
+        restore()
+    log(f"train (a): state {p_bytes} bytes of bf16 weights, 2 x {m_bytes} of AdamW moments, "
+        f"{p_bytes} of gradients; the coreset steps' draws bit for bit the plain draw on the "
+        f"same g, weights G/(m g_S) exactly; {card}")
+
+    # -- (b) repeatability and remat on against off, one batch
+    batch = stream.next_batch()
+
+    def loss_and_grads(c):
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _ = count(lambda: api.loss_fn(model, c, batch), {}, "train (b)")
+        count(lambda: loss.backward(), {}, "train (b)")
+        peak = torch.cuda.max_memory_allocated() - base
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return loss.detach(), grads, peak
+
+    l1, g1, peak_on = loss_and_grads(cfg)
+    l2, g2, _ = loss_and_grads(cfg)
+    rep_loss, rep_grad = abs(float(l1 - l2)), grad_gap(g1, g2)
+    del g2
+    off = dataclasses.replace(cfg, remat=False)
+    l3, g3, peak_off = loss_and_grads(off)
+    remat_loss, remat_grad = abs(float(l1 - l3)), grad_gap(g1, g3)
+    bitwise = torch.equal(l1, l2) and torch.equal(l1, l3) and all(
+        torch.equal(g1[n], g3[n]) for n in g1) and rep_grad == 0.0
+    del g1, g3
+    if not (rep_loss <= TRAIN_LOSS_TOL * abs(float(l1)) and rep_grad <= TRAIN_GRAD_TOL
+            and remat_loss <= TRAIN_LOSS_TOL * abs(float(l1)) and remat_grad <= TRAIN_GRAD_TOL):
+        fail(f"train (b): two remat steps differ by loss {rep_loss:.3e}, gradients "
+             f"{rep_grad:.3e}; remat on against off by loss {remat_loss:.3e}, gradients "
+             f"{remat_grad:.3e} (tolerances {TRAIN_LOSS_TOL} x |loss|, {TRAIN_GRAD_TOL} of each "
+             f"leaf's largest |g|)")
+    log(f"train (b): the same bf16 loss and backward twice (remat on): loss {rep_loss:.3e} apart, "
+        f"gradients {rep_grad:.3e} of a leaf's largest |g|; remat on against off: loss "
+        f"{remat_loss:.3e}, gradients {remat_grad:.3e} (tolerances {TRAIN_LOSS_TOL} x |loss| = "
+        f"{float(l1):.4f}, {TRAIN_GRAD_TOL}); all three bit for bit: {bitwise}; own peak of a "
+        f"forward and backward {peak_on} bytes with remat, {peak_off} without; {card}")
+
+    # -- (c) a checkpoint written and read back, bit for bit
+    path = tempfile.mkdtemp(prefix="ckpt-")
+    try:
+        t0 = time.perf_counter()
+        fname = save_checkpoint(path, state, step=int(state["step"]))
+        save_s = time.perf_counter() - t0
+        size = Path(fname).stat().st_size
+        t0 = time.perf_counter()
+        restored, step_no = load_checkpoint(path, state)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    a, b = dict(named_leaves(state)), dict(named_leaves(restored))
+    bad = [n for n in a if not (n in b and a[n].dtype == b[n].dtype and torch.equal(a[n], b[n]))]
+    if bad or step_no != total or a.keys() != b.keys():
+        fail(f"train (c): the checkpoint read back differs at {bad[:5]} or step {step_no}")
+    del restored, a, b
+    log(f"train (c): save_checkpoint of the whole state ({len(dict(named_leaves(state)))} "
+        f"leaves, step {step_no}) {size} bytes in {save_s:.2f} s, load_checkpoint in "
+        f"{load_s:.2f} s (the file read back warm from the page cache); every leaf bit for bit, "
+        f"bf16 leaves as their 16-bit words; {card}")
+    del state, model, draws
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (d) a float32 copy at 2 layers of this width: one step, card against CPU
+    small = dataclasses.replace(cfg, num_layers=TRAIN_CPU_LAYERS, param_dtype=torch.float32)
+    cpu_state = train_state_init(small, generator=torch.Generator().manual_seed(seed),
+                                 device="cpu")
+    card_state = train_state_from_numpy(train_state_to_numpy(cpu_state), small, dev)
+    cbatch = TokenStream(vocab=cfg.vocab_size, seq_len=TRAIN_SEQ, batch_size=TRAIN_CPU_BATCH,
+                         seed=seed + 18, device="cpu").next_batch()
+    step_fn = make_train_step(small, constant(TRAIN_LR))
+    t0 = time.perf_counter()
+    _, m_cpu = step_fn(cpu_state, cbatch, rng.PRNGKey(0))
+    cpu_s = time.perf_counter() - t0
+    _, m_card = count(lambda: step_fn(card_state, {k: v.to(dev) for k, v in cbatch.items()},
+                                      rng.PRNGKey(0, device=dev)), {}, "train (d)")
+    loss_gap = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
+    g_gap = grad_gap({n: p.grad for n, p in cpu_state["params"].named_parameters()},
+                     {n: p.grad.cpu() for n, p in card_state["params"].named_parameters()})
+    worst, share = adamw_gap(dict(card_state["params"].named_parameters()),
+                             dict(cpu_state["params"].named_parameters()))
+    if not (loss_gap <= TRAIN_CPU_LOSS_TOL and g_gap <= TRAIN_CPU_GRAD_TOL
+            and worst <= 2 * TRAIN_LR + 1e-5 and share <= TRAIN_CPU_SHARE):
+        fail(f"train (d): card against CPU at {TRAIN_CPU_LAYERS} layers in float32: loss "
+             f"{loss_gap:.3e} (tolerance {TRAIN_CPU_LOSS_TOL}), gradients {g_gap:.3e} "
+             f"(tolerance {TRAIN_CPU_GRAD_TOL}), parameters {worst:.3e} (bound "
+             f"{2 * TRAIN_LR + 1e-5:.3e}), {share:.4f} of a leaf beyond 1e-5 (bound "
+             f"{TRAIN_CPU_SHARE})")
+    log(f"train (d): a float32 copy at {TRAIN_CPU_LAYERS} layers of this width "
+        f"({api.param_count(card_state['params'])} parameters), one AdamW step of B="
+        f"{TRAIN_CPU_BATCH}, S={TRAIN_SEQ} with remat, card against CPU: loss {loss_gap:.3e} "
+        f"relative (tolerance {TRAIN_CPU_LOSS_TOL}), gradients {g_gap:.3e} of a leaf's largest "
+        f"|g| (tolerance {TRAIN_CPU_GRAD_TOL}), parameters after the step max {worst:.3e} "
+        f"(bound 2 lr + 1e-5), at most {share:.5f} of a leaf beyond 1e-5 (bound "
+        f"{TRAIN_CPU_SHARE}); the CPU step {cpu_s:.2f} s; {card}")
+
+    # -- (e) bf16 against float32 at 2 layers of this width, the same weights
+    m16 = api.init_params(dataclasses.replace(small, param_dtype=torch.bfloat16),
+                          device="meta").to_empty(device=dev)
+    m32 = api.init_params(small, device="meta").to_empty(device=dev)
+    with torch.no_grad():
+        for p16, p32, p in zip(m16.parameters(), m32.parameters(),
+                               card_state["params"].parameters()):
+            p16.copy_(p)
+            p32.copy_(p16)
+    del cpu_state, card_state
+    dbatch = {k: v.to(dev) for k, v in cbatch.items()}
+    out = {}
+    for label, mdl, c in (("bf16", m16, dataclasses.replace(small, param_dtype=torch.bfloat16)),
+                          ("float32", m32, small)):
+        loss, _ = count(lambda: api.loss_fn(mdl, c, dbatch), {}, "train (e)")
+        count(lambda: loss.backward(), {}, "train (e)")
+        out[label] = (float(loss.detach()), {n: p.grad for n, p in mdl.named_parameters()})
+    (l16, g16), (l32, g32) = out["bf16"], out["float32"]
+    loss16_gap = abs(l16 - l32) / abs(l32)
+    grad16_gap = grad_gap(g32, g16)
+    finite16 = all(bool(torch.isfinite(g).all()) for g in g16.values())
+    if not (finite16 and g16["embed"].dtype == torch.bfloat16 and loss16_gap <= TRAIN_BF16_LOSS_TOL
+            and grad16_gap <= TRAIN_BF16_GRAD_TOL):
+        fail(f"train (e): bf16 against float32 at {TRAIN_CPU_LAYERS} layers: loss {loss16_gap:.3e} "
+             f"(tolerance {TRAIN_BF16_LOSS_TOL}), gradients {grad16_gap:.3e} (tolerance "
+             f"{TRAIN_BF16_GRAD_TOL}), finite {finite16}")
+    log(f"train (e): the same {TRAIN_CPU_LAYERS}-layer weights rounded to bf16, a forward and "
+        f"backward of B={TRAIN_CPU_BATCH}, S={TRAIN_SEQ} in bf16 against float32 on the card: "
+        f"loss {l16:.6f} against {l32:.6f}, {loss16_gap:.3e} relative (tolerance "
+        f"{TRAIN_BF16_LOSS_TOL}), bf16 gradients {grad16_gap:.3e} of a leaf's largest float32 "
+        f"|g| (tolerance {TRAIN_BF16_GRAD_TOL}); {card}")
+    del m16, m32, out, g16, g32
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 17 took {time.perf_counter() - phase_t0:.1f} s ({resident} bytes resident from "
+        f"earlier phases); {card}")
+
+
+def moe_phase(torch, dev, seed, launches, card, reset_counts, read_counts):
+    """Phase 18, ``granite-moe-3b-a800m`` at its published width in bf16:
+    (a) ``init_params``; (b) a float32 copy's ``decode_step`` against its
+    ``forward`` at ``capacity_factor=8.0`` (no token dropped), and the bf16
+    model's ``forward`` against the copy's; (c)
+    ``ServeEngine.generate`` greedy and sampled, each twice bit for bit, and
+    the decode step's time; (d) two coreset-selected AdamW train steps."""
+    import dataclasses
+    import gc
+
+    from repro_torch import rng
+    from repro_torch.configs import get_arch
+    from repro_torch.core.selector import SelectorConfig
+    from repro_torch.data import TokenStream
+    from repro_torch.models import api, lm, moe as moe_mod
+    from repro_torch.models.lm_serve import ServeEngine, make_serve_step
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.schedules import constant
+    from repro_torch.train import make_train_step, trainer
+    from repro_torch.utils.tree import tree_bytes, tree_finite
+
+    phase_t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_arch(MOE_ARCH)
+    count = lambda fn, want, label: run_counted(torch, launches, reset_counts, read_counts,
+                                                fn, want, label)
+
+    # -- (a) the model
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = count(lambda: api.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(seed), device=dev), {},
+        "moe (a)")
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() - base
+    n_params, n_bytes = api.param_count(model), tree_bytes(model)
+    if (n_params, n_bytes) != (MOE_PARAMS, MOE_BYTES) or any(
+            p.dtype != (torch.float32 if n.endswith("moe.router") else torch.bfloat16)
+            or p.device != dev for n, p in model.named_parameters()):
+        fail(f"moe (a): {n_params} parameters in {n_bytes} bytes, want {MOE_PARAMS} in "
+             f"{MOE_BYTES} (bf16, the routers float32)")
+    log(f"moe (a): {MOE_ARCH} ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, {cfg.num_experts} experts "
+        f"of d_ff {cfg.moe_d_ff}, top-{cfg.num_experts_per_tok}, capacity factor "
+        f"{cfg.capacity_factor}, dispatch {cfg.moe_dispatch}, vocab {cfg.vocab_size}, tied) in "
+        f"bf16 on the card: {n_params} parameters ({api.active_param_count(cfg, model)} active "
+        f"a token), {n_bytes} bytes, init {init_s:.4f} s, own peak {init_peak} bytes; {card}")
+    prompts = TokenStream(vocab=cfg.vocab_size, seq_len=LM_PROMPT_LEN, batch_size=LM_BATCH,
+                          seed=seed + 18, device=dev).next_batch()["tokens"]
+
+    # -- (b) decode against forward, float32 copy, ample capacity
+    cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32, capacity_factor=8.0)
+    model32 = api.init_params(cfg32, device="meta").to_empty(device=dev)
+    with torch.no_grad():
+        for p32, p in zip(model32.parameters(), model.parameters()):
+            p32.copy_(p)
+    real_route, routes = moe_mod.route, []
+
+    def spy_route(params, c, xg):
+        out = real_route(params, c, xg)
+        routes.append(torch.sort(out[2], dim=-1).values.reshape(LM_BATCH, LM_PROMPT_LEN, -1))
+        return out
+
+    moe_mod.route = spy_route
+    try:
+        with torch.inference_mode():
+            hidden, aux = count(lambda: lm.forward(model32, cfg32, prompts), {}, "moe (b)")
+            routes32 = routes[:]
+            del routes[:]
+            # the bf16 model against its float32 copy, the same weights and capacity
+            cfg16 = dataclasses.replace(cfg, capacity_factor=cfg32.capacity_factor)
+            hidden16, aux16 = count(lambda: lm.forward(model, cfg16, prompts), {}, "moe (b)")
+            fwd16 = lm.logits_of(model, cfg16, hidden16)[..., :cfg.vocab_size]
+    finally:
+        moe_mod.route = real_route
+    rerouted = torch.stack([(a != b).any(-1) for a, b in zip(routes32, routes)])  # (L, B, S)
+    del routes32, routes[:]
+    with torch.inference_mode():
+        fwd = lm.logits_of(model32, cfg32, hidden)[..., :cfg.vocab_size]
+        cache = api.init_cache(cfg32, LM_BATCH, LM_PROMPT_LEN, device=dev)
+        worst = 0.0
+        for t in range(LM_PROMPT_LEN):
+            step, cache = count(lambda: api.decode_step(model32, cfg32, cache,
+                                                        prompts[:, t:t + 1]), {}, "moe (b)")
+            worst = max(worst, float((step[:, 0, :cfg.vocab_size] - fwd[:, t]).abs().max()))
+    scale = float(fwd.abs().max())
+    if not (math.isfinite(worst) and worst <= MOE_DECODE_TOL * scale and float(aux) > 0):
+        fail(f"moe (b): decode against forward {worst:.3e} at max |logit| {scale:.4g} "
+             f"(tolerance {MOE_DECODE_TOL} x max |logit|), aux {float(aux)}")
+    log(f"moe (b): float32 copy at capacity_factor 8.0 (no token dropped), decode_step over "
+        f"{LM_PROMPT_LEN} positions against forward: max abs {worst:.3e}, {worst / scale:.3e} "
+        f"of max |logit| {scale:.4g} (tolerance {MOE_DECODE_TOL}); the forward's aux "
+        f"{float(aux):.4f}; {card}")
+    per_token = (fwd16 - fwd).abs().amax(-1) / scale                              # (B, S)
+    kept = ~rerouted.any(0)
+    gap_all = float(per_token.max())
+    gap_kept = float(per_token[kept].max()) if bool(kept.any()) else math.nan
+    top1 = float((fwd16.argmax(-1) == fwd.argmax(-1)).float().mean())
+    if not (fwd16.dtype == torch.float32 and gap_all <= MOE_BF16_TOL
+            and gap_kept <= LM_BF16_TOL and math.isfinite(float(aux16))):
+        fail(f"moe (b): the bf16 model's forward logits from the float32 copy's: "
+             f"{gap_kept:.3e} of max |logit| {scale:.4g} on the {int(kept.sum())} tokens routed "
+             f"as the copy's (tolerance {LM_BF16_TOL}), {gap_all:.3e} on all (tolerance "
+             f"{MOE_BF16_TOL}); aux {float(aux16)}")
+    log(f"moe (b) bf16 against float32 at capacity_factor 8.0: forward logits "
+        f"{gap_kept:.3e} of max |logit| {scale:.4g} on the {int(kept.sum())} of "
+        f"{kept.numel()} tokens routed to the copy's experts in every layer (tolerance "
+        f"{LM_BF16_TOL}), {gap_all:.3e} on all (tolerance {MOE_BF16_TOL}); another expert set "
+        f"at {float(rerouted.float().mean()):.4f} of the token-layers; the same top token at "
+        f"{top1:.4f} of the positions; aux {float(aux16):.4f} against {float(aux):.4f}; {card}")
+    del model32, hidden, fwd, cache, step, hidden16, fwd16, rerouted
+    torch.cuda.empty_cache()
+
+    # -- (c) serving in bf16: greedy and sampled, each twice, bit for bit
+    eng = ServeEngine(cfg, model, cache_len=LM_CACHE_LEN)
+    t0 = time.perf_counter()
+    greedy = count(lambda: eng.generate(prompts, max_new_tokens=LM_NEW), {}, "moe (c)")
+    gen_s = time.perf_counter() - t0
+    again = count(lambda: eng.generate(prompts, max_new_tokens=LM_NEW), {}, "moe (c)")
+    key = rng.PRNGKey(seed + 19)
+    sampled, sampled2 = (count(lambda: eng.generate(prompts, max_new_tokens=LM_NEW,
+                                                    temperature=0.8, key=key), {}, "moe (c)")
+                         for _ in range(2))
+    for label, a, b in (("greedy", greedy, again), ("sampled", sampled, sampled2)):
+        if not (torch.equal(a, b) and a.shape == (LM_BATCH, LM_NEW) and a.dtype == torch.int32
+                and int(a.min()) >= 0 and int(a.max()) < cfg.vocab_size):
+            fail(f"moe (c) {label}: generate is not bitwise repeatable or malformed")
+    step_fn = make_serve_step(cfg)
+    dec_ms, toks = [], []
+    with torch.inference_mode():
+        cache = api.init_cache(cfg, LM_BATCH, LM_CACHE_LEN, device=dev)
+        for t in range(LM_PROMPT_LEN):
+            logits, cache = step_fn(model, cache, prompts[:, t:t + 1])
+        tok = ServeEngine._sample(logits, 0.0, None, 0)
+        for i in range(LM_NEW):
+            toks.append(tok)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = step_fn(model, cache, tok)
+            torch.cuda.synchronize()
+            dec_ms.append((time.perf_counter() - t0) * 1e3)
+            tok = ServeEngine._sample(logits, 0.0, None, i + 1)
+    if not torch.equal(torch.cat(toks, dim=1), greedy):
+        fail("moe (c): the timed loop's greedy tokens differ from generate's")
+    med = sorted(dec_ms)[len(dec_ms) // 2]
+    log(f"moe (c): ServeEngine(cache_len={LM_CACHE_LEN}).generate({LM_BATCH} x {LM_PROMPT_LEN} "
+        f"prompts, {LM_NEW} new tokens) greedy and at temperature 0.8, each twice bit for bit; "
+        f"generate {gen_s:.4f} s; a decode step median {med:.4f} ms (min {min(dec_ms):.4f}, "
+        f"max {max(dec_ms):.4f}), {LM_BATCH / (med / 1e3):.1f} tokens/s at B={LM_BATCH}; {card}")
+    del cache, logits, eng
+    torch.cuda.empty_cache()
+
+    # -- (d) two coreset-selected AdamW train steps
+    state = {"params": model, "opt": adamw_init(model),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    batch = TokenStream(vocab=cfg.vocab_size, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH,
+                        seed=seed + 19, device=dev).next_batch()
+    step_fn = make_train_step(cfg, constant(TRAIN_LR),
+                              SelectorConfig(mode="coreset", fraction=TRAIN_FRACTION))
+    draws, restore = spy_draws(trainer)
+    step_ms = []
+    try:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(2):
+            del draws[:]
+            t0 = time.perf_counter()
+            state, met = count(lambda: step_fn(state, batch, rng.PRNGKey(seed + 20 + i,
+                                                                           device=dev)),
+                               {"categorical": 1}, "moe (d)")
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if len(draws) != 1:
+                fail(f"moe (d): {len(draws)} draws in a step")
+            check_draw(torch, rng, draws[0], "moe (d)")
+            aux = float(met["aux"])
+            if not (math.isfinite(float(met["loss"])) and math.isfinite(aux) and aux > 0
+                    and bool(tree_finite(model))):
+                fail(f"moe (d): loss {float(met['loss'])}, aux {aux}, or a parameter not "
+                     f"finite")
+        peak = torch.cuda.max_memory_allocated() - base
+    finally:
+        restore()
+    log(f"moe (d): coreset-selected AdamW steps (B={TRAIN_BATCH}, S={TRAIN_SEQ}, fraction "
+        f"{TRAIN_FRACTION}, remat) in {step_ms[0]:.4f} ms (the first, warm-up included) and "
+        f"{step_ms[1]:.4f} ms: loss {float(met['loss']):.4f}, ce {float(met['ce']):.4f}, aux "
+        f"{aux:.4f} (> 0, finite), parameters finite after each; one K5 launch a step, the draw "
+        f"bit for bit the plain draw, weights G/(m g_S); state {tree_bytes(model)} + 2 x "
+        f"{tree_bytes(state['opt']['m'])} bytes, own peak {peak} bytes above it; {card}")
+    del state, model, draws
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 18 took {time.perf_counter() - phase_t0:.1f} s; {card}")
 
 
 def main() -> None:
@@ -4122,6 +4684,16 @@ def main() -> None:
     variants["leverage"].append(lm_phase(torch, dev, args.seed, launches, smi[0],
                                          reset_counts, read_counts))
     log(f"phase 16 launches: {({nm: launches[nm] - before[nm] for nm in launches})}")
+
+    # ---- 17. training on the card: llama3.2-1b at its published width ----------
+    before = dict(launches)
+    train_phase(torch, dev, args.seed, launches, smi[0], reset_counts, read_counts)
+    log(f"phase 17 launches: {({nm: launches[nm] - before[nm] for nm in launches})}")
+
+    # ---- 18. the MoE layers: granite-moe-3b-a800m serving and a train step -----
+    before = dict(launches)
+    moe_phase(torch, dev, args.seed, launches, smi[0], reset_counts, read_counts)
+    log(f"phase 18 launches: {({nm: launches[nm] - before[nm] for nm in launches})}")
 
     # ---- records ----------------------------------------------------------------
     record = {"kernels": [

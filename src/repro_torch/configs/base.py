@@ -6,8 +6,8 @@ via ``@arch_registry.register``; ``reduced()`` derives the CPU smoke variant
 of the same family (<=2 layers, d_model<=512, <=4 experts).  The configs
 are plain data, field for field the reference's; ``param_dtype`` is a
 ``torch.dtype``.  The execution fields the port does not read yet
-(``remat``, ``fsdp``, ``scan_unroll``, ``moe_dispatch``, ``moe_group``,
-``pure_fsdp``) are kept so that the two packages' configs compare equal.
+(``fsdp``, ``scan_unroll``, ``pure_fsdp``) are kept so that the two
+packages' configs compare equal.
 """
 
 from __future__ import annotations

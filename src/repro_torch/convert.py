@@ -5,7 +5,8 @@ What the two packages must share is the dataset, the PRNG keys, to fit a
 reference-built coreset with the port the coreset itself, to score against
 a reference fit its k-means centers, to merge the reference tree's nodes
 with the port the materialized coresets, and to compare the language
-models their parameters and decode caches.  Everything crosses as numpy —
+models their parameters, decode caches and train states (parameters,
+AdamW moments, steps).  Everything crosses as numpy —
 the port never sees a jax array.
 """
 
@@ -78,12 +79,24 @@ def materialized_from_numpy(mat) -> MaterializedCoreset:
 
 def _tensor_of(a, device: torch.device) -> torch.Tensor:
     """A numpy leaf as a tensor of its dtype; a bfloat16 leaf (numpy has
-    none of its own) goes across through its 16-bit words."""
+    none of its own) goes across through its 16-bit words, whether it
+    comes as ``ml_dtypes``' bfloat16 or as the raw ``|V2`` words that
+    ``np.savez`` writes for it."""
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
+    if a.dtype.name == "bfloat16" or (a.dtype.kind == "V" and a.dtype.itemsize == 2):
         words = torch.from_numpy(np.array(a).view(np.int16))
         return words.view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a)).to(device)
+
+
+def _numpy_of(t: torch.Tensor, bf16_words: bool) -> np.ndarray:
+    """A tensor as a host numpy array; bfloat16 as float32 (exact), or with
+    ``bf16_words`` as its raw 16-bit words (``|V2``, what ``np.savez``
+    writes for the reference's bfloat16 arrays)."""
+    a = t.detach().cpu()
+    if a.dtype == torch.bfloat16:
+        return a.view(torch.int16).numpy().view("V2") if bf16_words else a.float().numpy()
+    return a.numpy()
 
 
 def _flat(tree: Dict[str, Any], prefix: str = ""):
@@ -94,18 +107,9 @@ def _flat(tree: Dict[str, Any], prefix: str = ""):
             yield f"{prefix}{k}", v
 
 
-def lm_params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
-                         device: DeviceLike = "cuda"):
-    """A port :class:`repro_torch.models.lm.DecoderLM` holding the
-    reference's parameter pytree (numpy leaves, ``layers`` stacked on a
-    leading L axis): every leaf copied into the parameter of the same name
-    and dtype, layer l's from row l of its stack."""
-    from repro_torch.models import lm
-
-    dev = resolve_device(device)
-    model = lm.init_params(cfg, device="meta").to_empty(device=dev)
-    state = dict(model.named_parameters())
-    seen = set()
+def _unstacked(tree: Dict[str, Any], cfg: ArchConfig, dev: torch.device):
+    """(port name, tensor) of a reference tree keyed like the parameters:
+    a ``layers`` leaf stacked on L gives ``layers.{l}.<rest>`` its row l."""
     for name, leaf in _flat(tree):
         t = _tensor_of(leaf, dev)
         if name.startswith("layers."):
@@ -113,37 +117,20 @@ def lm_params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
             if t.shape[0] != cfg.num_layers:
                 raise ValueError(f"{name}: {t.shape[0]} stacked layers, config has "
                                  f"{cfg.num_layers}")
-            pairs = [(f"layers.{i}.{rest}", t[i]) for i in range(cfg.num_layers)]
+            yield from ((f"layers.{i}.{rest}", t[i]) for i in range(cfg.num_layers))
         else:
-            pairs = [(name, t)]
-        for pname, val in pairs:
-            if pname not in state:
-                raise ValueError(f"the reference's {name} has no parameter in the port")
-            p = state[pname]
-            if p.shape != val.shape or p.dtype != val.dtype:
-                raise ValueError(f"{pname}: the reference's {tuple(val.shape)} {val.dtype} "
-                                 f"against the port's {tuple(p.shape)} {p.dtype}")
-            with torch.no_grad():
-                p.copy_(val)
-            seen.add(pname)
-    missing = sorted(set(state) - seen)
-    if missing:
-        raise ValueError(f"the reference's tree has no leaf for {missing}")
-    return model
+            yield name, t
 
 
-def lm_params_to_numpy(model) -> Dict[str, Any]:
-    """The reference's parameter pytree of a port model: numpy leaves,
-    ``layers`` stacked on a leading L axis.  bfloat16 leaves come back as
-    float32 (exact; numpy has no bfloat16)."""
+def _stacked(named) -> Dict[str, Any]:
+    """The reference's tree of (port name, numpy array) pairs given in
+    layer order: ``layers.{l}.<rest>`` stacked on a leading L axis under
+    ``layers``, dotted names nested."""
     out: Dict[str, Any] = {}
     stacks: Dict[str, list] = {}
-    for name, p in model.named_parameters():
-        a = p.detach().cpu()
-        a = (a.float() if a.dtype == torch.bfloat16 else a).numpy()
+    for name, a in named:
         if name.startswith("layers."):
-            rest = name.split(".", 2)[2]
-            stacks.setdefault(rest, []).append(a)
+            stacks.setdefault(name.split(".", 2)[2], []).append(a)
         else:
             out[name] = a
     layers: Dict[str, Any] = {}
@@ -155,6 +142,85 @@ def lm_params_to_numpy(model) -> Dict[str, Any]:
         node[leaf] = np.stack(arrs)
     out["layers"] = layers
     return out
+
+
+def lm_params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
+                         device: DeviceLike = "cuda"):
+    """A port :class:`repro_torch.models.lm.DecoderLM` holding the
+    reference's parameter pytree (numpy leaves, ``layers`` stacked on a
+    leading L axis): every leaf copied into the parameter of the same name
+    and dtype, layer l's from row l of its stack (the MoE router stays
+    float32 in a bf16 model, as in the reference)."""
+    from repro_torch.models import lm
+
+    dev = resolve_device(device)
+    model = lm.init_params(cfg, device="meta").to_empty(device=dev)
+    state = dict(model.named_parameters())
+    seen = set()
+    for pname, val in _unstacked(tree, cfg, dev):
+        if pname not in state:
+            raise ValueError(f"the reference's {pname} has no parameter in the port")
+        p = state[pname]
+        if p.shape != val.shape or p.dtype != val.dtype:
+            raise ValueError(f"{pname}: the reference's {tuple(val.shape)} {val.dtype} "
+                             f"against the port's {tuple(p.shape)} {p.dtype}")
+        with torch.no_grad():
+            p.copy_(val)
+        seen.add(pname)
+    missing = sorted(set(state) - seen)
+    if missing:
+        raise ValueError(f"the reference's tree has no leaf for {missing}")
+    return model
+
+
+def lm_params_to_numpy(model, bf16_words: bool = False) -> Dict[str, Any]:
+    """The reference's parameter pytree of a port model: numpy leaves,
+    ``layers`` stacked on a leading L axis.  bfloat16 leaves come back as
+    float32 (exact; numpy has no bfloat16), or with ``bf16_words`` as their
+    raw 16-bit words."""
+    return _stacked((name, _numpy_of(p, bf16_words)) for name, p in model.named_parameters())
+
+
+def train_state_to_numpy(state: Dict[str, Any], bf16_words: bool = False) -> Dict[str, Any]:
+    """The reference's train state (``repro.train.train_state_init``'s
+    tree) of a port one: ``params`` as :func:`lm_params_to_numpy`, the
+    AdamW moments ``opt.m`` / ``opt.v`` stacked the same way, and the int32
+    steps."""
+    opt = state["opt"]
+    step = lambda t: np.asarray(t.detach().cpu().numpy(), np.int32)
+    return {"params": lm_params_to_numpy(state["params"], bf16_words),
+            "opt": {"m": _stacked((n, _numpy_of(t, bf16_words)) for n, t in opt["m"].items()),
+                    "v": _stacked((n, _numpy_of(t, bf16_words)) for n, t in opt["v"].items()),
+                    "step": step(opt["step"])},
+            "step": step(state["step"])}
+
+
+def train_state_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
+                           device: DeviceLike = "cuda") -> Dict[str, Any]:
+    """A port train state (``repro_torch.train.train_state_init``'s
+    layout) holding the reference's: the model by
+    :func:`lm_params_from_numpy`, the float32 moments keyed by parameter
+    name in the model's order, the steps as 0-d int32 tensors."""
+    dev = resolve_device(device)
+    model = lm_params_from_numpy(tree["params"], cfg, dev)
+    params = dict(model.named_parameters())
+
+    def moments(sub: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        got = {name: t.clone() for name, t in _unstacked(sub, cfg, dev)}
+        if set(got) != set(params):
+            raise ValueError(f"moments for {sorted(set(got) ^ set(params))} do not match the "
+                             f"model's parameters")
+        for name, p in params.items():
+            if got[name].shape != p.shape or got[name].dtype != torch.float32:
+                raise ValueError(f"{name}: a {tuple(got[name].shape)} {got[name].dtype} moment "
+                                 f"for a {tuple(p.shape)} parameter (want float32)")
+        return {name: got[name] for name in params}
+
+    step = lambda a: torch.as_tensor(np.array(a, np.int32)).reshape(()).to(dev)
+    opt = tree["opt"]
+    return {"params": model,
+            "opt": {"m": moments(opt["m"]), "v": moments(opt["v"]), "step": step(opt["step"])},
+            "step": step(tree["step"])}
 
 
 def lm_cache_from_numpy(cache: Dict[str, Any], device: DeviceLike = "cuda"):

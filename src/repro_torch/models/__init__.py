@@ -1,5 +1,6 @@
-"""Language models of the port (port of :mod:`repro.models`): the dense
-and VLM decoder family and its serving engine (:mod:`repro_torch.models.lm_serve`)."""
+"""Language models of the port (port of :mod:`repro.models`): the dense,
+VLM and MoE decoder families (:mod:`repro_torch.models.moe` holds the
+expert layers) and the serving engine (:mod:`repro_torch.models.lm_serve`)."""
 
 from repro_torch.models.api import (
     active_param_count,

@@ -1,12 +1,15 @@
 """Decoder-only language model (port of :mod:`repro.models.lm`), the
-``attention`` mixer with GQA and a dense SwiGLU FFN: the dense and VLM
-families (``llama3.2-1b``, ``qwen3-14b``, ``phi3-medium-14b``,
-``starcoder2-3b``, ``internvl2-26b``).
+``attention`` mixer with GQA and a dense SwiGLU or a mixture-of-experts
+FFN: the dense, VLM and MoE families (``llama3.2-1b``, ``qwen3-14b``,
+``phi3-medium-14b``, ``starcoder2-3b``, ``internvl2-26b``,
+``granite-moe-3b-a800m``).
 
 The model is a :class:`DecoderLM` module whose parameters keep the
 reference's names and ``(in, out)`` layout; the reference stacks the
 layers on a leading L axis and scans them, the port keeps an
-``nn.ModuleList`` and loops.  The functions take the model where the
+``nn.ModuleList`` and loops.  With ``cfg.remat`` the training forward
+recomputes each layer in backward (``torch.utils.checkpoint``, the
+reference's ``jax.checkpoint``).  The functions take the model where the
 reference takes its parameter pytree.  Families not ported yet raise
 ``NotImplementedError`` naming the ROADMAP item they wait for.
 """
@@ -16,10 +19,12 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     cross_entropy,
     dense_init,
@@ -45,8 +50,6 @@ def require_ported(cfg: ArchConfig) -> None:
         missing = f"the {cfg.mixer} mixer (models/ssm.py): ROADMAP queue 1, item 18.5"
     elif cfg.attn_type == "mla":
         missing = f"MLA attention: {attn.MLA_ITEM}"
-    elif cfg.is_moe:
-        missing = "mixture-of-experts layers (models/moe.py): ROADMAP queue 1, item 18.3"
     else:
         return
     raise NotImplementedError(f"{cfg.name}: {missing} is not ported yet")
@@ -57,14 +60,21 @@ def require_ported(cfg: ArchConfig) -> None:
 # ==========================================================================
 
 class Block(torch.nn.Module):
-    """One layer: ``attn_norm``, ``attn`` (GQA), ``ffn_norm``, ``ffn``."""
+    """One layer: ``attn_norm``, ``attn`` (GQA), ``ffn_norm``, and ``ffn``
+    (SwiGLU) or, for MoE, ``moe`` plus ``ffn`` (d_ff ``shared_d_ff``) when
+    the config has a shared expert."""
 
     def __init__(self, cfg: ArchConfig, generator, device: torch.device):
         super().__init__()
         self.attn_norm = ones_param(cfg.d_model, cfg.param_dtype, device)
         self.ffn_norm = ones_param(cfg.d_model, cfg.param_dtype, device)
         self.attn = attn.GQA(cfg, generator, device)
-        self.ffn = MLP(cfg.d_model, cfg.d_ff, cfg.param_dtype, generator, device)
+        if cfg.is_moe:
+            self.moe = moe_mod.MoE(cfg, generator, device)
+            if cfg.shared_d_ff:
+                self.ffn = MLP(cfg.d_model, cfg.shared_d_ff, cfg.param_dtype, generator, device)
+        else:
+            self.ffn = MLP(cfg.d_model, cfg.d_ff, cfg.param_dtype, generator, device)
 
 
 class DecoderLM(torch.nn.Module):
@@ -107,14 +117,27 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
 # training / prefill forward
 # ==========================================================================
 
+def _ffn(cfg: ArchConfig, p: Block, h: torch.Tensor,
+         with_aux: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The block's FFN on the normed ``h``: (out, the MoE aux loss; None for
+    a dense block or without ``with_aux``)."""
+    if not cfg.is_moe:
+        return mlp(p.ffn, h), None
+    out, aux = moe_mod.moe_ffn(p.moe, cfg, h, cfg.capacity_factor, with_aux=with_aux)
+    if cfg.shared_d_ff:
+        out = out + mlp(p.ffn, h)
+    return out, aux
+
+
 def _layer_fwd(cfg: ArchConfig, x: torch.Tensor, p: Block,
-               positions: torch.Tensor) -> torch.Tensor:
-    """One block."""
+               positions: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One block. Returns (x, aux_loss; None for a dense block).  Mutates
+    none of its inputs: under ``cfg.remat`` backward runs it again."""
     h = rms_norm(x, p.attn_norm)
     out, _ = attn.gqa_attention(p.attn, cfg, h, positions, chunk=cfg.attn_chunk)
     x = x + out
-    h = rms_norm(x, p.ffn_norm)
-    return x + mlp(p.ffn, h)
+    out, aux = _ffn(cfg, p, rms_norm(x, p.ffn_norm))
+    return x + out, aux
 
 
 def forward(
@@ -132,10 +155,19 @@ def forward(
     positions = torch.arange(S, device=x.device)
     if cfg.learned_pos:
         x = x + params.pos_embed[positions][None]
+    remat = cfg.remat and torch.is_grad_enabled()
+    auxes = []
     for layer in params.layers:
-        x = _layer_fwd(cfg, x, layer, positions)
+        if remat:
+            x, aux = torch.utils.checkpoint.checkpoint(
+                _layer_fwd, cfg, x, layer, positions, use_reentrant=False)
+        else:
+            x, aux = _layer_fwd(cfg, x, layer, positions)
+        auxes.append(aux)
     x = rms_norm(x, params.final_norm)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    if not cfg.is_moe:
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, torch.sum(torch.stack(auxes))
 
 
 def text_hidden(
@@ -172,8 +204,8 @@ def loss_fn(
     aux_weight: float = 0.01,
     example_weights: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token CE. For prefix archs (vlm) the loss is computed on the
-    text positions only."""
+    """Next-token CE (+ ``aux_weight`` x the MoE aux). For prefix archs
+    (vlm) the loss is computed on the text positions only."""
     hidden, aux = text_hidden(params, cfg, batch["tokens"], batch.get("prefix_embeds"))
     logits = logits_of(params, cfg, hidden)
     ce = cross_entropy(logits, batch["labels"])              # (B, S_text)
@@ -216,8 +248,8 @@ def _layer_decode(cfg: ArchConfig, x: torch.Tensor, p: Block, ck: torch.Tensor,
     out, _ = attn.gqa_attention(p.attn, cfg, h, positions, kv_cache=(ck, cv),
                                 cache_positions=kpos)
     x = x + out
-    h = rms_norm(x, p.ffn_norm)
-    return x + mlp(p.ffn, h)
+    out, _ = _ffn(cfg, p, rms_norm(x, p.ffn_norm), with_aux=False)
+    return x + out
 
 
 @torch.no_grad()

@@ -278,8 +278,8 @@ def test_params_from_numpy_takes_bfloat16_leaves():
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("granite-moe-3b-a800m", "item 18.3"), ("deepseek-v2-236b", "item 18.4"),
-    ("rwkv6-3b", "item 18.5"), ("hymba-1.5b", "item 18.5"), ("whisper-medium", "item 18.6")])
+    ("deepseek-v2-236b", "item 18.4"), ("rwkv6-3b", "item 18.5"), ("hymba-1.5b", "item 18.5"),
+    ("whisper-medium", "item 18.6")])
 def test_unported_families_raise(arch, item):
     cfg = get_arch(arch).reduced()
     with pytest.raises(NotImplementedError, match=item):
