@@ -257,7 +257,35 @@ and never JAX or the JAX package ``repro``.  Phases, each fatal on failure:
    copy's at ``LM_BF16_TOL``; (c) ``ServeEngine.generate`` greedy and
    sampled, each twice bit for bit, and the decode step's time; (d) two
    coreset-selected AdamW train steps: one K5 launch each, the draw bit for
-   bit the plain draw, ``aux`` > 0 and finite, their own peak.
+   bit the plain draw, ``aux`` > 0 and finite, the parameters changed,
+   their own peak.
+19. MLA (``mla_phase``): ``deepseek-v2-236b`` at its published width in
+   bf16 with its depth cut to 4 layers: (a) its parameter count,
+   16,937,047,040 in 33,880,647,680 bytes; (b) a 1-layer float32 copy's
+   absorbed ``decode_step`` against its non-absorbed ``forward`` at a
+   capacity factor of E / K (a slot for every token: 8.0 drops tokens of a
+   4-token decode group at 160 experts, top-6), and the bf16 1-layer
+   model's forward against the copy's as phase 18 holds granite's; (c)
+   ``ServeEngine.generate`` greedy and sampled, each twice bit for bit, the
+   decode step's time and the MLA cache's 75,497,472 bytes beside what
+   full-head K and V would take; (d) the reduced config's coreset train step (one K5 launch) on the
+   card against the CPU, which carries MLA's backward.
+20. RWKV-6 and 21. Hymba (``ssm_phase``): ``rwkv6-3b`` and ``hymba-1.5b``
+   at their published width and depth in bf16: (a) the count and the
+   float32 leaves; (b) over the first 1 and 8 layers and the whole, a
+   float32 and a float64 copy's ``decode_step`` (chunk 1, the state
+   carried) against its chunked ``forward``: in float64 within
+   ``F64_DECODE_TOL`` at every depth, in float32 at ``LM_DECODE_TOL`` at
+   one layer and, deeper, where float32 rounding grows with depth, no
+   farther from the float64 decode than ``SSM_ROUND_K`` times the float32
+   forward's distance from the float64 forward; the bf16 forward against
+   the float32 copy's at ``SSM_BF16_TOL`` per family at 1 and 8 layers,
+   the whole printed (these models amplify bf16 rounding past
+   ``LM_BF16_TOL``, the reference's as much); (c) ``generate`` as in 19 (c), the decode state
+   84,541,440 and 180,879,360 bytes; (d) two coreset-selected AdamW steps
+   of (8, 256) with remat: one K5 launch each with the plain draw's bits,
+   the loss and parameters finite and changed, step ms and own peak;
+   (e) the reduced config's coreset step on the card against the CPU.
 
 Every path is driven with all five launch counters set to 0 just before
 it and read just after.  With the default seed, the drawn indices of
@@ -458,6 +486,71 @@ MOE_PARAMS = 3_299_182_080
 MOE_BYTES = 6_602_296_320
 MOE_DECODE_TOL = 1e-5
 MOE_BF16_TOL = 0.15
+# phase 19, MLA: deepseek-v2-236b at its published width (arXiv:2405.04434 as the
+# reference configures it: d_model 5120, 128 heads, r_kv 512, r_q 1536, nope 128 /
+# rope 64 / v 128, 160 routed experts of 1536, top-6, a shared branch of 3072, vocab
+# 102,400, untied), its 60 layers cut to MLA_LAYERS (7.94 GB a layer in bf16; the
+# routers float32); a 1-layer float32 copy (MLA_ONE_PARAMS) for decode against
+# forward and the bf16 forward beside it, held as phase 18 holds granite's, at a
+# capacity factor of E / K (160 / 6), which gives every expert a slot for every
+# token of its group: phase 18's 8.0 leaves a decode group of 4 tokens 2 slots an
+# expert at 160 experts, top-6, and a third token on one expert drops (the card
+# showed decode 0.524 from forward at max |logit| 5.67 with 8.0); the MLA cache at B = LM_BATCH, ring LM_CACHE_LEN: c_kv + k_pe, (512 +
+# 64) x 2 bytes a token and layer; the reduced config's coreset step card against
+# CPU (REDUCED_BATCH x REDUCED_SEQ, fraction REDUCED_FRACTION) at phase 17 (d)'s
+# bounds, as in phases 20 (e) and 21 (e)
+MLA_ARCH = "deepseek-v2-236b"
+MLA_LAYERS = 4
+MLA_PARAMS = 16_937_047_040
+MLA_BYTES = 33_880_647_680
+MLA_ONE_PARAMS = 5_020_697_600
+MLA_CACHE_BYTES = MLA_LAYERS * LM_BATCH * LM_CACHE_LEN * (512 + 64) * 2
+REDUCED_BATCH, REDUCED_SEQ, REDUCED_FRACTION = 8, 16, 0.5
+# phases 20 and 21, the attention-free mixers at their published width and depth:
+# rwkv6-3b (arXiv:2404.05892: 32 layers, d_model 2560, 40 WKV heads of 64, d_ff
+# 8960, vocab 65,536, tied; decay_base and bonus_u float32) and hymba-1.5b
+# (arXiv:2411.13676 as the reference adapts it: 32 layers, d_model 1600, 25 / 5
+# heads of 64, window 1024 beside a Mamba branch of d_inner 1600 and state 16, d_ff
+# 5504, vocab 32,001, tied; dt_bias, A_log and D float32); the decode state at B =
+# LM_BATCH: RWKV's wkv (32 x 4 x 40 x 64 x 64 float32) and shift (32 x 4 x 2560
+# bf16) whatever the cache length, Hymba's k and v at the 1024-slot ring and its
+# float32 mamba_h (32 x 4 x 1600 x 16)
+RWKV_ARCH = "rwkv6-3b"
+RWKV_PARAMS = 3_424_340_480
+RWKV_BYTES = 6_849_008_640
+RWKV_STATE_BYTES = 32 * 4 * 40 * 64 * 64 * 4 + 32 * 4 * 2560 * 2
+HYMBA_ARCH = "hymba-1.5b"
+HYMBA_PARAMS = 1_342_107_232
+HYMBA_BYTES = 2_685_955_328
+HYMBA_STATE_BYTES = 2 * 32 * 4 * 1024 * 5 * 64 * 2 + 32 * 4 * 1600 * 16 * 4
+# (b), by depth over the first SSM_DEPTHS layers and the whole: decode (chunk 1,
+# the state carried token by token) against the chunked forward, in a float32
+# copy and in a float64 one.  These models carry rounding far through their
+# layers at random init (the card showed float32 decode 7.4e-4 of max |logit|
+# from forward at hymba-1.5b's 32 layers), so float32 alone cannot tell rounding
+# from a fault of decode's algebra that grows with depth.  In float64 (every
+# step the reference runs in float32 runs in float64: ``layers.wide``) the same
+# algebra rounds 2^-29 as much, so decode must meet the forward within
+# F64_DECODE_TOL x max |logit| at every depth (the float32 readings x 2^-29 are
+# under 2e-12; on the CPU at the reduced width and 32 layers 1e-13), while a
+# fault of the algebra stays at its float32 size.  In float32 one layer is
+# held at phase 16's LM_DECODE_TOL, and at every depth the float32 decode may
+# lie at most SSM_ROUND_K times as far from the float64 decode as the float32
+# forward lies from the float64 forward: decode rounds as the forward does,
+# one token's products at a time (on the CPU at the reduced width and 32
+# layers the two distances are 0.95-1.03x each other).  The bf16 forward
+# against the float32 copy's, per family, SSM_BF16_TOL at 1 and 8 layers,
+# the whole printed: rwkv6-3b at phase 16's LM_BF16_TOL and at 8 layers twice
+# the reference's drift over 8 layers (7.5e-2,
+# tests/test_torch_ssm_bf16_drift.py); hymba-1.5b at one layer of this width
+# just above the reference's 9.84e-2 (the drift test, seed 1; the card showed
+# 9.67e-2 at seed 0), at 8 layers twice the reference's 0.572: these models
+# amplify bf16 rounding as the reference's do, and Hymba's 8-layer bound
+# catches only a gross fault; a lost cast shows in tests/test_torch_mla_ssm_bf16.py
+SSM_DEPTHS = (1, 8)
+F64_DECODE_TOL = 1e-9
+SSM_ROUND_K = 4
+SSM_BF16_TOL = {"rwkv6": {1: LM_BF16_TOL, 8: 0.15}, "hymba": {1: 0.12, 8: 1.15}}
 # indices_sha256 of phases 4 and 5 at --seed 0, recorded on the card with
 # the plain draw (PERF.md); phase 7's vrlr cell (0, 1) is phase 4's m = 5000
 # build
@@ -2933,7 +3026,7 @@ def lm_phase(torch, dev, seed, launches, card, reset_counts, read_counts):
     from repro_torch.data import TokenStream
     from repro_torch.kernels import leverage as klev
     from repro_torch.models import api, layers, lm
-    from repro_torch.models.lm_serve import ServeEngine, make_serve_step
+    from repro_torch.models.lm_serve import ServeEngine
 
     phase_t0 = time.perf_counter()
     cfg = get_arch(LM_ARCH)
@@ -2973,35 +3066,26 @@ def lm_phase(torch, dev, seed, launches, card, reset_counts, read_counts):
     bytes32 = sum(p.numel() * p.element_size() for p in model32.parameters())
     if bytes32 != 4 * LM_PARAMS:
         fail(f"lm (b): the float32 copy holds {bytes32} bytes, want {4 * LM_PARAMS}")
-    errs = {}
+    for label, c in (("full", cfg32),
+                     (f"window {LM_WINDOW}", dataclasses.replace(cfg32, sliding_window=LM_WINDOW))):
+        fwd, dec, _ = decode_against_forward(torch, dev, lambda fn, want, _l: count(fn, want),
+                                             model32, c, prompts, "lm (b)")
+        worst, scale = max_gap(dec, fwd), float(fwd.abs().max())
+        if label == "full":
+            fwd32, scale32 = fwd, scale
+        if not (math.isfinite(worst) and worst <= LM_DECODE_TOL * scale):
+            fail(f"lm (b) {label}: decode against forward {worst:.3e} at max |logit| "
+                 f"{scale:.4g} (tolerance {LM_DECODE_TOL} x max |logit|)")
+        ring = min(LM_PROMPT_LEN, c.sliding_window or LM_PROMPT_LEN)
+        log(f"lm (b) {label}: float32 copy ({bytes32} bytes), decode_step over "
+            f"{LM_PROMPT_LEN} positions (ring {ring}) against forward: max abs "
+            f"{worst:.3e}, {worst / scale:.3e} of max |logit| {scale:.4g} (tolerance "
+            f"{LM_DECODE_TOL}); {card}")
+    # the bf16 model against its float32 copy, the same weights
     with torch.inference_mode():
-        for label, c in (("full", cfg32),
-                         (f"window {LM_WINDOW}", dataclasses.replace(cfg32,
-                                                                     sliding_window=LM_WINDOW))):
-            hidden, _ = count(lambda: lm.forward(model32, c, prompts), {})
-            fwd = lm.logits_of(model32, c, hidden)
-            cache = api.init_cache(c, LM_BATCH, LM_PROMPT_LEN, device=dev)
-            ring = cache["layers"]["k"].shape[2]
-            worst = 0.0
-            for t in range(LM_PROMPT_LEN):
-                step, cache = count(lambda: api.decode_step(model32, c, cache,
-                                                            prompts[:, t:t + 1]), {})
-                worst = max(worst, float((step[:, 0] - fwd[:, t]).abs().max()))
-            scale = float(fwd.abs().max())
-            errs[label] = (worst, scale)
-            if label == "full":
-                fwd32, scale32 = fwd, scale
-            if not (math.isfinite(worst) and worst <= LM_DECODE_TOL * scale):
-                fail(f"lm (b) {label}: decode against forward {worst:.3e} at max |logit| "
-                     f"{scale:.4g} (tolerance {LM_DECODE_TOL} x max |logit|)")
-            log(f"lm (b) {label}: float32 copy ({bytes32} bytes), decode_step over "
-                f"{LM_PROMPT_LEN} positions (ring {ring}) against forward: max abs "
-                f"{worst:.3e}, {worst / scale:.3e} of max |logit| {scale:.4g} (tolerance "
-                f"{LM_DECODE_TOL}); {card}")
-        # the bf16 model against its float32 copy, the same weights
         hidden, _ = count(lambda: lm.forward(model, cfg, prompts), {})
-        fwd16 = lm.logits_of(model, cfg, hidden)
-    bf16_err = float((fwd16 - fwd32).abs().max())
+        fwd16 = lm.logits_of(model, cfg, hidden)[..., :cfg.vocab_size]
+    bf16_err = max_gap(fwd16, fwd32)
     top1 = float((fwd16.argmax(-1) == fwd32.argmax(-1)).float().mean())
     if not (fwd16.dtype == torch.float32 and math.isfinite(bf16_err)
             and bf16_err <= LM_BF16_TOL * scale32):
@@ -3010,59 +3094,16 @@ def lm_phase(torch, dev, seed, launches, card, reset_counts, read_counts):
     log(f"lm (b) bf16 against float32: forward logits max abs {bf16_err:.3e}, "
         f"{bf16_err / scale32:.3e} of max |logit| {scale32:.4g} (tolerance {LM_BF16_TOL}); "
         f"the same top token at {top1:.4f} of the positions; {card}")
-    del model32, hidden, fwd, fwd16, cache, step
+    del model32, hidden, fwd, dec, fwd16
     torch.cuda.empty_cache()
 
-    # -- (c) serving in bf16: greedy and sampled, each twice, bit for bit
-    eng = ServeEngine(cfg, model, cache_len=LM_CACHE_LEN)
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    greedy = count(lambda: eng.generate(prompts, max_new_tokens=LM_NEW), {})
-    gen_s = time.perf_counter() - t0
-    gen_peak = torch.cuda.max_memory_allocated() - base
-    again = count(lambda: eng.generate(prompts, max_new_tokens=LM_NEW), {})
-    key = rng.PRNGKey(seed + 16)
-    sampled = count(lambda: eng.generate(prompts, max_new_tokens=LM_NEW, temperature=0.8,
-                                         key=key), {})
-    sampled2 = count(lambda: eng.generate(prompts, max_new_tokens=LM_NEW, temperature=0.8,
-                                          key=key), {})
-    for label, a, b in (("greedy", greedy, again), ("sampled", sampled, sampled2)):
-        if not (torch.equal(a, b) and a.shape == (LM_BATCH, LM_NEW) and a.dtype == torch.int32
-                and int(a.min()) >= 0 and int(a.max()) < cfg.vocab_size):
-            fail(f"lm (c) {label}: generate is not bitwise repeatable or malformed "
-                 f"({tuple(a.shape)} {a.dtype}, range {int(a.min())}..{int(a.max())})")
-    # the same loop by hand, each step timed on the host clock around a
-    # synchronize: its tokens are generate's
-    step_fn = make_serve_step(cfg)
-
-    def timed_step(tokens):
-        t0 = time.perf_counter()
-        out = step_fn(model, cache, tokens)
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
-    with torch.inference_mode():
-        cache = api.init_cache(cfg, LM_BATCH, LM_CACHE_LEN, device=dev)
-        kv_bytes = sum(t.numel() * t.element_size() for t in cache["layers"].values())
-        torch.cuda.synchronize()
-        pre_ms, dec_ms, toks, pre_logits = [], [], [], []
-        for t in range(LM_PROMPT_LEN):
-            (logits, cache), ms = timed_step(prompts[:, t:t + 1])
-            pre_ms.append(ms)
-            pre_logits.append(logits[:, 0])
-        tok = ServeEngine._sample(logits, 0.0, None, 0)
-        for i in range(LM_NEW):
-            toks.append(tok)
-            (logits, cache), ms = timed_step(tok)
-            dec_ms.append(ms)
-            tok = ServeEngine._sample(logits, 0.0, None, i + 1)
-    if not torch.equal(torch.cat(toks, dim=1), greedy):
-        fail("lm (c): the timed loop's greedy tokens differ from generate's")
+    # -- (c) serving in bf16: greedy and sampled, each twice, bit for bit, then
+    # the same loop by hand, each step timed
+    gen_s, gen_peak, pre_ms, dec_ms, pre_logits, kv_bytes = serve_phase_step(
+        torch, dev, seed, lambda fn, want, _l: count(fn, want), model, cfg, prompts, "lm (c)")
     if kv_bytes != LM_KV_BYTES:
         fail(f"lm (c): KV cache {kv_bytes} bytes, want {LM_KV_BYTES}")
-    pre_err = float((torch.stack(pre_logits, dim=1) - fwd32).abs().max())
+    pre_err = max_gap(pre_logits, fwd32)
     if not (math.isfinite(pre_err) and pre_err <= LM_BF16_TOL * scale32):
         fail(f"lm (c): the bf16 prefill's logits {pre_err:.3e} from the float32 forward's at "
              f"max |logit| {scale32:.4g} (tolerance {LM_BF16_TOL} x max |logit|)")
@@ -3076,7 +3117,7 @@ def lm_phase(torch, dev, seed, launches, card, reset_counts, read_counts):
         f"{max(dec_ms):.4f}) ms, {LM_BATCH / (med(dec_ms) / 1e3):.1f} tokens/s at "
         f"B={LM_BATCH}; the bf16 prefill's logits {pre_err:.3e} ({pre_err / scale32:.3e} of "
         f"max |logit|) from the float32 forward's (tolerance {LM_BF16_TOL}); {card}")
-    del cache, logits, pre_logits, fwd32
+    del pre_logits, fwd32
     torch.cuda.empty_cache()
 
     # -- (d) the coreset batch selector at the published width
@@ -3160,7 +3201,7 @@ def lm_phase(torch, dev, seed, launches, card, reset_counts, read_counts):
     log(f"lm (d): uniform (no kernel, weights B/m) and norm (one K5, the plain draw) "
         f"selections; the group selector in an NCCL world of one: 1 all-reduce, bit for bit "
         f"the groupless selection; (d) {time.perf_counter() - t_sel:.2f} s; {card}")
-    del feats, f32, M, model, eng
+    del feats, f32, M, model
     torch.cuda.empty_cache()
 
     # -- (e) the reduced model, float32, on the card against the CPU
@@ -3443,16 +3484,10 @@ def moe_phase(torch, dev, seed, launches, card, reset_counts, read_counts):
     import dataclasses
     import gc
 
-    from repro_torch import rng
     from repro_torch.configs import get_arch
-    from repro_torch.core.selector import SelectorConfig
     from repro_torch.data import TokenStream
-    from repro_torch.models import api, lm, moe as moe_mod
-    from repro_torch.models.lm_serve import ServeEngine, make_serve_step
-    from repro_torch.optim import adamw_init
-    from repro_torch.optim.schedules import constant
-    from repro_torch.train import make_train_step, trainer
-    from repro_torch.utils.tree import tree_bytes, tree_finite
+    from repro_torch.models import api
+    from repro_torch.utils.tree import tree_bytes
 
     phase_t0 = time.perf_counter()
     gc.collect()
@@ -3492,36 +3527,8 @@ def moe_phase(torch, dev, seed, launches, card, reset_counts, read_counts):
     with torch.no_grad():
         for p32, p in zip(model32.parameters(), model.parameters()):
             p32.copy_(p)
-    real_route, routes = moe_mod.route, []
-
-    def spy_route(params, c, xg):
-        out = real_route(params, c, xg)
-        routes.append(torch.sort(out[2], dim=-1).values.reshape(LM_BATCH, LM_PROMPT_LEN, -1))
-        return out
-
-    moe_mod.route = spy_route
-    try:
-        with torch.inference_mode():
-            hidden, aux = count(lambda: lm.forward(model32, cfg32, prompts), {}, "moe (b)")
-            routes32 = routes[:]
-            del routes[:]
-            # the bf16 model against its float32 copy, the same weights and capacity
-            cfg16 = dataclasses.replace(cfg, capacity_factor=cfg32.capacity_factor)
-            hidden16, aux16 = count(lambda: lm.forward(model, cfg16, prompts), {}, "moe (b)")
-            fwd16 = lm.logits_of(model, cfg16, hidden16)[..., :cfg.vocab_size]
-    finally:
-        moe_mod.route = real_route
-    rerouted = torch.stack([(a != b).any(-1) for a, b in zip(routes32, routes)])  # (L, B, S)
-    del routes32, routes[:]
-    with torch.inference_mode():
-        fwd = lm.logits_of(model32, cfg32, hidden)[..., :cfg.vocab_size]
-        cache = api.init_cache(cfg32, LM_BATCH, LM_PROMPT_LEN, device=dev)
-        worst = 0.0
-        for t in range(LM_PROMPT_LEN):
-            step, cache = count(lambda: api.decode_step(model32, cfg32, cache,
-                                                        prompts[:, t:t + 1]), {}, "moe (b)")
-            worst = max(worst, float((step[:, 0, :cfg.vocab_size] - fwd[:, t]).abs().max()))
-    scale = float(fwd.abs().max())
+    fwd, dec, aux = decode_against_forward(torch, dev, count, model32, cfg32, prompts, "moe (b)")
+    scale, worst = float(fwd.abs().max()), max_gap(dec, fwd)
     if not (math.isfinite(worst) and worst <= MOE_DECODE_TOL * scale and float(aux) > 0):
         fail(f"moe (b): decode against forward {worst:.3e} at max |logit| {scale:.4g} "
              f"(tolerance {MOE_DECODE_TOL} x max |logit|), aux {float(aux)}")
@@ -3529,72 +3536,199 @@ def moe_phase(torch, dev, seed, launches, card, reset_counts, read_counts):
         f"{LM_PROMPT_LEN} positions against forward: max abs {worst:.3e}, {worst / scale:.3e} "
         f"of max |logit| {scale:.4g} (tolerance {MOE_DECODE_TOL}); the forward's aux "
         f"{float(aux):.4f}; {card}")
-    per_token = (fwd16 - fwd).abs().amax(-1) / scale                              # (B, S)
-    kept = ~rerouted.any(0)
-    gap_all = float(per_token.max())
-    gap_kept = float(per_token[kept].max()) if bool(kept.any()) else math.nan
-    top1 = float((fwd16.argmax(-1) == fwd.argmax(-1)).float().mean())
-    if not (fwd16.dtype == torch.float32 and gap_all <= MOE_BF16_TOL
-            and gap_kept <= LM_BF16_TOL and math.isfinite(float(aux16))):
-        fail(f"moe (b): the bf16 model's forward logits from the float32 copy's: "
-             f"{gap_kept:.3e} of max |logit| {scale:.4g} on the {int(kept.sum())} tokens routed "
-             f"as the copy's (tolerance {LM_BF16_TOL}), {gap_all:.3e} on all (tolerance "
-             f"{MOE_BF16_TOL}); aux {float(aux16)}")
+    gap_kept, gap_all, n_kept, n_tok, rerouted, top1, aux16 = moe_bf16_gap(
+        torch, count, model32, cfg32, model,
+        dataclasses.replace(cfg, capacity_factor=cfg32.capacity_factor), prompts, "moe (b)")
     log(f"moe (b) bf16 against float32 at capacity_factor 8.0: forward logits "
-        f"{gap_kept:.3e} of max |logit| {scale:.4g} on the {int(kept.sum())} of "
-        f"{kept.numel()} tokens routed to the copy's experts in every layer (tolerance "
-        f"{LM_BF16_TOL}), {gap_all:.3e} on all (tolerance {MOE_BF16_TOL}); another expert set "
-        f"at {float(rerouted.float().mean()):.4f} of the token-layers; the same top token at "
-        f"{top1:.4f} of the positions; aux {float(aux16):.4f} against {float(aux):.4f}; {card}")
-    del model32, hidden, fwd, cache, step, hidden16, fwd16, rerouted
+        f"{gap_kept:.3e} of max |logit| {scale:.4g} on the {n_kept} of {n_tok} tokens routed "
+        f"to the copy's experts in every layer (tolerance {LM_BF16_TOL}), {gap_all:.3e} on all "
+        f"(tolerance {MOE_BF16_TOL}); another expert set at {rerouted:.4f} of the "
+        f"token-layers; the same top token at {top1:.4f} of the positions; aux {aux16:.4f} "
+        f"against {float(aux):.4f}; {card}")
+    del model32, fwd, dec
     torch.cuda.empty_cache()
 
     # -- (c) serving in bf16: greedy and sampled, each twice, bit for bit
-    eng = ServeEngine(cfg, model, cache_len=LM_CACHE_LEN)
-    t0 = time.perf_counter()
-    greedy = count(lambda: eng.generate(prompts, max_new_tokens=LM_NEW), {}, "moe (c)")
-    gen_s = time.perf_counter() - t0
-    again = count(lambda: eng.generate(prompts, max_new_tokens=LM_NEW), {}, "moe (c)")
-    key = rng.PRNGKey(seed + 19)
-    sampled, sampled2 = (count(lambda: eng.generate(prompts, max_new_tokens=LM_NEW,
-                                                    temperature=0.8, key=key), {}, "moe (c)")
-                         for _ in range(2))
-    for label, a, b in (("greedy", greedy, again), ("sampled", sampled, sampled2)):
-        if not (torch.equal(a, b) and a.shape == (LM_BATCH, LM_NEW) and a.dtype == torch.int32
-                and int(a.min()) >= 0 and int(a.max()) < cfg.vocab_size):
-            fail(f"moe (c) {label}: generate is not bitwise repeatable or malformed")
-    step_fn = make_serve_step(cfg)
-    dec_ms, toks = [], []
-    with torch.inference_mode():
-        cache = api.init_cache(cfg, LM_BATCH, LM_CACHE_LEN, device=dev)
-        for t in range(LM_PROMPT_LEN):
-            logits, cache = step_fn(model, cache, prompts[:, t:t + 1])
-        tok = ServeEngine._sample(logits, 0.0, None, 0)
-        for i in range(LM_NEW):
-            toks.append(tok)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            logits, cache = step_fn(model, cache, tok)
-            torch.cuda.synchronize()
-            dec_ms.append((time.perf_counter() - t0) * 1e3)
-            tok = ServeEngine._sample(logits, 0.0, None, i + 1)
-    if not torch.equal(torch.cat(toks, dim=1), greedy):
-        fail("moe (c): the timed loop's greedy tokens differ from generate's")
+    gen_s, _, _, dec_ms, _, _ = serve_phase_step(torch, dev, seed, count, model, cfg, prompts,
+                                                 "moe (c)")
     med = sorted(dec_ms)[len(dec_ms) // 2]
     log(f"moe (c): ServeEngine(cache_len={LM_CACHE_LEN}).generate({LM_BATCH} x {LM_PROMPT_LEN} "
         f"prompts, {LM_NEW} new tokens) greedy and at temperature 0.8, each twice bit for bit; "
         f"generate {gen_s:.4f} s; a decode step median {med:.4f} ms (min {min(dec_ms):.4f}, "
         f"max {max(dec_ms):.4f}), {LM_BATCH / (med / 1e3):.1f} tokens/s at B={LM_BATCH}; {card}")
-    del cache, logits, eng
     torch.cuda.empty_cache()
 
     # -- (d) two coreset-selected AdamW train steps
+    step_ms, peak, (p_bytes, m_bytes), met, _ = coreset_train_steps(
+        torch, dev, seed, count, cfg, model, "moe (d)")
+    log(f"moe (d): coreset-selected AdamW steps (B={TRAIN_BATCH}, S={TRAIN_SEQ}, fraction "
+        f"{TRAIN_FRACTION}, remat) in {step_ms[0]:.4f} ms (the first, warm-up included) and "
+        f"{step_ms[1]:.4f} ms: loss {float(met['loss']):.4f}, ce {float(met['ce']):.4f}, aux "
+        f"{float(met['aux']):.4f} (> 0, finite), parameters finite after each; one K5 launch a "
+        f"step, the draw bit for bit the plain draw, weights G/(m g_S); state {p_bytes} + 2 x "
+        f"{m_bytes} bytes, own peak {peak} bytes above it; {card}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 18 took {time.perf_counter() - phase_t0:.1f} s; {card}")
+
+
+def decode_against_forward(torch, dev, count, model, cfg, prompts, label):
+    """A model's ``decode_step`` at every position of ``prompts`` beside its
+    ``forward``: returns (the forward's logits over the real vocab, the
+    decode steps' logits stacked the same way, the forward's aux)."""
+    from repro_torch.models import api, lm
+
+    B, P = prompts.shape
+    V = cfg.vocab_size
+    with torch.inference_mode():
+        hidden, aux = count(lambda: lm.forward(model, cfg, prompts), {}, label)
+        fwd = lm.logits_of(model, cfg, hidden)[..., :V]
+        cache = api.init_cache(cfg, B, P, device=dev)
+        steps = []
+        for t in range(P):
+            step, cache = count(lambda: api.decode_step(model, cfg, cache, prompts[:, t:t + 1]),
+                                {}, label)
+            steps.append(step[:, 0, :V])
+    return fwd, torch.stack(steps, dim=1), aux
+
+
+def max_gap(a, b) -> float:
+    """max |a - b| over every element, in the wider of the two dtypes."""
+    return float((a - b).abs().max())
+
+
+def serve_phase_step(torch, dev, seed, count, model, cfg, prompts, label):
+    """``ServeEngine(cache_len=LM_CACHE_LEN).generate`` greedy and at
+    temperature 0.8, each twice bit for bit, then the same greedy loop by
+    hand (the prompt token by token, then the new tokens), each step timed
+    on the host clock around a synchronize.  Returns (generate s, its own
+    peak, the prefill steps' ms, the decode steps' ms, the prefill's logits
+    (B, P, V), the decode state's bytes)."""
+    from repro_torch import rng
+    from repro_torch.models import api
+    from repro_torch.models.lm_serve import ServeEngine, make_serve_step
+
+    B = prompts.shape[0]
+    eng = ServeEngine(cfg, model, cache_len=LM_CACHE_LEN)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    greedy = count(lambda: eng.generate(prompts, max_new_tokens=LM_NEW), {}, label)
+    gen_s = time.perf_counter() - t0
+    gen_peak = torch.cuda.max_memory_allocated() - base
+    again = count(lambda: eng.generate(prompts, max_new_tokens=LM_NEW), {}, label)
+    key = rng.PRNGKey(seed + 30)
+    sampled, sampled2 = (count(lambda: eng.generate(prompts, max_new_tokens=LM_NEW,
+                                                    temperature=0.8, key=key), {}, label)
+                         for _ in range(2))
+    for kind, a, b in (("greedy", greedy, again), ("sampled", sampled, sampled2)):
+        if not (torch.equal(a, b) and a.shape == (B, LM_NEW) and a.dtype == torch.int32
+                and int(a.min()) >= 0 and int(a.max()) < cfg.vocab_size):
+            fail(f"{label} {kind}: generate is not bitwise repeatable or malformed "
+                 f"({tuple(a.shape)} {a.dtype}, range {int(a.min())}..{int(a.max())})")
+    step_fn = make_serve_step(cfg)
+
+    def timed_step(tokens, times):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_fn(model, cache, tokens)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    pre_ms, dec_ms, toks, pre_logits = [], [], [], []
+    with torch.inference_mode():
+        cache = api.init_cache(cfg, B, LM_CACHE_LEN, device=dev)
+        state_bytes = sum(t.numel() * t.element_size() for t in cache["layers"].values())
+        for t in range(prompts.shape[1]):
+            logits, cache = timed_step(prompts[:, t:t + 1], pre_ms)
+            pre_logits.append(logits[:, 0, :cfg.vocab_size])
+        tok = ServeEngine._sample(logits, 0.0, None, 0)
+        for i in range(LM_NEW):
+            toks.append(tok)
+            logits, cache = timed_step(tok, dec_ms)
+            tok = ServeEngine._sample(logits, 0.0, None, i + 1)
+    if not torch.equal(torch.cat(toks, dim=1), greedy):
+        fail(f"{label}: the timed loop's greedy tokens differ from generate's")
+    del cache, logits
+    return gen_s, gen_peak, pre_ms, dec_ms, torch.stack(pre_logits, dim=1), state_bytes
+
+
+def reduced_step_card_vs_cpu(torch, dev, seed, count, arch, label):
+    """The reduced config in float32: one coreset-selected AdamW step on the
+    card against the same step on the CPU, from one state and batch, held
+    at phase 17 (d)'s bounds; the card's step one K5 launch, both drawing
+    the same rows.  Returns the line to log."""
+    from repro_torch import rng
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import train_state_from_numpy, train_state_to_numpy
+    from repro_torch.core.selector import SelectorConfig
+    from repro_torch.data import TokenStream
+    from repro_torch.models import api
+    from repro_torch.optim.schedules import constant
+    from repro_torch.train import make_train_step, train_state_init, trainer
+
+    small = get_arch(arch).reduced()
+    cpu_state = train_state_init(small, generator=torch.Generator().manual_seed(seed),
+                                 device="cpu")
+    card_state = train_state_from_numpy(train_state_to_numpy(cpu_state), small, dev)
+    batch = TokenStream(vocab=small.vocab_size, seq_len=REDUCED_SEQ, batch_size=REDUCED_BATCH,
+                        seed=seed + 31, device="cpu").next_batch()
+    step_fn = make_train_step(small, constant(TRAIN_LR),
+                              SelectorConfig(mode="coreset", fraction=REDUCED_FRACTION))
+    draws, restore = spy_draws(trainer)
+    try:
+        _, m_cpu = step_fn(cpu_state, batch, rng.PRNGKey(seed + 31))
+        _, m_card = count(lambda: step_fn(card_state, {k: v.to(dev) for k, v in batch.items()},
+                                          rng.PRNGKey(seed + 31, device=dev)),
+                          {"categorical": 1}, label)
+    finally:
+        restore()
+    if len(draws) != 2 or not torch.equal(draws[0][3], draws[1][3].cpu()):
+        fail(f"{label}: the card's step drew other rows than the CPU's")
+    check_draw(torch, rng, draws[1], label)
+    loss_gap = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
+    g_gap = grad_gap({n: p.grad for n, p in cpu_state["params"].named_parameters()},
+                     {n: p.grad.cpu() for n, p in card_state["params"].named_parameters()})
+    worst, share = adamw_gap(dict(card_state["params"].named_parameters()),
+                             dict(cpu_state["params"].named_parameters()))
+    if not (loss_gap <= TRAIN_CPU_LOSS_TOL and g_gap <= TRAIN_CPU_GRAD_TOL
+            and worst <= 2 * TRAIN_LR + 1e-5 and share <= TRAIN_CPU_SHARE):
+        fail(f"{label}: reduced {arch} card against CPU: loss {loss_gap:.3e} (tolerance "
+             f"{TRAIN_CPU_LOSS_TOL}), gradients {g_gap:.3e} (tolerance {TRAIN_CPU_GRAD_TOL}), "
+             f"parameters {worst:.3e} (bound {2 * TRAIN_LR + 1e-5:.3e}), {share:.4f} of a leaf "
+             f"beyond 1e-5 (bound {TRAIN_CPU_SHARE})")
+    return (f"reduced {arch} in float32 ({api.param_count(card_state['params'])} parameters), "
+            f"one coreset AdamW step of B={REDUCED_BATCH}, S={REDUCED_SEQ} (rows "
+            f"{draws[1][3].tolist()}, the CPU's, one K5 launch), card against CPU: loss "
+            f"{loss_gap:.3e} relative (tolerance {TRAIN_CPU_LOSS_TOL}), gradients {g_gap:.3e} of a "
+            f"leaf's largest |g| (tolerance {TRAIN_CPU_GRAD_TOL}), parameters max {worst:.3e} "
+            f"(bound 2 lr + 1e-5), at most {share:.5f} of a leaf beyond 1e-5")
+
+
+def coreset_train_steps(torch, dev, seed, count, cfg, model, label):
+    """Two coreset-selected AdamW steps (B = TRAIN_BATCH, S = TRAIN_SEQ,
+    the config's remat) on ``model`` in place: each one K5 launch with the
+    plain draw's bits, the loss, a MoE's aux (> 0) and every parameter
+    finite, and the parameters changed.  Returns (step ms, own peak above the state, the
+    state's bytes, the last metrics, the changed share)."""
+    from repro_torch import rng
+    from repro_torch.core.selector import SelectorConfig
+    from repro_torch.data import TokenStream
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.schedules import constant
+    from repro_torch.train import make_train_step, trainer
+    from repro_torch.utils.tree import tree_bytes, tree_finite
+
     state = {"params": model, "opt": adamw_init(model),
              "step": torch.zeros((), dtype=torch.int32, device=dev)}
     batch = TokenStream(vocab=cfg.vocab_size, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH,
-                        seed=seed + 19, device=dev).next_batch()
+                        seed=seed + 32, device=dev).next_batch()
     step_fn = make_train_step(cfg, constant(TRAIN_LR),
                               SelectorConfig(mode="coreset", fraction=TRAIN_FRACTION))
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
     draws, restore = spy_draws(trainer)
     step_ms = []
     try:
@@ -3604,31 +3738,350 @@ def moe_phase(torch, dev, seed, launches, card, reset_counts, read_counts):
         for i in range(2):
             del draws[:]
             t0 = time.perf_counter()
-            state, met = count(lambda: step_fn(state, batch, rng.PRNGKey(seed + 20 + i,
+            state, met = count(lambda: step_fn(state, batch, rng.PRNGKey(seed + 33 + i,
                                                                            device=dev)),
-                               {"categorical": 1}, "moe (d)")
+                               {"categorical": 1}, label)
             step_ms.append((time.perf_counter() - t0) * 1e3)
             if len(draws) != 1:
-                fail(f"moe (d): {len(draws)} draws in a step")
-            check_draw(torch, rng, draws[0], "moe (d)")
+                fail(f"{label}: {len(draws)} draws in a step")
+            check_draw(torch, rng, draws[0], label)
             aux = float(met["aux"])
-            if not (math.isfinite(float(met["loss"])) and math.isfinite(aux) and aux > 0
-                    and bool(tree_finite(model))):
-                fail(f"moe (d): loss {float(met['loss'])}, aux {aux}, or a parameter not "
-                     f"finite")
+            aux_ok = not cfg.is_moe or (math.isfinite(aux) and aux > 0)
+            if not (math.isfinite(float(met["loss"])) and aux_ok and bool(tree_finite(model))):
+                fail(f"{label}: step {i}: loss {float(met['loss'])}, aux {aux} (MoE: > 0), or a "
+                     f"parameter not finite")
         peak = torch.cuda.max_memory_allocated() - base
     finally:
         restore()
-    log(f"moe (d): coreset-selected AdamW steps (B={TRAIN_BATCH}, S={TRAIN_SEQ}, fraction "
-        f"{TRAIN_FRACTION}, remat) in {step_ms[0]:.4f} ms (the first, warm-up included) and "
-        f"{step_ms[1]:.4f} ms: loss {float(met['loss']):.4f}, ce {float(met['ce']):.4f}, aux "
-        f"{aux:.4f} (> 0, finite), parameters finite after each; one K5 launch a step, the draw "
-        f"bit for bit the plain draw, weights G/(m g_S); state {tree_bytes(model)} + 2 x "
-        f"{tree_bytes(state['opt']['m'])} bytes, own peak {peak} bytes above it; {card}")
-    del state, model, draws
+    changed = {n: float((p != before[n]).float().mean()) for n, p in model.named_parameters()}
+    del before
+    n_all = sum(p.numel() for p in model.parameters())
+    share = sum(changed[n] * p.numel() for n, p in model.named_parameters()) / n_all
+    if share < 0.5 or any(changed[n] == 0.0 for n, p in model.named_parameters()
+                          if p.dim() >= 2):
+        fail(f"{label}: the parameters did not change (share {share:.4f}, unchanged matrices "
+             f"{[n for n in changed if changed[n] == 0.0][:4]})")
+    state_bytes = (tree_bytes(model), tree_bytes(state["opt"]["m"]))
+    del state, draws
+    return step_ms, peak, state_bytes, met, share
+
+
+def mla_phase(torch, dev, seed, launches, card, reset_counts, read_counts):
+    """Phase 19, MLA: ``deepseek-v2-236b`` at its published width, its depth
+    cut to MLA_LAYERS: (a) the bf16 model and its count; (b) a 1-layer
+    float32 copy's ``decode_step`` against its ``forward`` at
+    a capacity factor of E / K (no token dropped), and the bf16 1-layer
+    model's forward against the copy's; (c) ``ServeEngine.generate`` greedy
+    and sampled, each twice bit for bit, the decode step's time and the MLA
+    cache's bytes; (d) the
+    reduced config's coreset train step on the card against the CPU (MLA's
+    backward)."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenStream
+    from repro_torch.models import api
+    from repro_torch.utils.tree import tree_bytes
+
+    phase_t0 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"phase 18 took {time.perf_counter() - phase_t0:.1f} s; {card}")
+    count = lambda fn, want, label: run_counted(torch, launches, reset_counts, read_counts,
+                                                fn, want, label)
+    cfg = dataclasses.replace(get_arch(MLA_ARCH), num_layers=MLA_LAYERS)
+
+    # -- (a) the bf16 model at the published width, MLA_LAYERS layers
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = count(lambda: api.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(seed), device=dev), {}, "mla (a)")
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() - base
+    n_params, n_bytes = api.param_count(model), tree_bytes(model)
+    if (n_params, n_bytes) != (MLA_PARAMS, MLA_BYTES) or any(
+            p.dtype != (torch.float32 if n.endswith("moe.router") else torch.bfloat16)
+            or p.device != dev for n, p in model.named_parameters()):
+        fail(f"mla (a): {n_params} parameters in {n_bytes} bytes, want {MLA_PARAMS} in "
+             f"{MLA_BYTES} (bf16, the routers float32)")
+    log(f"mla (a): {MLA_ARCH} at its published width ({cfg.num_layers} of 60 layers, d_model "
+        f"{cfg.d_model}, MLA {cfg.num_heads} heads: r_kv {cfg.kv_lora_rank}, r_q "
+        f"{cfg.q_lora_rank}, nope {cfg.qk_nope_dim}, rope {cfg.qk_rope_dim}, v "
+        f"{cfg.v_head_dim}; {cfg.num_experts} experts of {cfg.moe_d_ff}, top-"
+        f"{cfg.num_experts_per_tok}, shared d_ff {cfg.shared_d_ff}; vocab {cfg.vocab_size}, "
+        f"untied) in bf16 on the card: {n_params} parameters ({api.active_param_count(cfg, model)}"
+        f" active a token), {n_bytes} bytes, init {init_s:.4f} s, own peak {init_peak} bytes; "
+        f"{card}")
+    prompts = TokenStream(vocab=cfg.vocab_size, seq_len=LM_PROMPT_LEN, batch_size=LM_BATCH,
+                          seed=seed + 19, device=dev).next_batch()["tokens"]
+
+    # -- (b) one layer: float32 decode against forward, bf16 against float32
+    one = dataclasses.replace(cfg, num_layers=1)
+    m1 = api.init_params(one, device="meta")          # the bf16 model's first layer, shared
+    m1.embed, m1.final_norm, m1.head = model.embed, model.final_norm, model.head
+    m1.layers = torch.nn.ModuleList([model.layers[0]])
+    lossless = cfg.num_experts / cfg.num_experts_per_tok        # a slot for every token
+    cfg32 = dataclasses.replace(one, param_dtype=torch.float32, capacity_factor=lossless)
+    model32 = api.init_params(cfg32, device="meta").to_empty(device=dev)
+    with torch.no_grad():
+        for p32, p in zip(model32.parameters(), m1.parameters()):
+            p32.copy_(p)
+    bytes32 = tree_bytes(model32)
+    if (api.param_count(model32), bytes32) != (MLA_ONE_PARAMS, 4 * MLA_ONE_PARAMS):
+        fail(f"mla (b): the 1-layer float32 copy has {api.param_count(model32)} parameters in "
+             f"{bytes32} bytes, want {MLA_ONE_PARAMS} in {4 * MLA_ONE_PARAMS}")
+    fwd, dec, aux = decode_against_forward(torch, dev, count, model32, cfg32, prompts, "mla (b)")
+    scale, worst = float(fwd.abs().max()), max_gap(dec, fwd)
+    if not (math.isfinite(worst) and worst <= MOE_DECODE_TOL * scale):
+        fail(f"mla (b): decode against forward {worst:.3e} at max |logit| {scale:.4g} "
+             f"(tolerance {MOE_DECODE_TOL} x max |logit|)")
+    log(f"mla (b): a 1-layer float32 copy ({api.param_count(model32)} parameters, {bytes32} "
+        f"bytes) at capacity_factor {lossless:.4f} (E / K), decode_step (the absorbed form "
+        f"over the (B, ring, {cfg.kv_lora_rank}) latent cache) over {LM_PROMPT_LEN} positions "
+        f"against forward (the non-absorbed form): max abs {worst:.3e}, {worst / scale:.3e} of "
+        f"max |logit| {scale:.4g} (tolerance {MOE_DECODE_TOL}); aux {float(aux):.4f}; {card}")
+    gap_kept, gap_all, n_kept, n_tok, rerouted, top1, aux16 = moe_bf16_gap(
+        torch, count, model32, cfg32, m1, dataclasses.replace(one, capacity_factor=lossless),
+        prompts, "mla (b)")
+    log(f"mla (b) bf16 against float32, one layer at capacity_factor {lossless:.4f}: forward "
+        f"logits {gap_kept:.3e} of max |logit| {scale:.4g} on the {n_kept} of {n_tok} tokens "
+        f"routed to the copy's experts (tolerance {LM_BF16_TOL}), {gap_all:.3e} on all (tolerance "
+        f"{MOE_BF16_TOL}); another expert set at {rerouted:.4f} of the token-layers; the same "
+        f"top token at {top1:.4f} of the positions; aux {aux16:.4f}; {card}")
+    del m1, model32, fwd, dec
+    torch.cuda.empty_cache()
+
+    # -- (c) serving at MLA_LAYERS layers: greedy and sampled, the MLA cache
+    gen_s, gen_peak, _, dec_ms, _, cache_bytes = serve_phase_step(
+        torch, dev, seed, count, model, cfg, prompts, "mla (c)")
+    full_kv = cfg.num_layers * LM_BATCH * LM_CACHE_LEN * 2 * cfg.num_heads * 128 * 2
+    if cache_bytes != MLA_CACHE_BYTES:
+        fail(f"mla (c): the MLA cache holds {cache_bytes} bytes, want {MLA_CACHE_BYTES}")
+    med = sorted(dec_ms)[len(dec_ms) // 2]
+    log(f"mla (c): ServeEngine(cache_len={LM_CACHE_LEN}).generate({LM_BATCH} x {LM_PROMPT_LEN} "
+        f"prompts, {LM_NEW} new tokens) greedy and at temperature 0.8, each twice bit for bit; "
+        f"generate {gen_s:.4f} s, own peak {gen_peak} bytes; a decode step median {med:.4f} ms "
+        f"(min {min(dec_ms):.4f}, max {max(dec_ms):.4f}), {LM_BATCH / (med / 1e3):.1f} "
+        f"tokens/s at B={LM_BATCH}; the MLA cache c_kv + k_pe {cache_bytes} bytes "
+        f"({cfg.kv_lora_rank} + {cfg.qk_rope_dim} values a token and layer), where full-head K "
+        f"and V of 2 x {cfg.num_heads} x 128 would take {full_kv} bytes "
+        f"({full_kv / cache_bytes:.1f}x); {card}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (d) the reduced config: a coreset step on the card against the CPU
+    log(f"mla (d): " + reduced_step_card_vs_cpu(torch, dev, seed, count, MLA_ARCH, "mla (d)")
+        + f"; {card}")
+    log(f"phase 19 took {time.perf_counter() - phase_t0:.1f} s; {card}")
+
+
+def moe_bf16_gap(torch, count, model32, cfg32, model16, cfg16, prompts, label):
+    """The bf16 model's forward logits against its float32 copy's, as phase
+    18 holds granite's, with each forward's routes recorded: returns (the
+    gap on the tokens routed to the copy's experts in every layer, the gap
+    on all, the tokens routed alike, the tokens, the share of token-layers
+    routed otherwise, the top-token agreement, the bf16 aux), each gap over
+    the copy's max |logit|.  Fails past LM_BF16_TOL or MOE_BF16_TOL."""
+    from repro_torch.models import lm, moe as moe_mod
+
+    B, P = prompts.shape
+    V = cfg32.vocab_size
+    real_route, routes = moe_mod.route, []
+
+    def spy_route(params, c, xg):
+        out = real_route(params, c, xg)
+        routes.append(torch.sort(out[2], dim=-1).values.reshape(B, P, -1))
+        return out
+
+    moe_mod.route = spy_route
+    try:
+        with torch.inference_mode():
+            hidden, _ = count(lambda: lm.forward(model32, cfg32, prompts), {}, label)
+            fwd = lm.logits_of(model32, cfg32, hidden)[..., :V]
+            routes32 = routes[:]
+            del routes[:]
+            hidden16, aux16 = count(lambda: lm.forward(model16, cfg16, prompts), {}, label)
+            fwd16 = lm.logits_of(model16, cfg16, hidden16)[..., :V]
+    finally:
+        moe_mod.route = real_route
+    rerouted = torch.stack([(a != b).any(-1) for a, b in zip(routes32, routes)])  # (L, B, P)
+    scale = float(fwd.abs().max())
+    per_token = (fwd16 - fwd).abs().amax(-1) / scale                              # (B, P)
+    kept = ~rerouted.any(0)
+    gap_all = float(per_token.max())
+    gap_kept = float(per_token[kept].max()) if bool(kept.any()) else math.nan
+    top1 = float((fwd16.argmax(-1) == fwd.argmax(-1)).float().mean())
+    if not (fwd16.dtype == torch.float32 and gap_all <= MOE_BF16_TOL
+            and gap_kept <= LM_BF16_TOL and math.isfinite(float(aux16))):
+        fail(f"{label}: the bf16 model's forward logits from the float32 copy's: {gap_kept:.3e} "
+             f"of max |logit| {scale:.4g} on the {int(kept.sum())} tokens routed as the copy's "
+             f"(tolerance {LM_BF16_TOL}), {gap_all:.3e} on all (tolerance {MOE_BF16_TOL}); aux "
+             f"{float(aux16)}")
+    return (gap_kept, gap_all, int(kept.sum()), kept.numel(), float(rerouted.float().mean()),
+            top1, float(aux16))
+
+
+def ssm_phase(torch, dev, seed, launches, card, reset_counts, read_counts, phase, arch,
+              want_params, want_bytes, want_state, f32_leaves):
+    """Phases 20 (``rwkv6-3b``) and 21 (``hymba-1.5b``) at their published
+    width and depth: (a) the bf16 model, its count and its float32 leaves;
+    (b) over the first 1 and 8 layers and the whole, a float32 copy's
+    ``decode_step`` against its ``forward``, and the bf16 forward against
+    the copy's; (c) ``ServeEngine.generate`` greedy
+    and sampled, each twice bit for bit, the decode step's time and the
+    decode state's bytes; (d) two coreset-selected AdamW steps; (e) the
+    reduced config's coreset step on the card against the CPU."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenStream
+    from repro_torch.models import api, lm
+    from repro_torch.utils.tree import tree_bytes
+
+    phase_t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    count = lambda fn, want, label: run_counted(torch, launches, reset_counts, read_counts,
+                                                fn, want, label)
+    cfg = get_arch(arch)
+    tag = cfg.mixer
+
+    # -- (a) the bf16 model
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = count(lambda: api.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(seed), device=dev), {},
+        f"{tag} (a)")
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() - base
+    n_params, n_bytes = api.param_count(model), tree_bytes(model)
+    wide = {n.split(".", 2)[2] for n, p in model.named_parameters() if p.dtype == torch.float32}
+    if (n_params, n_bytes) != (want_params, want_bytes) or wide != f32_leaves or any(
+            p.device != dev for p in model.parameters()):
+        fail(f"{tag} (a): {n_params} parameters in {n_bytes} bytes, float32 leaves {wide}; want "
+             f"{want_params} in {want_bytes} (bf16, {sorted(f32_leaves)} float32)")
+    mixer = (f"RWKV-6, {cfg.num_heads} WKV heads of {cfg.d_model // cfg.num_heads}"
+             if cfg.mixer == "rwkv6" else
+             f"GQA {cfg.num_heads} / {cfg.num_kv_heads} heads of {cfg.head_dim}, window "
+             f"{cfg.sliding_window}, beside a Mamba branch (d_inner {cfg.mamba_d_inner}, state "
+             f"{cfg.ssm_state})")
+    log(f"{tag} (a): {arch} at its published width and depth ({cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {mixer}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, tied) in bf16 on the "
+        f"card: {n_params} parameters, {n_bytes} bytes ({sorted(f32_leaves)} float32), init "
+        f"{init_s:.4f} s, own peak {init_peak} bytes; {card}")
+    prompts = TokenStream(vocab=cfg.vocab_size, seq_len=LM_PROMPT_LEN, batch_size=LM_BATCH,
+                          seed=seed + phase, device=dev).next_batch()["tokens"]
+
+    # -- (b) by depth: decode against forward in float32, and in a float64 copy,
+    # which tells float32 rounding from a fault of decode's algebra; bf16
+    # against float32
+    def copy_as(dtype):
+        c = dataclasses.replace(cfg, param_dtype=dtype)
+        mdl = api.init_params(c, device="meta").to_empty(device=dev)
+        with torch.no_grad():
+            for q, p in zip(mdl.parameters(), model.parameters()):
+                q.copy_(p)
+        return c, mdl
+
+    cfg32, model32 = copy_as(torch.float32)
+    cfg64, model64 = copy_as(torch.float64)
+    if any(p.dtype != torch.float64 for p in model64.parameters()):
+        fail(f"{tag} (b): a leaf of the float64 copy is not float64")
+
+    def first(mdl, c, depth):
+        """``mdl``'s first ``depth`` layers as a model of their own (shared)."""
+        sub = api.init_params(dataclasses.replace(c, num_layers=depth), device="meta")
+        sub.embed, sub.final_norm = mdl.embed, mdl.final_norm
+        sub.layers = torch.nn.ModuleList(mdl.layers[:depth])
+        return sub
+
+    bf16_tol, V = SSM_BF16_TOL[cfg.mixer], cfg.vocab_size
+    dec_rows, bf16_rows = [], []
+    for depth in SSM_DEPTHS + (cfg.num_layers,):
+        (f32, d32, _), (f64, d64, _) = (
+            decode_against_forward(torch, dev, count, first(mdl, c, depth),
+                                   dataclasses.replace(c, num_layers=depth), prompts, f"{tag} (b)")
+            for c, mdl in ((cfg32, model32), (cfg64, model64)))
+        scale = float(f32.abs().max())
+        gap32, gap64 = max_gap(d32, f32), max_gap(d64, f64)
+        err_fwd, err_dec = max_gap(f32, f64), max_gap(d32, d64)
+        if not (math.isfinite(gap32) and gap64 <= F64_DECODE_TOL * scale
+                and err_dec <= SSM_ROUND_K * err_fwd
+                and (depth > 1 or gap32 <= LM_DECODE_TOL * scale)):
+            fail(f"{tag} (b): at {depth} layers decode against forward {gap32:.3e} in float32 "
+                 f"(tolerance {LM_DECODE_TOL} x max |logit| at one layer), {gap64:.3e} in float64 "
+                 f"(tolerance {F64_DECODE_TOL} x max |logit| {scale:.4g}); the float32 decode "
+                 f"{err_dec:.3e} from the float64 decode, the float32 forward {err_fwd:.3e} from "
+                 f"the float64 forward (tolerance {SSM_ROUND_K}x)")
+        with torch.inference_mode():
+            c16 = dataclasses.replace(cfg, num_layers=depth)
+            sub16 = first(model, cfg, depth)
+            hidden, _ = count(lambda: lm.forward(sub16, c16, prompts), {}, f"{tag} (b)")
+            fwd16 = lm.logits_of(sub16, c16, hidden)[..., :V]
+        gap16 = max_gap(fwd16, f32) / scale
+        top1 = float((fwd16.argmax(-1) == f32.argmax(-1)).float().mean())
+        tol16 = bf16_tol.get(depth, math.inf)
+        if not (fwd16.dtype == torch.float32 and bool(torch.isfinite(fwd16).all())
+                and gap16 <= tol16):
+            fail(f"{tag} (b): at {depth} layers the bf16 forward's logits {gap16:.3e} of max "
+                 f"|logit| {scale:.4g} from the float32 copy's (tolerance {tol16}) or not finite")
+        layers = f"{depth} layer{'s' if depth > 1 else ''}"
+        dec_rows.append(f"{layers}: float32 {gap32 / scale:.3e}, float64 {gap64 / scale:.3e}; "
+                        f"float32 from float64 decode {err_dec / scale:.3e}, forward "
+                        f"{err_fwd / scale:.3e}")
+        bf16_rows.append(f"{layers} {gap16:.3e} of max |logit| (tolerance {tol16}), the top "
+                         f"token at {top1:.4f}")
+        del f32, d32, f64, d64, sub16, hidden, fwd16
+    log(f"{tag} (b): float32 and float64 copies ({tree_bytes(model32)}, {tree_bytes(model64)} "
+        f"bytes), decode_step (chunk 1, the state carried) over {LM_PROMPT_LEN} positions "
+        f"against forward (chunk "
+        f"{cfg.ssm_chunk if cfg.mixer == 'rwkv6' else max(cfg.ssm_chunk, 4)}) over the first "
+        f"layers, max abs over max |logit| (tolerances: float64 {F64_DECODE_TOL}, float32 "
+        f"{LM_DECODE_TOL} at one layer; the float32 decode's distance from the float64 decode "
+        f"at most {SSM_ROUND_K}x the float32 forward's from the float64 forward) at "
+        + "; ".join(dec_rows) + f"; {card}")
+    log(f"{tag} (b) bf16 against float32 from the same weights, over the first layers: "
+        + "; ".join(bf16_rows) + f"; {card}")
+    del model32, model64
+    torch.cuda.empty_cache()
+
+    # -- (c) serving in bf16
+    gen_s, gen_peak, _, dec_ms, _, state_bytes = serve_phase_step(
+        torch, dev, seed, count, model, cfg, prompts, f"{tag} (c)")
+    if state_bytes != want_state:
+        fail(f"{tag} (c): the decode state holds {state_bytes} bytes, want {want_state}")
+    med = sorted(dec_ms)[len(dec_ms) // 2]
+    log(f"{tag} (c): ServeEngine(cache_len={LM_CACHE_LEN}).generate({LM_BATCH} x "
+        f"{LM_PROMPT_LEN} prompts, {LM_NEW} new tokens) greedy and at temperature 0.8, each "
+        f"twice bit for bit; generate {gen_s:.4f} s, own peak {gen_peak} bytes; a decode step "
+        f"median {med:.4f} ms (min {min(dec_ms):.4f}, max {max(dec_ms):.4f}), "
+        f"{LM_BATCH / (med / 1e3):.1f} tokens/s at B={LM_BATCH}; the decode state "
+        f"{state_bytes} bytes; {card}")
+    torch.cuda.empty_cache()
+
+    # -- (d) two coreset-selected AdamW steps at the published width
+    step_ms, peak, (p_bytes, m_bytes), met, share = coreset_train_steps(
+        torch, dev, seed, count, cfg, model, f"{tag} (d)")
+    log(f"{tag} (d): coreset-selected AdamW steps (B={TRAIN_BATCH}, S={TRAIN_SEQ}, fraction "
+        f"{TRAIN_FRACTION}, remat {cfg.remat}) in {step_ms[0]:.4f} ms (the first, warm-up "
+        f"included) and {step_ms[1]:.4f} ms: loss {float(met['loss']):.4f}, parameters finite "
+        f"after each and {share:.4f} of the elements changed; one K5 launch a step, the draw "
+        f"bit for bit the plain draw, weights G/(m g_S); state {p_bytes} + 2 x {m_bytes} bytes, "
+        f"own peak {peak} bytes above it; {card}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (e) the reduced config: a coreset step on the card against the CPU
+    log(f"{tag} (e): " + reduced_step_card_vs_cpu(torch, dev, seed, count, arch, f"{tag} (e)")
+        + f"; {card}")
+    log(f"phase {phase} took {time.perf_counter() - phase_t0:.1f} s; {card}")
 
 
 def main() -> None:
@@ -4694,6 +5147,23 @@ def main() -> None:
     before = dict(launches)
     moe_phase(torch, dev, args.seed, launches, smi[0], reset_counts, read_counts)
     log(f"phase 18 launches: {({nm: launches[nm] - before[nm] for nm in launches})}")
+
+    # ---- 19. MLA: deepseek-v2-236b at its published width, 4 layers -----------
+    before = dict(launches)
+    mla_phase(torch, dev, args.seed, launches, smi[0], reset_counts, read_counts)
+    log(f"phase 19 launches: {({nm: launches[nm] - before[nm] for nm in launches})}")
+
+    # ---- 20, 21. RWKV-6 and Hymba at their published width and depth ----------
+    for phase, arch, n_params, n_bytes, state, wide in (
+            (20, RWKV_ARCH, RWKV_PARAMS, RWKV_BYTES, RWKV_STATE_BYTES,
+             {"rwkv.decay_base", "rwkv.bonus_u"}),
+            (21, HYMBA_ARCH, HYMBA_PARAMS, HYMBA_BYTES, HYMBA_STATE_BYTES,
+             {"mamba.dt_bias", "mamba.A_log", "mamba.D"})):
+        before = dict(launches)
+        ssm_phase(torch, dev, args.seed, launches, smi[0], reset_counts, read_counts, phase,
+                  arch, n_params, n_bytes, state, wide)
+        log(f"phase {phase} launches: "
+            f"{({nm: launches[nm] - before[nm] for nm in launches})}")
 
     # ---- records ----------------------------------------------------------------
     record = {"kernels": [

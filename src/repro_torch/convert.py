@@ -149,8 +149,9 @@ def lm_params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
     """A port :class:`repro_torch.models.lm.DecoderLM` holding the
     reference's parameter pytree (numpy leaves, ``layers`` stacked on a
     leading L axis): every leaf copied into the parameter of the same name
-    and dtype, layer l's from row l of its stack (the MoE router stays
-    float32 in a bf16 model, as in the reference)."""
+    and dtype, layer l's from row l of its stack (the MoE router, RWKV-6's
+    ``decay_base`` and ``bonus_u`` and Mamba's ``dt_bias``, ``A_log`` and
+    ``D`` stay float32 in a bf16 model, as in the reference)."""
     from repro_torch.models import lm
 
     dev = resolve_device(device)
@@ -224,9 +225,13 @@ def train_state_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
 
 
 def lm_cache_from_numpy(cache: Dict[str, Any], device: DeviceLike = "cuda"):
-    """A port decode cache from the reference's (``layers`` {``k``,
-    ``v``} (L, B, ring, KV, hd), int32 ``pos`` and ``kpos``) as numpy."""
+    """A port decode cache from the reference's (``layers`` with its
+    family's leaves, stacked on L, in their own dtypes — the float32
+    ``wkv`` and ``mamba_h`` in a bf16 cache too — the int32 ``pos`` and,
+    where the cache has a ring, ``kpos``) as numpy."""
     dev = resolve_device(device)
-    return {"layers": {k: _tensor_of(v, dev) for k, v in cache["layers"].items()},
-            "pos": _tensor_of(np.asarray(cache["pos"], np.int32), dev),
-            "kpos": _tensor_of(np.asarray(cache["kpos"], np.int32), dev)}
+    out = {"layers": {k: _tensor_of(v, dev) for k, v in cache["layers"].items()},
+           "pos": _tensor_of(np.asarray(cache["pos"], np.int32), dev)}
+    if "kpos" in cache:
+        out["kpos"] = _tensor_of(np.asarray(cache["kpos"], np.int32), dev)
+    return out

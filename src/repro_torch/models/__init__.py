@@ -1,6 +1,8 @@
 """Language models of the port (port of :mod:`repro.models`): the dense,
-VLM and MoE decoder families (:mod:`repro_torch.models.moe` holds the
-expert layers) and the serving engine (:mod:`repro_torch.models.lm_serve`)."""
+VLM, MoE (with GQA or MLA), SSM and hybrid decoder families
+(:mod:`repro_torch.models.moe` holds the expert layers,
+:mod:`repro_torch.models.ssm` the RWKV-6 and Mamba mixers) and the
+serving engine (:mod:`repro_torch.models.lm_serve`)."""
 
 from repro_torch.models.api import (
     active_param_count,

@@ -1,7 +1,7 @@
 """Family-dispatching model API (port of :mod:`repro.models.api`): init /
 loss / decode for any ArchConfig the port has.  The encoder-decoder
 family is not ported yet: ``models.lm`` raises ``NotImplementedError``
-for it, as for every other unported family."""
+for it."""
 
 from __future__ import annotations
 

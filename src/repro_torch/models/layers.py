@@ -45,20 +45,28 @@ def ones_param(d: int, dtype: torch.dtype, device: torch.device) -> torch.nn.Par
     return torch.nn.Parameter(torch.ones((d,), dtype=dtype, device=device))
 
 
+def wide(dtype: torch.dtype) -> torch.dtype:
+    """The dtype of the steps the reference runs in float32: float32 for a
+    bf16 or float32 model, float64 for a float64 one, which then rounds
+    nowhere to float32 (a float64 copy is how ``chip_smoke.py`` tells
+    float32 rounding from a fault in decode's algebra)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    xf = x.to(torch.float32)
+    xf = x.to(wide(x.dtype))
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
-    return (out * gamma.to(torch.float32)).to(x.dtype)
+    return (out * gamma.to(xf.dtype)).to(x.dtype)
 
 
 def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
-    xf = x.to(torch.float32)
+    xf = x.to(wide(x.dtype))
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
     out = (xf - mu) * torch.rsqrt(var + eps)
-    return (out * gamma.to(torch.float32) + beta.to(torch.float32)).to(x.dtype)
+    return (out * gamma.to(xf.dtype) + beta.to(xf.dtype)).to(x.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -77,10 +85,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     pair's two coordinates."""
     hd = x.shape[-1]
     inv = rope_freqs(hd, theta, x.device)                       # (hd/2,)
-    ang = positions[..., None].to(torch.float32) * inv          # (..., S, hd/2)
+    wd = wide(x.dtype)
+    ang = positions[..., None].to(wd) * inv                     # (..., S, hd/2)
     cos = torch.cos(ang)[..., None, :]                          # (..., S, 1, hd/2)
     sin = torch.sin(ang)[..., None, :]
-    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    x1, x2 = torch.chunk(x.to(wd), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
 
@@ -131,9 +140,9 @@ def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 
 def unembed(x: torch.Tensor, table_or_head: torch.Tensor, tied: bool) -> torch.Tensor:
-    """Logits in f32 (softmax stability)."""
-    w = table_or_head.to(torch.float32)
-    xf = x.to(torch.float32)
+    """Logits in f32 (softmax stability; f64 in a float64 model)."""
+    w = table_or_head.to(wide(x.dtype))
+    xf = x.to(w.dtype)
     if tied:
         return xf @ w.T        # table (V, D)
     return xf @ w              # head (D, V)

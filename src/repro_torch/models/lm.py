@@ -1,8 +1,11 @@
-"""Decoder-only language model (port of :mod:`repro.models.lm`), the
-``attention`` mixer with GQA and a dense SwiGLU or a mixture-of-experts
-FFN: the dense, VLM and MoE families (``llama3.2-1b``, ``qwen3-14b``,
+"""Decoder-only language model (port of :mod:`repro.models.lm`): the
+``attention`` mixer with GQA or MLA, the ``rwkv6`` mixer and the
+``hymba`` mixer (sliding-window GQA in parallel with a Mamba branch),
+each with a dense SwiGLU or a mixture-of-experts FFN — every decoder
+family of the catalog (``llama3.2-1b``, ``qwen3-14b``,
 ``phi3-medium-14b``, ``starcoder2-3b``, ``internvl2-26b``,
-``granite-moe-3b-a800m``).
+``granite-moe-3b-a800m``, ``deepseek-v2-236b``, ``rwkv6-3b``,
+``hymba-1.5b``).
 
 The model is a :class:`DecoderLM` module whose parameters keep the
 reference's names and ``(in, out)`` layout; the reference stacks the
@@ -10,8 +13,9 @@ layers on a leading L axis and scans them, the port keeps an
 ``nn.ModuleList`` and loops.  With ``cfg.remat`` the training forward
 recomputes each layer in backward (``torch.utils.checkpoint``, the
 reference's ``jax.checkpoint``).  The functions take the model where the
-reference takes its parameter pytree.  Families not ported yet raise
-``NotImplementedError`` naming the ROADMAP item they wait for.
+reference takes its parameter pytree.  The encoder-decoder family is not
+ported yet: it raises ``NotImplementedError`` naming the ROADMAP item it
+waits for.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm
 from repro_torch.models.layers import (
     cross_entropy,
     dense_init,
@@ -36,6 +41,7 @@ from repro_torch.models.layers import (
     ones_param,
     rms_norm,
     unembed,
+    wide,
 )
 
 KPOS_EMPTY = torch.iinfo(torch.int32).max // 2   # "slot never written" marker
@@ -45,14 +51,9 @@ def require_ported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item a config's
     family waits for; nothing for a ported config."""
     if cfg.kind == "encdec":
-        missing = "the encoder-decoder family (models/encdec.py): ROADMAP queue 1, item 18.6"
-    elif cfg.mixer in ("rwkv6", "hymba"):
-        missing = f"the {cfg.mixer} mixer (models/ssm.py): ROADMAP queue 1, item 18.5"
-    elif cfg.attn_type == "mla":
-        missing = f"MLA attention: {attn.MLA_ITEM}"
-    else:
-        return
-    raise NotImplementedError(f"{cfg.name}: {missing} is not ported yet")
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder family (models/encdec.py): ROADMAP queue 1, "
+            f"item 18.6 is not ported yet")
 
 
 # ==========================================================================
@@ -60,15 +61,27 @@ def require_ported(cfg: ArchConfig) -> None:
 # ==========================================================================
 
 class Block(torch.nn.Module):
-    """One layer: ``attn_norm``, ``attn`` (GQA), ``ffn_norm``, and ``ffn``
-    (SwiGLU) or, for MoE, ``moe`` plus ``ffn`` (d_ff ``shared_d_ff``) when
-    the config has a shared expert."""
+    """One layer: ``attn_norm``, ``ffn_norm``, the mixer — ``attn`` (GQA),
+    ``mla`` (MLA), ``rwkv`` (RWKV-6), or ``attn`` and ``mamba`` (Hymba) —
+    and ``ffn`` (SwiGLU) or, for MoE, ``moe`` plus ``ffn`` (d_ff
+    ``shared_d_ff``) when the config has a shared expert."""
 
     def __init__(self, cfg: ArchConfig, generator, device: torch.device):
         super().__init__()
         self.attn_norm = ones_param(cfg.d_model, cfg.param_dtype, device)
         self.ffn_norm = ones_param(cfg.d_model, cfg.param_dtype, device)
-        self.attn = attn.GQA(cfg, generator, device)
+        if cfg.mixer == "attention":
+            if cfg.attn_type == "mla":
+                self.mla = attn.MLA(cfg, generator, device)
+            else:
+                self.attn = attn.GQA(cfg, generator, device)
+        elif cfg.mixer == "rwkv6":
+            self.rwkv = ssm.RWKV6(cfg, generator, device)
+        elif cfg.mixer == "hymba":
+            self.attn = attn.GQA(cfg, generator, device)
+            self.mamba = ssm.Mamba(cfg, generator, device)
+        else:
+            raise ValueError(cfg.mixer)
         if cfg.is_moe:
             self.moe = moe_mod.MoE(cfg, generator, device)
             if cfg.shared_d_ff:
@@ -134,7 +147,17 @@ def _layer_fwd(cfg: ArchConfig, x: torch.Tensor, p: Block,
     """One block. Returns (x, aux_loss; None for a dense block).  Mutates
     none of its inputs: under ``cfg.remat`` backward runs it again."""
     h = rms_norm(x, p.attn_norm)
-    out, _ = attn.gqa_attention(p.attn, cfg, h, positions, chunk=cfg.attn_chunk)
+    if cfg.mixer == "attention":
+        if cfg.attn_type == "mla":
+            out, _ = attn.mla_attention(p.mla, cfg, h, positions, chunk=cfg.attn_chunk)
+        else:
+            out, _ = attn.gqa_attention(p.attn, cfg, h, positions, chunk=cfg.attn_chunk)
+    elif cfg.mixer == "rwkv6":
+        out, _ = ssm.rwkv6_mixer(p.rwkv, cfg, h, chunk=cfg.ssm_chunk)
+    else:  # hymba: parallel attention + mamba heads
+        a, _ = attn.gqa_attention(p.attn, cfg, h, positions, chunk=cfg.attn_chunk)
+        m, _ = ssm.mamba_mixer(p.mamba, cfg, h, chunk=max(cfg.ssm_chunk, 4))
+        out = 0.5 * (a + m)
     x = x + out
     out, aux = _ffn(cfg, p, rms_norm(x, p.ffn_norm))
     return x + out, aux
@@ -225,28 +248,67 @@ def loss_fn(
 
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype=None,
                device: DeviceLike = "cuda") -> Dict[str, Any]:
-    """Decode state: ``layers`` {``k``, ``v``} (L, B, ring, KV, hd), the
-    int32 ``pos`` and ``kpos`` (ring,) as device tensors.  ``cache_len`` is
-    the ring size: full seq_len for exact attention, ``min(cache_len,
-    window)`` for sliding-window."""
+    """Decode state: ``layers`` holding, per family, stacked on L, ``k``,
+    ``v`` (L, B, ring, KV, hd) for GQA and Hymba's attention; ``c_kv`` (L,
+    B, ring, r_kv) and ``k_pe`` (L, B, ring, dr) for MLA; ``wkv`` (L, B, H,
+    hd, hd) float32 and ``shift`` (L, B, D) for RWKV-6; ``mamba_h`` (L, B,
+    di, N) float32 for Hymba's Mamba branch; the int32 ``pos`` and, with a
+    ring, its ``kpos`` (ring,), all device tensors.  ``cache_len`` is the
+    ring size: full seq_len for exact attention, ``min(cache_len,
+    window)`` for sliding-window, ignored by RWKV-6."""
     require_ported(cfg)
     dev = resolve_device(device)
     dt = dtype or cfg.param_dtype
-    L, KV, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
-    eff = min(cache_len, cfg.sliding_window) if cfg.sliding_window else cache_len
-    layers = {"k": torch.zeros((L, batch, eff, KV, hd), dtype=dt, device=dev),
-              "v": torch.zeros((L, batch, eff, KV, hd), dtype=dt, device=dev)}
-    return {"layers": layers,
-            "pos": torch.zeros((), dtype=torch.int32, device=dev),
-            "kpos": torch.full((eff,), KPOS_EMPTY, dtype=torch.int32, device=dev)}
+    f32 = wide(dt)
+    L = cfg.num_layers
+    zeros = lambda shape, d: torch.zeros(shape, dtype=d, device=dev)
+    layers: Dict[str, torch.Tensor] = {}
+    if cfg.mixer in ("attention", "hymba") and cfg.attn_type != "mla":
+        KV, hd = cfg.num_kv_heads, cfg.head_dim
+        eff = min(cache_len, cfg.sliding_window) if cfg.sliding_window else cache_len
+        layers["k"] = zeros((L, batch, eff, KV, hd), dt)
+        layers["v"] = zeros((L, batch, eff, KV, hd), dt)
+    if cfg.attn_type == "mla":
+        layers["c_kv"] = zeros((L, batch, cache_len, cfg.kv_lora_rank), dt)
+        layers["k_pe"] = zeros((L, batch, cache_len, cfg.qk_rope_dim), dt)
+    if cfg.mixer == "rwkv6":
+        H, hd = cfg.num_heads, cfg.d_model // cfg.num_heads
+        layers["wkv"] = zeros((L, batch, H, hd, hd), f32)
+        layers["shift"] = zeros((L, batch, cfg.d_model), dt)
+    if cfg.mixer == "hymba":
+        layers["mamba_h"] = zeros((L, batch, cfg.mamba_d_inner, cfg.ssm_state), f32)
+    cache: Dict[str, Any] = {"layers": layers,
+                             "pos": torch.zeros((), dtype=torch.int32, device=dev)}
+    if "k" in layers or "c_kv" in layers:
+        eff = layers.get("k", layers.get("c_kv")).shape[2]
+        cache["kpos"] = torch.full((eff,), KPOS_EMPTY, dtype=torch.int32, device=dev)
+    return cache
 
 
-def _layer_decode(cfg: ArchConfig, x: torch.Tensor, p: Block, ck: torch.Tensor,
-                  cv: torch.Tensor, positions: torch.Tensor,
-                  kpos: torch.Tensor) -> torch.Tensor:
+def _layer_decode(cfg: ArchConfig, x: torch.Tensor, p: Block, lc: Dict[str, torch.Tensor],
+                  positions: torch.Tensor, kpos: Optional[torch.Tensor]) -> torch.Tensor:
+    """One block on one token; ``lc`` holds the layer's views of the cache,
+    updated in place."""
     h = rms_norm(x, p.attn_norm)
-    out, _ = attn.gqa_attention(p.attn, cfg, h, positions, kv_cache=(ck, cv),
-                                cache_positions=kpos)
+    if cfg.mixer == "attention":
+        if cfg.attn_type == "mla":
+            out, _ = attn.mla_attention(p.mla, cfg, h, positions,
+                                        kv_cache=(lc["c_kv"], lc["k_pe"]),
+                                        cache_positions=kpos)
+        else:
+            out, _ = attn.gqa_attention(p.attn, cfg, h, positions, kv_cache=(lc["k"], lc["v"]),
+                                        cache_positions=kpos)
+    elif cfg.mixer == "rwkv6":
+        out, st = ssm.rwkv6_mixer(p.rwkv, cfg, h,
+                                  state={"wkv": lc["wkv"], "shift": lc["shift"]}, chunk=1)
+        lc["wkv"].copy_(st["wkv"])
+        lc["shift"].copy_(st["shift"])
+    else:  # hymba
+        a, _ = attn.gqa_attention(p.attn, cfg, h, positions, kv_cache=(lc["k"], lc["v"]),
+                                  cache_positions=kpos)
+        m, hm = ssm.mamba_mixer(p.mamba, cfg, h, state=lc["mamba_h"], chunk=1)
+        lc["mamba_h"].copy_(hm)
+        out = 0.5 * (a + m)
     x = x + out
     out, _ = _ffn(cfg, p, rms_norm(x, p.ffn_norm), with_aux=False)
     return x + out
@@ -260,17 +322,20 @@ def decode_step(
     tokens: torch.Tensor,                 # (B, 1)
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """serve_step: ONE new token against the standing cache.  The cache is
-    updated in place (k, v and kpos at the token's ring slot, ``pos`` + 1)
-    and returned; nothing is read on the host."""
+    updated in place (the layers' state at the token's ring slot, ``kpos``
+    where the cache has a ring, ``pos`` + 1) and returned; nothing is read
+    on the host."""
     pos = cache["pos"]
     positions = pos.reshape(1).clone()                       # (1,)
     x = embed(tokens, params.embed)
     if cfg.learned_pos:
         x = x + params.pos_embed[positions][None]
-    kpos = attn.update_kpos(cache["kpos"], positions)
-    ks, vs = cache["layers"]["k"], cache["layers"]["v"]
+    kpos = cache.get("kpos")
+    if kpos is not None:
+        kpos = attn.update_kpos(kpos, positions)
+    stacked = cache["layers"]
     for i, layer in enumerate(params.layers):
-        x = _layer_decode(cfg, x, layer, ks[i], vs[i], positions, kpos)
+        x = _layer_decode(cfg, x, layer, {k: t[i] for k, t in stacked.items()}, positions, kpos)
     x = rms_norm(x, params.final_norm)
     logits = logits_of(params, cfg, x)                       # (B, 1, V)
     pos.add_(1)

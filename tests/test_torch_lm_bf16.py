@@ -135,8 +135,8 @@ def test_bf16_blocks_match_the_reference_op_for_op(arch, replace):
             lc = {k: v[i] for k, v in cache["layers"].items()}
             y, nl = step(x, _layer(params, i), lc, positions, kpos)
             ck, cv = _bf16(lc["k"]), _bf16(lc["v"])
-            got = lm._layer_decode(tc, _bf16(x), model.layers[i], ck, cv, torch.tensor([t]),
-                                   torch.from_numpy(np.array(kpos)))
+            got = lm._layer_decode(tc, _bf16(x), model.layers[i], {"k": ck, "v": cv},
+                                   torch.tensor([t]), torch.from_numpy(np.array(kpos)))
             hold(got, y, f"decode t={t} layer {i}")
             for kind, mine in (("k", ck), ("v", cv)):
                 ref = np.asarray(nl[kind]).astype(np.float32)

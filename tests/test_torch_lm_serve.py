@@ -277,9 +277,7 @@ def test_params_from_numpy_takes_bfloat16_leaves():
                                   np.asarray(params["embed"].astype(jnp.float32)))
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("deepseek-v2-236b", "item 18.4"), ("rwkv6-3b", "item 18.5"), ("hymba-1.5b", "item 18.5"),
-    ("whisper-medium", "item 18.6")])
+@pytest.mark.parametrize("arch,item", [("whisper-medium", "item 18.6")])
 def test_unported_families_raise(arch, item):
     cfg = get_arch(arch).reduced()
     with pytest.raises(NotImplementedError, match=item):
@@ -291,24 +289,6 @@ def test_unported_families_raise(arch, item):
     _, tc, _, model = _pair("llama3.2-1b")
     with pytest.raises(NotImplementedError, match=item):
         lm.forward(model, cfg, torch.zeros(1, 2, dtype=torch.int32))
-
-
-def test_mla_entry_points_raise():
-    """MLA names its own item, also with the MoE layers taken out."""
-    mla = dataclasses.replace(get_arch("deepseek-v2-236b").reduced(), num_experts=0)
-    assert mla.attn_type == "mla" and not mla.is_moe
-    assert attn.MLA_ITEM.endswith("item 18.4 (MLA)")
-    with pytest.raises(NotImplementedError, match="item 18.4"):
-        api.init_params(mla, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 18.4"):
-        api.init_cache(mla, 1, 8, device=CPU)
-    _, _, _, model = _pair("llama3.2-1b")
-    batch = {"tokens": torch.zeros(1, 2, dtype=torch.int32),
-             "labels": torch.zeros(1, 2, dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="item 18.4"):
-        api.forward_hidden(model, mla, batch)
-    with pytest.raises(NotImplementedError, match="item 18.4"):
-        api.loss_fn(model, mla, batch)
 
 
 def test_cuda_entry_points_raise_without_a_card(monkeypatch):

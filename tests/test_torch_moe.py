@@ -1,9 +1,9 @@
 """The port's mixture-of-experts layers (``repro_torch.models.moe``)
 against the reference on the CPU, from the same numpy weights and inputs:
 ``moe_ffn`` in both dispatch forms, with and without dropped tokens, the
-MoE init and parameter counts, the converters with the ``moe`` leaves, and
-the MoE family still waiting for MLA.  ``tests/test_torch_moe_lm.py`` holds
-the reduced ``granite-moe-3b-a800m`` model.
+MoE init and parameter counts, and the converters with the ``moe`` leaves.
+``tests/test_torch_moe_lm.py`` holds the reduced ``granite-moe-3b-a800m``
+model, ``tests/test_torch_mla.py`` the reduced ``deepseek-v2-236b``.
 
 Tolerances (float32; measured in brackets): ``moe_ffn``'s output and the
 input's gradient ``atol=1e-5`` (1.0e-6), aux ``rtol=1e-6``, the parameters'
@@ -25,7 +25,7 @@ from repro.models import api as japi
 from repro.models import moe as jmoe
 from repro_torch.configs import get_arch
 from repro_torch.convert import lm_params_from_numpy, lm_params_to_numpy
-from repro_torch.models import api, lm, moe
+from repro_torch.models import api, moe
 
 CPU = "cpu"
 ARCH = "granite-moe-3b-a800m"
@@ -174,13 +174,3 @@ def test_init_moe_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         moe.init_moe(_cfgs()[1])
-
-
-def test_deepseek_still_raises_for_mla():
-    cfg = get_arch("deepseek-v2-236b").reduced()
-    assert cfg.is_moe and cfg.attn_type == "mla"
-    with pytest.raises(NotImplementedError, match="item 18.4"):
-        api.init_params(cfg, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 18.4"):
-        api.init_cache(cfg, 1, 8, device=CPU)
-    lm.require_ported(get_arch(ARCH))
