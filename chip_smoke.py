@@ -286,6 +286,20 @@ and never JAX or the JAX package ``repro``.  Phases, each fatal on failure:
    of (8, 256) with remat: one K5 launch each with the plain draw's bits,
    the loss and parameters finite and changed, step ms and own peak;
    (e) the reduced config's coreset step on the card against the CPU.
+22. the encoder-decoder (``whisper_phase``): ``whisper-medium`` at its
+   published width and depth in bf16, random frames from the seed: (a)
+   its count; (b) by decoder depth (1, 8, 24), a float32 and a float64
+   copy's ``prefill_cross`` + ``decode_step`` against its ``forward`` and
+   the bf16 forward against the float32 copy's; (c) the encoder pass and
+   ``prefill_cross`` timed, ``generate`` with the frames greedy and
+   sampled, each twice bit for bit, the step times, the decode state's
+   2,200,436,736 bytes; (d) the reduced config's coreset step on the card
+   against the CPU; (e) two coreset-selected AdamW steps of (8, 256) with
+   remat, one K5 launch each.
+23. sharding (``sharding_phase``): the spec table of every config, and the
+   reduced ``llama3.2-1b`` and ``whisper-medium`` (``fsdp=True``) held by
+   ``sharding.fsdp.fully_shard_model`` over an NCCL world of one, a train
+   step in modes ``none`` and ``coreset`` bit for bit the groupless step.
 
 Every path is driven with all five launch counters set to 0 just before
 it and read just after.  With the default seed, the drawn indices of
@@ -506,6 +520,18 @@ MLA_BYTES = 33_880_647_680
 MLA_ONE_PARAMS = 5_020_697_600
 MLA_CACHE_BYTES = MLA_LAYERS * LM_BATCH * LM_CACHE_LEN * (512 + 64) * 2
 REDUCED_BATCH, REDUCED_SEQ, REDUCED_FRACTION = 8, 16, 0.5
+# the reduced step's scores, held by a float64 witness of the same features: the
+# float64 ridge leverage on the card within SCORE_F64_TOL of the CPU's, and the
+# card's float32 scores no farther from their float64 witness than SCORE_ROUND_K
+# times the CPU's float32 scores from theirs (never under float32's epsilon).
+# whisper's features add the frames' mean, which leaves the float64 ridge Gram a
+# condition number of 4.1e5 where the decoders' is 1.2e3, and float32 scores on
+# the CPU 1.33e-2 of the largest from float64 (the decoders' 3.9e-5; seed 0): the
+# card's own step then weights the rows apart from the CPU's, so whisper's step
+# is also run fed the CPU's scores, at the same bounds
+SCORE_F64_TOL = 1e-9
+SCORE_ROUND_K = 4
+F32_EPS = 2.0 ** -23
 # phases 20 and 21, the attention-free mixers at their published width and depth:
 # rwkv6-3b (arXiv:2404.05892: 32 layers, d_model 2560, 40 WKV heads of 64, d_ff
 # 8960, vocab 65,536, tied; decay_base and bonus_u float32) and hymba-1.5b
@@ -551,6 +577,29 @@ SSM_DEPTHS = (1, 8)
 F64_DECODE_TOL = 1e-9
 SSM_ROUND_K = 4
 SSM_BF16_TOL = {"rwkv6": {1: LM_BF16_TOL, 8: 0.15}, "hymba": {1: 0.12, 8: 1.15}}
+# phase 22, the encoder-decoder: whisper-medium at its published width and depth
+# (arXiv:2212.04356 as the reference configures it: 24 encoder and 24 decoder
+# layers, d_model 1024, 16 heads of 64 (kv 16), d_ff 4096 SwiGLU, vocab 51,865
+# padded to 51,968, tied, learned positions (65,536 for the tokens, 1,500 for
+# the frames), no RoPE) in bf16; the frames (LM_BATCH x 1500 x 1024) random
+# from --seed and rounded to bf16, so a float32 copy reads the same values;
+# the decode state at B = LM_BATCH: the self-attention ring (24 x 4 x 4096 x
+# 16 x 64 x (k, v) x 2 bytes) and the cross K / V (24 x 4 x 1500 x 16 x 64 x 2
+# x 2).  (b) by decoder depth (WHISPER_DEPTHS and the whole, the encoder whole
+# each time): a float32 copy's decode against its forward within
+# LM_DECODE_TOL x max |logit| at every depth, a float64 copy's (layers.wide)
+# within F64_DECODE_TOL as a witness; the bf16 forward against the float32
+# copy's at LM_BF16_TOL at full depth, the shallower depths printed
+WHISPER_ARCH = "whisper-medium"
+WHISPER_PARAMS = 1_027_954_688
+WHISPER_SELF_BYTES = 24 * 4 * 4096 * 16 * 64 * 2 * 2
+WHISPER_CROSS_BYTES = 24 * 4 * 1500 * 16 * 64 * 2 * 2
+WHISPER_DEPTHS = (1, 8)
+# phase 23, sharding on the card: the reduced llama3.2-1b and whisper-medium
+# (float32, fsdp=True) held by FSDP over an NCCL world of one, their train
+# steps (B = REDUCED_BATCH, S = REDUCED_SEQ, modes none and coreset) bit for
+# bit the groupless steps'
+SHARD_ARCHS = (LM_ARCH, WHISPER_ARCH)
 # indices_sha256 of phases 4 and 5 at --seed 0, recorded on the card with
 # the plain draw (PERF.md); phase 7's vrlr cell (0, 1) is phase 4's m = 5000
 # build
@@ -3573,18 +3622,26 @@ def moe_phase(torch, dev, seed, launches, card, reset_counts, read_counts):
     log(f"phase 18 took {time.perf_counter() - phase_t0:.1f} s; {card}")
 
 
-def decode_against_forward(torch, dev, count, model, cfg, prompts, label):
+def decode_against_forward(torch, dev, count, model, cfg, prompts, label, frames=None):
     """A model's ``decode_step`` at every position of ``prompts`` beside its
     ``forward``: returns (the forward's logits over the real vocab, the
-    decode steps' logits stacked the same way, the forward's aux)."""
-    from repro_torch.models import api, lm
+    decode steps' logits stacked the same way, the forward's aux).  With
+    ``frames`` (an encoder-decoder) the forward reads them and the cache
+    takes them through ``prefill_cross`` first."""
+    from repro_torch.models import api, encdec, lm
 
     B, P = prompts.shape
     V = cfg.vocab_size
     with torch.inference_mode():
-        hidden, aux = count(lambda: lm.forward(model, cfg, prompts), {}, label)
-        fwd = lm.logits_of(model, cfg, hidden)[..., :V]
+        if frames is None:
+            hidden, aux = count(lambda: lm.forward(model, cfg, prompts), {}, label)
+            fwd = lm.logits_of(model, cfg, hidden)[..., :V]
+        else:
+            hidden, aux = count(lambda: encdec.forward(model, cfg, prompts, frames), {}, label)
+            fwd = encdec.logits_of(model, cfg, hidden)[..., :V]
         cache = api.init_cache(cfg, B, P, device=dev)
+        if frames is not None:
+            cache = count(lambda: encdec.prefill_cross(model, cfg, cache, frames), {}, label)
         steps = []
         for t in range(P):
             step, cache = count(lambda: api.decode_step(model, cfg, cache, prompts[:, t:t + 1]),
@@ -3598,15 +3655,16 @@ def max_gap(a, b) -> float:
     return float((a - b).abs().max())
 
 
-def serve_phase_step(torch, dev, seed, count, model, cfg, prompts, label):
+def serve_phase_step(torch, dev, seed, count, model, cfg, prompts, label, frames=None):
     """``ServeEngine(cache_len=LM_CACHE_LEN).generate`` greedy and at
     temperature 0.8, each twice bit for bit, then the same greedy loop by
     hand (the prompt token by token, then the new tokens), each step timed
-    on the host clock around a synchronize.  Returns (generate s, its own
-    peak, the prefill steps' ms, the decode steps' ms, the prefill's logits
-    (B, P, V), the decode state's bytes)."""
+    on the host clock around a synchronize; an encoder-decoder is given
+    ``frames`` (the loop runs ``prefill_cross`` on them first).  Returns
+    (generate s, its own peak, the prefill steps' ms, the decode steps' ms,
+    the prefill's logits (B, P, V), the decode state's bytes)."""
     from repro_torch import rng
-    from repro_torch.models import api
+    from repro_torch.models import api, encdec
     from repro_torch.models.lm_serve import ServeEngine, make_serve_step
 
     B = prompts.shape[0]
@@ -3615,13 +3673,16 @@ def serve_phase_step(torch, dev, seed, count, model, cfg, prompts, label):
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    greedy = count(lambda: eng.generate(prompts, max_new_tokens=LM_NEW), {}, label)
+    greedy = count(lambda: eng.generate(prompts, max_new_tokens=LM_NEW, prefix_embeds=frames),
+                   {}, label)
     gen_s = time.perf_counter() - t0
     gen_peak = torch.cuda.max_memory_allocated() - base
-    again = count(lambda: eng.generate(prompts, max_new_tokens=LM_NEW), {}, label)
+    again = count(lambda: eng.generate(prompts, max_new_tokens=LM_NEW, prefix_embeds=frames),
+                  {}, label)
     key = rng.PRNGKey(seed + 30)
     sampled, sampled2 = (count(lambda: eng.generate(prompts, max_new_tokens=LM_NEW,
-                                                    temperature=0.8, key=key), {}, label)
+                                                    temperature=0.8, key=key,
+                                                    prefix_embeds=frames), {}, label)
                          for _ in range(2))
     for kind, a, b in (("greedy", greedy, again), ("sampled", sampled, sampled2)):
         if not (torch.equal(a, b) and a.shape == (B, LM_NEW) and a.dtype == torch.int32
@@ -3642,6 +3703,8 @@ def serve_phase_step(torch, dev, seed, count, model, cfg, prompts, label):
     with torch.inference_mode():
         cache = api.init_cache(cfg, B, LM_CACHE_LEN, device=dev)
         state_bytes = sum(t.numel() * t.element_size() for t in cache["layers"].values())
+        if frames is not None:
+            cache = encdec.prefill_cross(model, cfg, cache, frames)
         for t in range(prompts.shape[1]):
             logits, cache = timed_step(prompts[:, t:t + 1], pre_ms)
             pre_logits.append(logits[:, 0, :cfg.vocab_size])
@@ -3656,11 +3719,27 @@ def serve_phase_step(torch, dev, seed, count, model, cfg, prompts, label):
     return gen_s, gen_peak, pre_ms, dec_ms, torch.stack(pre_logits, dim=1), state_bytes
 
 
-def reduced_step_card_vs_cpu(torch, dev, seed, count, arch, label):
+def ridge_leverage_f64(torch, feats, ridge):
+    """The selector's scores (ridge leverage, clipped to [0, 1], + 1/B) in
+    float64 on ``feats``'s device, the witness of their float32 rounding,
+    and the float64 Gram's condition number."""
+    x = feats.to(torch.float64)
+    G = x.T @ x + ridge * torch.eye(x.shape[1], dtype=torch.float64, device=x.device)
+    lev = torch.einsum("nd,de,ne->n", x, torch.linalg.inv(G), x)
+    return torch.clamp(lev, 0.0, 1.0) + 1.0 / x.shape[0], float(torch.linalg.cond(G))
+
+
+def reduced_step_card_vs_cpu(torch, dev, seed, count, arch, label, fed_cpu_scores=False):
     """The reduced config in float32: one coreset-selected AdamW step on the
-    card against the same step on the CPU, from one state and batch, held
-    at phase 17 (d)'s bounds; the card's step one K5 launch, both drawing
-    the same rows.  Returns the line to log."""
+    card against the same step on the CPU, from one state and batch (an
+    encoder-decoder's with random frames from the seed).  The card's step
+    scores its own rows, one K5 launch, and draws the CPU's rows; its scores
+    are held by a float64 witness (SCORE_F64_TOL, SCORE_ROUND_K); the loss,
+    gradients and parameters at phase 17 (d)'s bounds.  With
+    ``fed_cpu_scores`` (an ill-conditioned Gram, see SCORE_ROUND_K) those
+    bounds hold a second card step from the same state fed the CPU's scores,
+    one K5 launch too, and the own-score step's gaps are printed.  Returns
+    the line to log."""
     from repro_torch import rng
     from repro_torch.configs import get_arch
     from repro_torch.convert import train_state_from_numpy, train_state_to_numpy
@@ -3673,15 +3752,25 @@ def reduced_step_card_vs_cpu(torch, dev, seed, count, arch, label):
     small = get_arch(arch).reduced()
     cpu_state = train_state_init(small, generator=torch.Generator().manual_seed(seed),
                                  device="cpu")
-    card_state = train_state_from_numpy(train_state_to_numpy(cpu_state), small, dev)
+    state_np = train_state_to_numpy(cpu_state)
+    card_state = train_state_from_numpy(state_np, small, dev)
+    fed_state = train_state_from_numpy(state_np, small, dev) if fed_cpu_scores else None
     batch = TokenStream(vocab=small.vocab_size, seq_len=REDUCED_SEQ, batch_size=REDUCED_BATCH,
                         seed=seed + 31, device="cpu").next_batch()
-    step_fn = make_train_step(small, constant(TRAIN_LR),
-                              SelectorConfig(mode="coreset", fraction=REDUCED_FRACTION))
+    if small.kind == "encdec":                   # random frames from the seed
+        batch["prefix_embeds"] = torch.randn(
+            (REDUCED_BATCH, small.num_prefix, small.d_model),
+            generator=torch.Generator().manual_seed(seed + 31))
+    card_batch = {k: v.to(dev) for k, v in batch.items()}
+    sel = SelectorConfig(mode="coreset", fraction=REDUCED_FRACTION)
+    with torch.no_grad():                        # the scores' inputs, before the steps
+        f_cpu = trainer._score_features(cpu_state["params"], small, batch)
+        f_card = trainer._score_features(card_state["params"], small, card_batch)
+    step_fn = make_train_step(small, constant(TRAIN_LR), sel)
     draws, restore = spy_draws(trainer)
     try:
         _, m_cpu = step_fn(cpu_state, batch, rng.PRNGKey(seed + 31))
-        _, m_card = count(lambda: step_fn(card_state, {k: v.to(dev) for k, v in batch.items()},
+        _, m_card = count(lambda: step_fn(card_state, card_batch,
                                           rng.PRNGKey(seed + 31, device=dev)),
                           {"categorical": 1}, label)
     finally:
@@ -3689,11 +3778,46 @@ def reduced_step_card_vs_cpu(torch, dev, seed, count, arch, label):
     if len(draws) != 2 or not torch.equal(draws[0][3], draws[1][3].cpu()):
         fail(f"{label}: the card's step drew other rows than the CPU's")
     check_draw(torch, rng, draws[1], label)
-    loss_gap = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
-    g_gap = grad_gap({n: p.grad for n, p in cpu_state["params"].named_parameters()},
-                     {n: p.grad.cpu() for n, p in card_state["params"].named_parameters()})
-    worst, share = adamw_gap(dict(card_state["params"].named_parameters()),
-                             dict(cpu_state["params"].named_parameters()))
+    g_cpu, g_card = draws[0][1], draws[1][1].cpu()
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    w_cpu, cond = ridge_leverage_f64(torch, f_cpu, sel.ridge)
+    w_card = ridge_leverage_f64(torch, f_card, sel.ridge)[0].cpu()
+    f64_gap = rel(ridge_leverage_f64(torch, f_cpu.to(dev), sel.ridge)[0].cpu(), w_cpu)
+    d_cpu, d_card = rel(g_cpu.double(), w_cpu), rel(g_card.double(), w_card)
+    score_gap = rel(g_card, g_cpu)
+    if not (f64_gap <= SCORE_F64_TOL and d_card <= SCORE_ROUND_K * max(d_cpu, F32_EPS)):
+        fail(f"{label}: reduced {arch}'s scores: float64 on the card {f64_gap:.3e} of the "
+             f"largest from the CPU's (tolerance {SCORE_F64_TOL}); float32 from float64 "
+             f"{d_card:.3e} on the card against {d_cpu:.3e} on the CPU (bound {SCORE_ROUND_K}x)")
+    scores = (f"the card's own scores {score_gap:.3e} of the largest from the CPU's; float64 "
+              f"witness (the Gram's condition number {cond:.3e} on the CPU): card against CPU {f64_gap:.3e} (tolerance {SCORE_F64_TOL}), float32 "
+              f"from float64 {d_card:.3e} on the card, {d_cpu:.3e} on the CPU (bound "
+              f"{SCORE_ROUND_K}x)")
+
+    def gaps(state, met):
+        loss_gap = abs(float(met["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
+        g_gap = grad_gap({n: p.grad for n, p in cpu_state["params"].named_parameters()},
+                         {n: p.grad.cpu() for n, p in state["params"].named_parameters()})
+        worst, share = adamw_gap(dict(state["params"].named_parameters()),
+                                 dict(cpu_state["params"].named_parameters()))
+        return loss_gap, g_gap, worst, share
+
+    own = gaps(card_state, m_card)
+    if fed_cpu_scores:
+        real_scores = trainer.local_scores
+        trainer.local_scores = lambda feats, score, ridge: g_cpu.to(feats.device)
+        try:
+            _, m_fed = count(lambda: step_fn(fed_state, card_batch,
+                                             rng.PRNGKey(seed + 31, device=dev)),
+                             {"categorical": 1}, label)
+        finally:
+            trainer.local_scores = real_scores
+        loss_gap, g_gap, worst, share = gaps(fed_state, m_fed)
+        scores += (f"; the own-score step: loss {own[0]:.3e} relative, gradients {own[1]:.3e}, "
+                   f"parameters max {own[2]:.3e}; a second step fed the CPU's scores (one K5 "
+                   f"launch)")
+    else:
+        loss_gap, g_gap, worst, share = own
     if not (loss_gap <= TRAIN_CPU_LOSS_TOL and g_gap <= TRAIN_CPU_GRAD_TOL
             and worst <= 2 * TRAIN_LR + 1e-5 and share <= TRAIN_CPU_SHARE):
         fail(f"{label}: reduced {arch} card against CPU: loss {loss_gap:.3e} (tolerance "
@@ -3702,17 +3826,18 @@ def reduced_step_card_vs_cpu(torch, dev, seed, count, arch, label):
              f"beyond 1e-5 (bound {TRAIN_CPU_SHARE})")
     return (f"reduced {arch} in float32 ({api.param_count(card_state['params'])} parameters), "
             f"one coreset AdamW step of B={REDUCED_BATCH}, S={REDUCED_SEQ} (rows "
-            f"{draws[1][3].tolist()}, the CPU's, one K5 launch), card against CPU: loss "
-            f"{loss_gap:.3e} relative (tolerance {TRAIN_CPU_LOSS_TOL}), gradients {g_gap:.3e} of a "
-            f"leaf's largest |g| (tolerance {TRAIN_CPU_GRAD_TOL}), parameters max {worst:.3e} "
-            f"(bound 2 lr + 1e-5), at most {share:.5f} of a leaf beyond 1e-5")
+            f"{draws[1][3].tolist()}, the CPU's, one K5 launch; {scores}), card against CPU: "
+            f"loss {loss_gap:.3e} relative (tolerance {TRAIN_CPU_LOSS_TOL}), gradients "
+            f"{g_gap:.3e} of a leaf's largest |g| (tolerance {TRAIN_CPU_GRAD_TOL}), parameters "
+            f"max {worst:.3e} (bound 2 lr + 1e-5), at most {share:.5f} of a leaf beyond 1e-5")
 
 
-def coreset_train_steps(torch, dev, seed, count, cfg, model, label):
+def coreset_train_steps(torch, dev, seed, count, cfg, model, label, frames=None):
     """Two coreset-selected AdamW steps (B = TRAIN_BATCH, S = TRAIN_SEQ,
-    the config's remat) on ``model`` in place: each one K5 launch with the
-    plain draw's bits, the loss, a MoE's aux (> 0) and every parameter
-    finite, and the parameters changed.  Returns (step ms, own peak above the state, the
+    the config's remat; an encoder-decoder's batch with ``frames``) on
+    ``model`` in place: each one K5 launch with the plain draw's bits, the
+    loss, a MoE's aux (> 0) and every parameter finite, and the parameters
+    changed.  Returns (step ms, own peak above the state, the
     state's bytes, the last metrics, the changed share)."""
     from repro_torch import rng
     from repro_torch.core.selector import SelectorConfig
@@ -3726,6 +3851,8 @@ def coreset_train_steps(torch, dev, seed, count, cfg, model, label):
              "step": torch.zeros((), dtype=torch.int32, device=dev)}
     batch = TokenStream(vocab=cfg.vocab_size, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH,
                         seed=seed + 32, device=dev).next_batch()
+    if frames is not None:
+        batch["prefix_embeds"] = frames
     step_fn = make_train_step(cfg, constant(TRAIN_LR),
                               SelectorConfig(mode="coreset", fraction=TRAIN_FRACTION))
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
@@ -4082,6 +4209,286 @@ def ssm_phase(torch, dev, seed, launches, card, reset_counts, read_counts, phase
     log(f"{tag} (e): " + reduced_step_card_vs_cpu(torch, dev, seed, count, arch, f"{tag} (e)")
         + f"; {card}")
     log(f"phase {phase} took {time.perf_counter() - phase_t0:.1f} s; {card}")
+
+
+def whisper_phase(torch, dev, seed, launches, card, reset_counts, read_counts):
+    """Phase 22, the encoder-decoder: ``whisper-medium`` at its published
+    width and depth in bf16: (a) its count; (b) by decoder depth, a float32
+    and a float64 copy's ``prefill_cross`` + ``decode_step`` against its
+    ``forward``, and the bf16 forward against the float32 copy's; (c) the
+    encoder pass and ``prefill_cross`` timed, ``ServeEngine.generate`` with
+    frames greedy and sampled, each twice bit for bit, the prefill and
+    decode step times, the decode state's bytes; (d) the reduced config's
+    coreset step on the card against the CPU; (e) two coreset-selected
+    AdamW steps at (8, 256) with remat."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenStream
+    from repro_torch.models import api, encdec
+    from repro_torch.utils.tree import tree_bytes
+
+    phase_t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    count = lambda fn, want, label: run_counted(torch, launches, reset_counts, read_counts,
+                                                fn, want, label)
+    cfg = get_arch(WHISPER_ARCH)
+
+    # -- (a) the bf16 model
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = count(lambda: api.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(seed), device=dev), {},
+        "whisper (a)")
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() - base
+    n_params, n_bytes = api.param_count(model), tree_bytes(model)
+    if (n_params, n_bytes) != (WHISPER_PARAMS, 2 * WHISPER_PARAMS) or any(
+            p.dtype != torch.bfloat16 or p.device != dev for p in model.parameters()):
+        fail(f"whisper (a): {n_params} parameters in {n_bytes} bytes, want {WHISPER_PARAMS} "
+             f"in {2 * WHISPER_PARAMS}, all bf16 on the card")
+    log(f"whisper (a): {WHISPER_ARCH} at its published width and depth ({cfg.enc_layers} "
+        f"encoder and {cfg.num_layers} decoder layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} "
+        f"(padded to {cfg.vocab_pad}), {cfg.num_prefix} frames, tied) in bf16 on the card: "
+        f"{n_params} parameters, {n_bytes} bytes, init {init_s:.4f} s, own peak {init_peak} "
+        f"bytes; {card}")
+    prompts = TokenStream(vocab=cfg.vocab_size, seq_len=LM_PROMPT_LEN, batch_size=LM_BATCH,
+                          seed=seed + 22, device=dev).next_batch()["tokens"]
+    frames = torch.randn((LM_BATCH, cfg.num_prefix, cfg.d_model), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(seed + 22)
+                         ).to(torch.bfloat16)
+
+    # -- (b) by decoder depth: decode against forward in float32 and float64
+    # copies; bf16 against float32
+    def copy_as(dtype):
+        c = dataclasses.replace(cfg, param_dtype=dtype)
+        mdl = api.init_params(c, device="meta").to_empty(device=dev)
+        with torch.no_grad():
+            for q, p in zip(mdl.parameters(), model.parameters()):
+                q.copy_(p)
+        return c, mdl
+
+    def first(mdl, c, depth):
+        """``mdl`` with its first ``depth`` decoder layers (shared), the
+        encoder whole."""
+        sub = api.init_params(dataclasses.replace(c, num_layers=depth), device="meta")
+        for name in ("embed", "pos_embed", "enc_pos_embed", "final_norm", "enc_final_norm"):
+            setattr(sub, name, getattr(mdl, name))
+        sub.enc_layers = mdl.enc_layers
+        sub.layers = torch.nn.ModuleList(mdl.layers[:depth])
+        return sub
+
+    cfg32, model32 = copy_as(torch.float32)
+    cfg64, model64 = copy_as(torch.float64)
+    V = cfg.vocab_size
+    dec_rows, bf16_rows = [], []
+    for depth in WHISPER_DEPTHS + (cfg.num_layers,):
+        (f32, d32, _), (f64, d64, _) = (
+            decode_against_forward(torch, dev, count, first(mdl, c, depth),
+                                   dataclasses.replace(c, num_layers=depth), prompts,
+                                   "whisper (b)", frames=frames.to(c.param_dtype))
+            for c, mdl in ((cfg32, model32), (cfg64, model64)))
+        scale = float(f32.abs().max())
+        gap32, gap64 = max_gap(d32, f32), max_gap(d64, f64)
+        err_fwd = max_gap(f32, f64)
+        if not (gap32 <= LM_DECODE_TOL * scale and gap64 <= F64_DECODE_TOL * scale):
+            fail(f"whisper (b): at {depth} decoder layers decode against forward {gap32:.3e} "
+                 f"in float32 (tolerance {LM_DECODE_TOL} x max |logit| {scale:.4g}), "
+                 f"{gap64:.3e} in float64 (tolerance {F64_DECODE_TOL} x max |logit|)")
+        c16 = dataclasses.replace(cfg, num_layers=depth)
+        with torch.inference_mode():
+            sub16 = first(model, cfg, depth)
+            hidden, _ = count(lambda: encdec.forward(sub16, c16, prompts, frames), {},
+                              "whisper (b)")
+            fwd16 = encdec.logits_of(sub16, c16, hidden)[..., :V]
+        gap16 = max_gap(fwd16, f32) / scale
+        top1 = float((fwd16.argmax(-1) == f32.argmax(-1)).float().mean())
+        if not (fwd16.dtype == torch.float32 and bool(torch.isfinite(fwd16).all())
+                and (depth < cfg.num_layers or gap16 <= LM_BF16_TOL)):
+            fail(f"whisper (b): at {depth} decoder layers the bf16 forward's logits {gap16:.3e} "
+                 f"of max |logit| {scale:.4g} from the float32 copy's (tolerance {LM_BF16_TOL} "
+                 f"at full depth) or not finite")
+        layers = f"{depth} decoder layer{'s' if depth > 1 else ''}"
+        dec_rows.append(f"{layers}: float32 {gap32 / scale:.3e}, float64 {gap64 / scale:.3e}; "
+                        f"the float32 forward {err_fwd / scale:.3e} from the float64 forward")
+        bf16_rows.append(f"{layers} {gap16:.3e} of max |logit| (top token at {top1:.4f})")
+        del f32, d32, f64, d64, sub16, hidden, fwd16
+    log(f"whisper (b): float32 and float64 copies ({tree_bytes(model32)}, "
+        f"{tree_bytes(model64)} bytes), prefill_cross then decode_step over {LM_PROMPT_LEN} "
+        f"positions against forward (the encoder's {cfg.enc_layers} layers each time), max abs "
+        f"over max |logit| (tolerances: float32 {LM_DECODE_TOL}, float64 {F64_DECODE_TOL}) at "
+        + "; ".join(dec_rows) + f"; {card}")
+    log(f"whisper (b) bf16 against float32 from the same weights and frames (tolerance "
+        f"{LM_BF16_TOL} at {cfg.num_layers} layers): " + "; ".join(bf16_rows) + f"; {card}")
+    del model32, model64
+    torch.cuda.empty_cache()
+
+    # -- (c) serving in bf16: the encoder pass and prefill_cross timed, then
+    # generate with the frames
+    with torch.inference_mode():
+        enc_ms = count(lambda: cuda_ms(torch, lambda: encdec.encode(model, cfg, frames),
+                                       iters=5, warmup=1), {}, "whisper (c)")
+        cache = api.init_cache(cfg, LM_BATCH, LM_CACHE_LEN, device=dev)
+        cross_ms = count(lambda: cuda_ms(torch, lambda: encdec.prefill_cross(
+            model, cfg, cache, frames), iters=5, warmup=1), {}, "whisper (c)")
+        del cache
+    gen_s, gen_peak, pre_ms, dec_ms, _, state_bytes = serve_phase_step(
+        torch, dev, seed, count, model, cfg, prompts, "whisper (c)", frames=frames)
+    if state_bytes != WHISPER_SELF_BYTES + WHISPER_CROSS_BYTES:
+        fail(f"whisper (c): the decode state holds {state_bytes} bytes, want "
+             f"{WHISPER_SELF_BYTES} + {WHISPER_CROSS_BYTES}")
+    med = lambda xs: sorted(xs)[len(xs) // 2]
+    log(f"whisper (c): the encoder pass over {LM_BATCH} x {cfg.num_prefix} frames "
+        f"{enc_ms:.4f} ms, prefill_cross (the encoder and the {cfg.num_layers} layers' cross "
+        f"K / V) {cross_ms:.4f} ms (CUDA events, 5 calls); ServeEngine(cache_len="
+        f"{LM_CACHE_LEN}).generate({LM_BATCH} x {LM_PROMPT_LEN} prompts with frames, {LM_NEW} "
+        f"new tokens) greedy and at temperature 0.8, each twice bit for bit; generate "
+        f"{gen_s:.4f} s, own peak {gen_peak} bytes; a token step, median (min-max): prefill "
+        f"{med(pre_ms):.4f} ({min(pre_ms):.4f}-{max(pre_ms):.4f}) ms, decode {med(dec_ms):.4f} "
+        f"({min(dec_ms):.4f}-{max(dec_ms):.4f}) ms, {LM_BATCH / (med(dec_ms) / 1e3):.1f} "
+        f"tokens/s at B={LM_BATCH}; the decode state {state_bytes} bytes ({WHISPER_SELF_BYTES} "
+        f"self ring + {WHISPER_CROSS_BYTES} cross K / V); {card}")
+    torch.cuda.empty_cache()
+
+    # -- (d) the reduced config: a coreset step on the card against the CPU
+    log("whisper (d): " + reduced_step_card_vs_cpu(torch, dev, seed, count, WHISPER_ARCH,
+                                                    "whisper (d)", fed_cpu_scores=True)
+        + f"; {card}")
+
+    # -- (e) two coreset-selected AdamW steps at the published width
+    train_frames = torch.randn((TRAIN_BATCH, cfg.num_prefix, cfg.d_model), device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(seed + 23)
+                               ).to(torch.bfloat16)
+    step_ms, peak, (p_bytes, m_bytes), met, share = coreset_train_steps(
+        torch, dev, seed, count, cfg, model, "whisper (e)", frames=train_frames)
+    log(f"whisper (e): coreset-selected AdamW steps (B={TRAIN_BATCH}, S={TRAIN_SEQ}, "
+        f"{cfg.num_prefix} frames, fraction {TRAIN_FRACTION}, remat {cfg.remat}) in "
+        f"{step_ms[0]:.4f} ms (the first, warm-up included) and {step_ms[1]:.4f} ms: loss "
+        f"{float(met['loss']):.4f}, parameters finite after each and {share:.4f} of the "
+        f"elements changed; one K5 launch a step, the draw bit for bit the plain draw, weights "
+        f"G/(m g_S); state {p_bytes} + 2 x {m_bytes} bytes, own peak {peak} bytes above it; "
+        f"{card}")
+    del model, train_frames, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 22 took {time.perf_counter() - phase_t0:.1f} s; {card}")
+
+
+def sharding_phase(torch, dev, seed, launches, card, reset_counts, read_counts):
+    """Phase 23, sharding on the card: (a) the spec table of every config
+    (``param_shardings`` at the production mesh), its rows and the leaves
+    sharded over ``model`` and ``data`` counted; (b) an NCCL world of one:
+    the reduced ``SHARD_ARCHS`` with ``fsdp=True`` held by
+    ``fully_shard_model``, a train step in modes ``none`` and ``coreset``
+    bit for bit the groupless step (loss, every gradient and parameter).
+    A four-card world is not run here."""
+    import dataclasses
+    import datetime
+    import gc
+    import os
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import rng
+    from repro_torch.configs import all_arch_names, get_arch
+    from repro_torch.core.selector import SelectorConfig
+    from repro_torch.data import TokenStream
+    from repro_torch.models import api
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.schedules import constant
+    from repro_torch.sharding import specs
+    from repro_torch.sharding.fsdp import fully_shard_model
+    from repro_torch.train import make_train_step
+
+    phase_t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    count = lambda fn, want, label: run_counted(torch, launches, reset_counts, read_counts,
+                                                fn, want, label)
+
+    # -- (a) the spec table per config, from meta-device shapes
+    rows = []
+    for arch in all_arch_names():
+        c = get_arch(arch)
+        for fsdp in (False, True):
+            flat = specs.flat_specs(specs.param_shardings(
+                specs.stacked_shapes(api.init_params(c, device="meta")),
+                dataclasses.replace(c, fsdp=fsdp), multi_pod=False))
+            on = lambda ax: sum(1 for sp in flat.values()
+                                if any(a == ax or (isinstance(a, tuple) and ax in a) for a in sp))
+            rows.append(f"{arch}{' fsdp' if fsdp else ''} {len(flat)} rows ({on('model')} "
+                        f"over model, {on('data')} over data)")
+    log("sharding (a): param_shardings at the 16 x 16 ('data', 'model') mesh, stacked "
+        "shapes from the meta device: " + "; ".join(rows))
+
+    # -- (b) FSDP in an NCCL world of one against the groupless step
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    lines = []
+    try:
+        mesh = init_device_mesh("cuda", (1, 1, 1), mesh_dim_names=("pod", "data", "model"))
+        for arch in SHARD_ARCHS:
+            cfg = dataclasses.replace(get_arch(arch).reduced(), fsdp=True)
+            cpu_model = api.init_params(cfg, generator=torch.Generator().manual_seed(seed),
+                                        device="cpu")
+            batch = TokenStream(vocab=cfg.vocab_size, seq_len=REDUCED_SEQ,
+                                batch_size=REDUCED_BATCH, seed=seed + 40, device=dev).next_batch()
+            if cfg.kind == "encdec":
+                batch["prefix_embeds"] = torch.randn(
+                    (REDUCED_BATCH, cfg.num_prefix, cfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(seed + 40))
+            for mode in ("none", "coreset"):
+                sel = None if mode == "none" else SelectorConfig(mode=mode,
+                                                                  fraction=REDUCED_FRACTION)
+                step_fn = make_train_step(cfg, constant(TRAIN_LR), sel)
+                want = {"categorical": 1} if mode == "coreset" else {}
+                out, ms = [], []
+                for sharded in (False, True):
+                    model = api.init_params(cfg, device="meta").to_empty(device=dev)
+                    with torch.no_grad():
+                        for q, p in zip(model.parameters(), cpu_model.parameters()):
+                            q.copy_(p)
+                    if sharded:
+                        fully_shard_model(model, cfg, mesh)
+                        if not all(isinstance(p, DTensor) for p in model.parameters()):
+                            fail(f"sharding (b) {arch}: a parameter is not a DTensor")
+                    state = {"params": model, "opt": adamw_init(model),
+                             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    _, met = count(lambda: step_fn(state, batch, rng.PRNGKey(seed + 41,
+                                                                             device=dev)),
+                                   want, f"sharding (b) {arch} {mode}")
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    full = (lambda t: t.full_tensor()) if sharded else (lambda t: t)
+                    out.append((met["loss"], [full(p.grad) for p in model.parameters()],
+                                [full(p.detach()) for p in model.parameters()]))
+                    del state, model
+                (l0, g0, p0), (l1, g1, p1) = out
+                if not (torch.equal(l0, l1) and all(torch.equal(a, b) for a, b in zip(g0, g1))
+                        and all(torch.equal(a, b) for a, b in zip(p0, p1))):
+                    bad = [i for i, (a, b) in enumerate(zip(g0, g1)) if not torch.equal(a, b)]
+                    fail(f"sharding (b) {arch} {mode}: the FSDP step in an NCCL world of one "
+                         f"differs from the groupless step (loss {float(l0)} / {float(l1)}, "
+                         f"{len(bad)} gradients differ)")
+                lines.append(f"{arch} {mode}: loss {float(l1):.6f}, {len(g1)} gradients and "
+                             f"parameters bit for bit, step {ms[0]:.2f} ms groupless / "
+                             f"{ms[1]:.2f} ms FSDP (host clock, the first of each)")
+    finally:
+        dist.destroy_process_group()
+    log(f"sharding (b): reduced models (float32, fsdp=True, B={REDUCED_BATCH}, "
+        f"S={REDUCED_SEQ}) held by fully_shard_model over an NCCL world of one, a train step "
+        f"against the groupless one: " + "; ".join(lines) + "; a four-card world: not run; "
+        + card)
+    log(f"phase 23 took {time.perf_counter() - phase_t0:.1f} s; {card}")
 
 
 def main() -> None:
@@ -5164,6 +5571,16 @@ def main() -> None:
                   arch, n_params, n_bytes, state, wide)
         log(f"phase {phase} launches: "
             f"{({nm: launches[nm] - before[nm] for nm in launches})}")
+
+    # ---- 22. the encoder-decoder: whisper-medium at its published width -------
+    before = dict(launches)
+    whisper_phase(torch, dev, args.seed, launches, smi[0], reset_counts, read_counts)
+    log(f"phase 22 launches: {({nm: launches[nm] - before[nm] for nm in launches})}")
+
+    # ---- 23. sharding: FSDP in an NCCL world of one ---------------------------
+    before = dict(launches)
+    sharding_phase(torch, dev, args.seed, launches, smi[0], reset_counts, read_counts)
+    log(f"phase 23 launches: {({nm: launches[nm] - before[nm] for nm in launches})}")
 
     # ---- records ----------------------------------------------------------------
     record = {"kernels": [

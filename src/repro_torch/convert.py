@@ -21,6 +21,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.coreset import Coreset, MaterializedCoreset
 from repro_torch.core.vfl import VFLDataset, _as_tensor
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.sharding.specs import STACKS, port_name, stacked_tree
 
 
 def dataset_from_numpy(parts: Sequence[np.ndarray], y: Optional[np.ndarray],
@@ -107,55 +108,55 @@ def _flat(tree: Dict[str, Any], prefix: str = ""):
             yield f"{prefix}{k}", v
 
 
+def _stack_sizes(cfg: ArchConfig) -> Dict[str, int]:
+    """The reference's stacked subtrees and their layer counts: ``layers``
+    (the decoder's), and ``enc_layers`` for the encoder-decoder."""
+    sizes = {"layers": cfg.num_layers}
+    if cfg.kind == "encdec":
+        sizes["enc_layers"] = cfg.enc_layers
+    return sizes
+
+
 def _unstacked(tree: Dict[str, Any], cfg: ArchConfig, dev: torch.device):
     """(port name, tensor) of a reference tree keyed like the parameters:
-    a ``layers`` leaf stacked on L gives ``layers.{l}.<rest>`` its row l."""
+    a ``layers`` (or ``enc_layers``) leaf stacked on L gives
+    ``layers.{l}.<rest>`` its row l."""
+    sizes = _stack_sizes(cfg)
     for name, leaf in _flat(tree):
         t = _tensor_of(leaf, dev)
-        if name.startswith("layers."):
-            rest = name[len("layers."):]
-            if t.shape[0] != cfg.num_layers:
-                raise ValueError(f"{name}: {t.shape[0]} stacked layers, config has "
-                                 f"{cfg.num_layers}")
-            yield from ((f"layers.{i}.{rest}", t[i]) for i in range(cfg.num_layers))
+        path = name.replace(".", "/")
+        stack = path.split("/", 1)[0]
+        if stack in STACKS and "/" in path:
+            L = sizes.get(stack, 0)
+            if t.shape[0] != L:
+                raise ValueError(f"{name}: {t.shape[0]} stacked layers, config has {L}")
+            yield from ((port_name(path, i), t[i]) for i in range(L))
         else:
             yield name, t
 
 
 def _stacked(named) -> Dict[str, Any]:
     """The reference's tree of (port name, numpy array) pairs given in
-    layer order: ``layers.{l}.<rest>`` stacked on a leading L axis under
-    ``layers``, dotted names nested."""
-    out: Dict[str, Any] = {}
-    stacks: Dict[str, list] = {}
-    for name, a in named:
-        if name.startswith("layers."):
-            stacks.setdefault(name.split(".", 2)[2], []).append(a)
-        else:
-            out[name] = a
-    layers: Dict[str, Any] = {}
-    for rest, arrs in stacks.items():
-        node = layers
-        *path, leaf = rest.split(".")
-        for k in path:
-            node = node.setdefault(k, {})
-        node[leaf] = np.stack(arrs)
-    out["layers"] = layers
-    return out
+    layer order: ``layers.{l}.<rest>`` (and ``enc_layers.{l}.<rest>``)
+    stacked on a leading L axis under ``layers`` (``enc_layers``), dotted
+    names nested."""
+    return stacked_tree(named, np.stack)
 
 
 def lm_params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
                          device: DeviceLike = "cuda"):
-    """A port :class:`repro_torch.models.lm.DecoderLM` holding the
-    reference's parameter pytree (numpy leaves, ``layers`` stacked on a
-    leading L axis): every leaf copied into the parameter of the same name
-    and dtype, layer l's from row l of its stack (the MoE router, RWKV-6's
+    """A port model (:class:`repro_torch.models.lm.DecoderLM`, or
+    :class:`repro_torch.models.encdec.EncDecLM` for ``cfg.kind ==
+    "encdec"``) holding the reference's parameter pytree (numpy leaves,
+    ``layers`` and ``enc_layers`` stacked on a leading L axis): every leaf
+    copied into the parameter of the same name and dtype, layer l's from
+    row l of its stack (the MoE router, RWKV-6's
     ``decay_base`` and ``bonus_u`` and Mamba's ``dt_bias``, ``A_log`` and
     ``D`` stay float32 in a bf16 model, as in the reference)."""
-    from repro_torch.models import lm
+    from repro_torch.models import api
 
     dev = resolve_device(device)
-    model = lm.init_params(cfg, device="meta").to_empty(device=dev)
+    model = api.init_params(cfg, device="meta").to_empty(device=dev)
     state = dict(model.named_parameters())
     seen = set()
     for pname, val in _unstacked(tree, cfg, dev):
@@ -176,7 +177,7 @@ def lm_params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
 
 def lm_params_to_numpy(model, bf16_words: bool = False) -> Dict[str, Any]:
     """The reference's parameter pytree of a port model: numpy leaves,
-    ``layers`` stacked on a leading L axis.  bfloat16 leaves come back as
+    ``layers`` (and ``enc_layers``) stacked on a leading L axis.  bfloat16 leaves come back as
     float32 (exact; numpy has no bfloat16), or with ``bf16_words`` as their
     raw 16-bit words."""
     return _stacked((name, _numpy_of(p, bf16_words)) for name, p in model.named_parameters())
@@ -227,8 +228,9 @@ def train_state_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
 def lm_cache_from_numpy(cache: Dict[str, Any], device: DeviceLike = "cuda"):
     """A port decode cache from the reference's (``layers`` with its
     family's leaves, stacked on L, in their own dtypes — the float32
-    ``wkv`` and ``mamba_h`` in a bf16 cache too — the int32 ``pos`` and,
-    where the cache has a ring, ``kpos``) as numpy."""
+    ``wkv`` and ``mamba_h`` in a bf16 cache too, the encoder-decoder's
+    ``cross_k`` / ``cross_v`` — the int32 ``pos`` and, where the cache has
+    a ring, ``kpos``) as numpy."""
     dev = resolve_device(device)
     out = {"layers": {k: _tensor_of(v, dev) for k, v in cache["layers"].items()},
            "pos": _tensor_of(np.asarray(cache["pos"], np.int32), dev)}

@@ -1,3 +1,3 @@
-# Launchers of the port: train.py (the training launcher).  The reference's
-# mesh, dryrun, hillclimb, hlo and roofline wait for ROADMAP queue 1, items
-# 18.7 and 18.8.
+# Launchers of the port: train.py (the training launcher and its production
+# plan).  The reference's mesh, dryrun, hillclimb, hlo and roofline wait for
+# ROADMAP queue 1, item 18.8.

@@ -1,8 +1,10 @@
 """Training launcher (port of :mod:`repro.launch.train`): ``--arch <id>``
 selects an architecture; ``--reduced`` (the default) trains the family's
 smoke-scale variant on the synthetic corpus with optional coreset batch
-selection, on the card unless ``--device cpu``.  ``--production`` (the
-production-mesh plan) waits for the sharding port.
+selection, on the card unless ``--device cpu``.  ``--production`` prints
+the production-mesh plan instead: every parameter's path and spec from
+:func:`repro_torch.sharding.specs.param_shardings` at the published width,
+the shapes taken from a ``meta``-device model (nothing allocated).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-moe-3b-a800m \\
       --steps 50 --selector coreset --fraction 0.25
@@ -15,9 +17,6 @@ import time
 from typing import Optional, Sequence
 
 import numpy as np
-
-#: What ``--production`` waits for.
-PRODUCTION_ITEM = "ROADMAP queue 1, item 18.7 (sharding over torch.distributed)"
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -38,9 +37,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     args = ap.parse_args(argv)
 
     if not args.reduced:
-        raise NotImplementedError(
-            f"--production: the production-mesh plan needs {PRODUCTION_ITEM}, which is not "
-            f"ported yet")
+        return production_plan(args.arch)
 
     import torch
 
@@ -77,6 +74,24 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         path = save_checkpoint(args.ckpt, state, args.steps)
         log.info("checkpoint: %s", path)
     log.info("final ce (last 10 avg): %.4f", np.mean(losses[-10:]))
+    return 0
+
+
+def production_plan(arch: str) -> int:
+    """Log the production mesh and every parameter's spec, as the
+    reference's ``--production`` does."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import api
+    from repro_torch.sharding.specs import flat_specs, param_shardings, stacked_shapes
+    from repro_torch.utils.logging import get_logger
+
+    log = get_logger("train")
+    cfg = get_arch(arch)
+    shapes = stacked_shapes(api.init_params(cfg, device="meta"))
+    specs = param_shardings(shapes, cfg, multi_pod=False)
+    log.info("production mesh: 16x16 ('data','model'); param shardings:")
+    for name, spec in flat_specs(specs).items():
+        log.info("  %-55s %s", name, spec)
     return 0
 
 

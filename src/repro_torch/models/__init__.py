@@ -1,7 +1,8 @@
 """Language models of the port (port of :mod:`repro.models`): the dense,
 VLM, MoE (with GQA or MLA), SSM and hybrid decoder families
 (:mod:`repro_torch.models.moe` holds the expert layers,
-:mod:`repro_torch.models.ssm` the RWKV-6 and Mamba mixers) and the
+:mod:`repro_torch.models.ssm` the RWKV-6 and Mamba mixers), the
+encoder-decoder family (:mod:`repro_torch.models.encdec`) and the
 serving engine (:mod:`repro_torch.models.lm_serve`)."""
 
 from repro_torch.models.api import (

@@ -20,6 +20,7 @@ import torch
 from repro_torch.device import DeviceLike
 from repro_torch.models.layers import (
     apply_rope, dense_init, model_device, ones_param, rms_norm, wide)
+from repro_torch.sharding.ctx import shard_heads
 
 NEG_INF = -1e30
 
@@ -229,10 +230,12 @@ def mla_attention(
 
     if kv_cache is None:
         # non-absorbed prefill: per-head K/V from the latent
-        k_nope = (c_kv @ params.w_uk).reshape(B, S, H, dn)
-        v = (c_kv @ params.w_uv).reshape(B, S, H, dv)
+        k_nope = shard_heads((c_kv @ params.w_uk).reshape(B, S, H, dn))
+        v = shard_heads((c_kv @ params.w_uv).reshape(B, S, H, dv))
         k = torch.cat([k_nope, k_pe[:, :, None, :].expand(B, S, H, dr)], dim=-1)
+        k = shard_heads(k)
         q = torch.cat([q_nope, q_pe], dim=-1).reshape(B, S, H, 1, dn + dr)
+        q = shard_heads(q)
         out = _sdpa_chunked(q, k, v, positions, positions, 0, chunk)     # KV=H, G=1
         out = out.reshape(B, S, H * dv)
         new_cache = (c_kv, k_pe)

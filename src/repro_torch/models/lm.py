@@ -5,17 +5,21 @@ each with a dense SwiGLU or a mixture-of-experts FFN — every decoder
 family of the catalog (``llama3.2-1b``, ``qwen3-14b``,
 ``phi3-medium-14b``, ``starcoder2-3b``, ``internvl2-26b``,
 ``granite-moe-3b-a800m``, ``deepseek-v2-236b``, ``rwkv6-3b``,
-``hymba-1.5b``).
+``hymba-1.5b``; the encoder-decoder ``whisper-medium`` is
+:mod:`repro_torch.models.encdec`).
 
 The model is a :class:`DecoderLM` module whose parameters keep the
 reference's names and ``(in, out)`` layout; the reference stacks the
 layers on a leading L axis and scans them, the port keeps an
-``nn.ModuleList`` and loops.  With ``cfg.remat`` the training forward
-recomputes each layer in backward (``torch.utils.checkpoint``, the
-reference's ``jax.checkpoint``).  The functions take the model where the
-reference takes its parameter pytree.  The encoder-decoder family is not
-ported yet: it raises ``NotImplementedError`` naming the ROADMAP item it
-waits for.
+``nn.ModuleList`` and calls each layer module in turn.  With
+``cfg.remat`` the training forward recomputes each layer in backward
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).  The
+functions take the model where the reference takes its parameter pytree;
+the loss runs inside the model's own call, so that
+:func:`repro_torch.sharding.fsdp.fully_shard_model` gathers the root's
+weights around it as it gathers each layer's around that layer's call.
+The reference's activation-sharding hooks (``shard_batch_seq``,
+``shard_logits``) sit where it has them.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
@@ -43,17 +47,9 @@ from repro_torch.models.layers import (
     unembed,
     wide,
 )
+from repro_torch.sharding.ctx import shard_batch_seq, shard_logits
 
 KPOS_EMPTY = torch.iinfo(torch.int32).max // 2   # "slot never written" marker
-
-
-def require_ported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item a config's
-    family waits for; nothing for a ported config."""
-    if cfg.kind == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder family (models/encdec.py): ROADMAP queue 1, "
-            f"item 18.6 is not ported yet")
 
 
 # ==========================================================================
@@ -89,6 +85,20 @@ class Block(torch.nn.Module):
         else:
             self.ffn = MLP(cfg.d_model, cfg.d_ff, cfg.param_dtype, generator, device)
 
+    def forward(self, cfg: ArchConfig, x: torch.Tensor,
+                positions: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The training / prefill block (:func:`_layer_fwd`), recomputed in
+        backward under ``cfg.remat``."""
+        return remat_call(cfg, _layer_fwd, cfg, x, self, positions)
+
+
+def remat_call(cfg: ArchConfig, fn, *args):
+    """``fn(*args)``, under ``cfg.remat`` with grad enabled through
+    ``torch.utils.checkpoint`` (recomputed in backward)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
 
 class DecoderLM(torch.nn.Module):
     """``embed`` (vocab_pad, D), ``layers`` (one :class:`Block` each),
@@ -98,7 +108,6 @@ class DecoderLM(torch.nn.Module):
     def __init__(self, cfg: ArchConfig, generator: Optional[torch.Generator],
                  device: torch.device):
         super().__init__()
-        require_ported(cfg)
         self.cfg = cfg
         self.embed = init_embed(cfg.vocab_pad, cfg.d_model, cfg.param_dtype, generator, device)
         self.final_norm = ones_param(cfg.d_model, cfg.param_dtype, device)
@@ -111,11 +120,14 @@ class DecoderLM(torch.nn.Module):
             self.pos_embed = dense_init((cfg.learned_pos, cfg.d_model), cfg.param_dtype,
                                         generator, device, scale=0.02)
 
-    def forward(self, tokens: torch.Tensor,
-                prefix_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Logits (B, S_text, V) in float32."""
-        hidden, _ = text_hidden(self, self.cfg, tokens, prefix_embeds)
-        return logits_of(self, self.cfg, hidden)
+    def forward(self, tokens: torch.Tensor, prefix_embeds: Optional[torch.Tensor] = None,
+                cfg: Optional[ArchConfig] = None, with_aux: bool = False):
+        """Logits (B, S_text, V) in float32 under ``cfg`` (the model's own
+        by default); with ``with_aux`` (logits, the MoE aux loss)."""
+        cfg = self.cfg if cfg is None else cfg
+        hidden, aux = text_hidden(self, cfg, tokens, prefix_embeds)
+        logits = logits_of(self, cfg, hidden)
+        return (logits, aux) if with_aux else logits
 
 
 def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
@@ -158,9 +170,9 @@ def _layer_fwd(cfg: ArchConfig, x: torch.Tensor, p: Block,
         a, _ = attn.gqa_attention(p.attn, cfg, h, positions, chunk=cfg.attn_chunk)
         m, _ = ssm.mamba_mixer(p.mamba, cfg, h, chunk=max(cfg.ssm_chunk, 4))
         out = 0.5 * (a + m)
-    x = x + out
+    x = x + shard_batch_seq(out)
     out, aux = _ffn(cfg, p, rms_norm(x, p.ffn_norm))
-    return x + out, aux
+    return x + shard_batch_seq(out), aux
 
 
 def forward(
@@ -170,7 +182,6 @@ def forward(
     prefix_embeds: Optional[torch.Tensor] = None,    # (B, P, D) for vlm stubs
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (hidden (B, S, D), total_aux_loss)."""
-    require_ported(cfg)
     x = embed(tokens, params.embed)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
@@ -178,14 +189,10 @@ def forward(
     positions = torch.arange(S, device=x.device)
     if cfg.learned_pos:
         x = x + params.pos_embed[positions][None]
-    remat = cfg.remat and torch.is_grad_enabled()
+    x = shard_batch_seq(x)
     auxes = []
     for layer in params.layers:
-        if remat:
-            x, aux = torch.utils.checkpoint.checkpoint(
-                _layer_fwd, cfg, x, layer, positions, use_reentrant=False)
-        else:
-            x, aux = _layer_fwd(cfg, x, layer, positions)
+        x, aux = layer(cfg, x, positions)
         auxes.append(aux)
     x = rms_norm(x, params.final_norm)
     if not cfg.is_moe:
@@ -217,7 +224,8 @@ def mask_pad_logits(logits: torch.Tensor, vocab: int) -> torch.Tensor:
 
 def logits_of(params: DecoderLM, cfg: ArchConfig, hidden: torch.Tensor) -> torch.Tensor:
     head = params.embed if cfg.tie_embeddings else params.head
-    return mask_pad_logits(unembed(hidden, head, cfg.tie_embeddings), cfg.vocab_size)
+    logits = shard_logits(unembed(hidden, head, cfg.tie_embeddings))
+    return mask_pad_logits(logits, cfg.vocab_size)
 
 
 def loss_fn(
@@ -228,9 +236,9 @@ def loss_fn(
     example_weights: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token CE (+ ``aux_weight`` x the MoE aux). For prefix archs
-    (vlm) the loss is computed on the text positions only."""
-    hidden, aux = text_hidden(params, cfg, batch["tokens"], batch.get("prefix_embeds"))
-    logits = logits_of(params, cfg, hidden)
+    (vlm) the loss is computed on the text positions only.  It runs
+    through the model's call (see the module docstring)."""
+    logits, aux = params(batch["tokens"], batch.get("prefix_embeds"), cfg=cfg, with_aux=True)
     ce = cross_entropy(logits, batch["labels"])              # (B, S_text)
     per_example = ce.mean(dim=-1)                            # (B,)
     if example_weights is not None:
@@ -253,11 +261,11 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype=None,
     B, ring, r_kv) and ``k_pe`` (L, B, ring, dr) for MLA; ``wkv`` (L, B, H,
     hd, hd) float32 and ``shift`` (L, B, D) for RWKV-6; ``mamba_h`` (L, B,
     di, N) float32 for Hymba's Mamba branch; the int32 ``pos`` and, with a
-    ring, its ``kpos`` (ring,), all device tensors.  ``cache_len`` is the
+    ring, its ``kpos`` (ring,), all on ``device`` (``"meta"`` allocates
+    nothing).  ``cache_len`` is the
     ring size: full seq_len for exact attention, ``min(cache_len,
     window)`` for sliding-window, ignored by RWKV-6."""
-    require_ported(cfg)
-    dev = resolve_device(device)
+    dev = model_device(device)
     dt = dtype or cfg.param_dtype
     f32 = wide(dt)
     L = cfg.num_layers

@@ -17,7 +17,7 @@ import torch
 from repro_torch import rng
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import api as model_api
-from repro_torch.models import lm
+from repro_torch.models import encdec
 
 
 def make_serve_step(cfg: ArchConfig):
@@ -45,7 +45,6 @@ class ServeEngine:
     cache_len: int = 4096
 
     def __post_init__(self) -> None:
-        lm.require_ported(self.cfg)
         self._step = make_serve_step(self.cfg)
 
     @torch.inference_mode()
@@ -55,14 +54,22 @@ class ServeEngine:
         max_new_tokens: int = 32,
         temperature: float = 0.0,
         key: Optional[rng.Key] = None,
-        prefix_embeds: Optional[torch.Tensor] = None,   # read by encdec only
+        prefix_embeds: Optional[torch.Tensor] = None,   # encdec frame embeddings
     ) -> torch.Tensor:
-        """(B, max_new_tokens) int32 tokens on the model's device."""
+        """(B, max_new_tokens) int32 tokens on the model's device.  An
+        encoder-decoder model needs ``prefix_embeds`` (B, num_prefix, D):
+        the encoder runs once (``encdec.prefill_cross``) before the
+        prefill."""
         dev = self.params.embed.device
         prompts = prompts.to(dev)
         key = None if key is None else key.to(dev)
         B, P = prompts.shape
         cache = model_api.init_cache(self.cfg, B, self.cache_len, device=dev)
+        if self.cfg.kind == "encdec":
+            if prefix_embeds is None:
+                raise ValueError(f"{self.cfg.name}: an encoder-decoder model needs frame "
+                                 f"embeddings (prefix_embeds)")
+            cache = encdec.prefill_cross(self.params, self.cfg, cache, prefix_embeds.to(dev))
         # prefill
         logits = None
         for t in range(P):

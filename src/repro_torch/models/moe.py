@@ -13,8 +13,8 @@ dropped.  Both of the reference's mask builds are kept: ``kloop`` (the
 ``ArchConfig`` default, K accumulation passes in float32, then cast to
 the input's dtype) and ``einsum`` (one einsum over stacked per-slot
 one-hots built in the input's dtype).  The reference's sharding
-constraints are no-ops without a mesh and are left out (sharding is
-ROADMAP queue 1, item 18.7).
+constraints sit where it has them (:func:`_constrain`; no-ops without a
+:mod:`repro_torch.sharding.ctx` context).
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.device import DeviceLike
 from repro_torch.models.layers import dense_init, model_device, silu
+from repro_torch.sharding import ctx as shctx
 
 
 class MoE(torch.nn.Module):
@@ -46,6 +47,12 @@ def init_moe(cfg, generator: Optional[torch.Generator] = None,
     """The MoE layer of ``cfg`` on ``device`` (``"meta"`` allocates
     nothing), drawn from ``generator`` (which must live on ``device``)."""
     return MoE(cfg, generator, model_device(device))
+
+
+def _constrain(x: torch.Tensor, *rest) -> torch.Tensor:
+    """The reference's constraint (dp, *rest), divisibility-sanitized; no-op
+    without a ctx."""
+    return shctx.constrain_with(x, lambda c: (c.dp_axes or None, *rest))
 
 
 def _pick_group(N: int, group_size: int) -> int:
@@ -87,8 +94,7 @@ def moe_ffn(
     Sg = _pick_group(N, getattr(cfg, "moe_group", group_size))
     G = N // Sg
     f32 = torch.float32
-
-    xg = x.reshape(G, Sg, D)
+    xg = _constrain(x.reshape(G, Sg, D), None, None)
     probs, gate_vals, expert_ids = route(params, cfg, xg)
 
     # ---- switch-style load-balance aux loss: ce counts the chosen experts
@@ -102,6 +108,8 @@ def moe_ffn(
 
     # ---- grouped one-hot dispatch
     C = int(math.ceil(Sg * K / E * capacity_factor))
+    mask_spec = (None, "model", None) if E % 16 == 0 else (None, None, "model")
+    tok_spec = ("model", None, None) if E % 16 == 0 else (None, "model", None)
     fill = torch.zeros((G, E), dtype=f32, device=x.device)
     if getattr(cfg, "moe_dispatch", "einsum") == "einsum":
         pos_slots, keep_slots = [], []
@@ -134,11 +142,16 @@ def moe_ffn(
             fill = fill + mk.sum(dim=1)
         dispatch = dispatch.to(x.dtype)
         combine = combine.to(x.dtype)
+    dispatch = _constrain(dispatch, *mask_spec)
+    combine = _constrain(combine, *mask_spec)
 
     # ---- pack -> expert FFN -> unpack
     disp = torch.einsum("gsec,gsd->gecd", dispatch, xg)
+    disp = _constrain(disp, *tok_spec)
     g = silu(torch.einsum("gecd,edf->gecf", disp, params.w_gate))
     u = torch.einsum("gecd,edf->gecf", disp, params.w_up)
     y = torch.einsum("gecf,efd->gecd", g * u, params.w_down)
+    y = _constrain(y, *tok_spec)
     out = torch.einsum("gsec,gecd->gsd", combine, y)
+    out = _constrain(out, None, None)
     return out.reshape(B, S, D), aux

@@ -26,6 +26,7 @@ import torch
 from repro_torch import rng
 from repro_torch.device import DeviceLike
 from repro_torch.models.layers import dense_init, model_device, ones_param, rms_norm, silu, wide
+from repro_torch.sharding import ctx as shctx
 
 DECAY_CLAMP = 2.0   # max |log w| per token; chunk 32 -> exponent <= 64 (f32-safe)
 
@@ -108,10 +109,13 @@ def _chunked_wkv(
     B, S, H, hd = r.shape
     nc, c = _chunks(S, chunk, "_chunked_wkv")
 
-    def resh(x):
-        return x.reshape(B, nc, c, H, hd).permute(1, 0, 3, 2, 4)       # (nc,B,H,c,hd)
+    def stack(x):
+        x = x.reshape(B, nc, c, H, hd).permute(1, 0, 3, 2, 4)          # (nc,B,H,c,hd)
+        # the reference's constraint: head_dim over the model axis
+        return shctx.constrain_with(
+            x, lambda c: (None, c.dp_axes or None, None, None, c.tp_axis))
 
-    rc, kc, vc, wc = resh(r), resh(k), resh(v), resh(logw)
+    rc, kc, vc, wc = stack(r), stack(k), stack(v), stack(logw)
     f32 = wide(r.dtype)
     tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device), diagonal=-1)
     uu = u.to(f32)[None, :, None, :]

@@ -9,6 +9,11 @@ the reference's, op for op: gradients widened to float32, one global-norm
 clip over all leaves, ``b1 ** step`` bias correction in float32, decoupled
 weight decay on the float32 parameter, the result cast back to each
 parameter's dtype.
+
+Parameters held by FSDP (:mod:`repro_torch.sharding.fsdp`) are DTensors:
+the moments are the rank's local shards, each step updates the local
+shard of each parameter in place, and the clip's squared norm is summed
+over the ranks by one all-reduce (the exact sum in a world of one).
 """
 
 from __future__ import annotations
@@ -20,8 +25,16 @@ import torch
 from repro_torch.utils.tree import named_leaves
 
 
+def local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (a view: writing it writes the DTensor); a
+    plain tensor itself."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def _f32_zeros(params: Any) -> Dict[str, torch.Tensor]:
-    return {name: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    return {name: torch.zeros(local(p).shape, dtype=torch.float32, device=p.device)
             for name, p in named_leaves(params)}
 
 
@@ -31,8 +44,15 @@ def _step_zero(params: Any) -> torch.Tensor:
 
 
 def clip_scale(grads: Mapping[str, torch.Tensor], grad_clip: float) -> torch.Tensor:
-    """min(1, grad_clip / max(||g||, 1e-12)) over all leaves, in float32."""
-    sq = sum(torch.sum(g.to(torch.float32) * g.to(torch.float32)) for g in grads.values())
+    """min(1, grad_clip / max(||g||, 1e-12)) over all leaves, in float32;
+    with DTensor gradients over the local shards, summed over their mesh."""
+    from torch.distributed.tensor import DTensor
+
+    sq = sum(torch.sum(local(g).to(torch.float32) * local(g).to(torch.float32))
+             for g in grads.values())
+    mesh = next((g.device_mesh for g in grads.values() if isinstance(g, DTensor)), None)
+    if mesh is not None:
+        torch.distributed.all_reduce(sq, group=mesh.get_group())
     gnorm = torch.sqrt(sq)
     return torch.clamp(grad_clip / torch.clamp_min(gnorm, 1e-12), max=1.0)
 
@@ -62,7 +82,7 @@ def adamw_update(
     bc1 = 1 - torch.pow(b1, step.to(torch.float32))
     bc2 = 1 - torch.pow(b2, step.to(torch.float32))
     for name, p in named_leaves(params):
-        g = grads[name].to(torch.float32) * scale
+        p, g = local(p), local(grads[name]).to(torch.float32) * scale
         m, v = state["m"][name], state["v"][name]
         m.mul_(b1).add_((1 - b1) * g)
         v.mul_(b2).add_((1 - b2) * g * g)

@@ -18,9 +18,10 @@ With ``SelectorConfig.mode == "coreset"`` the step is two-phase:
 ``mode == "uniform"`` is the U-* baseline (same m, weight B/m);
 ``mode == "none"`` is the dense step.
 
-The state is ``{"params": DecoderLM, "opt": AdamW state, "step"}``; a step
-updates it in place, returns its metrics as device tensors and reads
-nothing on the host.
+The state is ``{"params": model, "opt": AdamW state, "step"}`` (the model a
+``DecoderLM`` or an ``EncDecLM``, FSDP-sharded or not); a step updates it
+in place, returns its metrics as device tensors and reads nothing on the
+host.
 """
 
 from __future__ import annotations
@@ -56,8 +57,14 @@ def _select_rows(batch: Dict[str, torch.Tensor], idx: torch.Tensor) -> Dict[str,
 
 def _score_features(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """(B, D) mean-pooled embedding features — the cheap, party-local score
-    input (O(B*S*D) lookups; no layer compute, no cross-shard traffic)."""
-    x = embed(batch["tokens"], params.embed)                 # (B, S, D)
+    input (O(B*S*D) lookups; no layer compute, no cross-shard traffic).
+    An embedding held by FSDP is gathered whole for the lookup."""
+    from torch.distributed.tensor import DTensor
+
+    table = params.embed
+    if isinstance(table, DTensor):
+        table = table.full_tensor()
+    x = embed(batch["tokens"], table)                        # (B, S, D)
     feats = torch.mean(x.to(torch.float32), dim=1)
     if "prefix_embeds" in batch:
         feats = feats + torch.mean(batch["prefix_embeds"].to(torch.float32), dim=1)

@@ -277,18 +277,30 @@ def test_params_from_numpy_takes_bfloat16_leaves():
                                   np.asarray(params["embed"].astype(jnp.float32)))
 
 
-@pytest.mark.parametrize("arch,item", [("whisper-medium", "item 18.6")])
-def test_unported_families_raise(arch, item):
-    cfg = get_arch(arch).reduced()
-    with pytest.raises(NotImplementedError, match=item):
-        api.init_params(cfg, device=CPU)
-    with pytest.raises(NotImplementedError, match=item):
-        api.init_cache(cfg, 1, 8, device=CPU)
-    with pytest.raises(NotImplementedError, match=item):
-        ServeEngine(cfg, None)
-    _, tc, _, model = _pair("llama3.2-1b")
-    with pytest.raises(NotImplementedError, match=item):
-        lm.forward(model, cfg, torch.zeros(1, 2, dtype=torch.int32))
+def test_encoder_decoder_generate_matches_reference():
+    """whisper-medium (reduced): the frames through ``prefill_cross``, then
+    greedy generation token for token the reference's, each step's top-2
+    margin past twice the logit tolerance."""
+    from repro_torch.models import encdec
+
+    jc, tc, params, model = _pair("whisper-medium", seed=2)
+    prompts = _tokens(tc, 2, 3, seed=12)
+    frames = np.random.default_rng(13).standard_normal(
+        (2, tc.num_prefix, tc.d_model)).astype(np.float32)
+    cache = encdec.prefill_cross(model, tc, api.init_cache(tc, 2, 64, device=CPU), _t(frames))
+    for t in range(3):
+        logits, cache = api.decode_step(model, tc, cache, _t(prompts[:, t:t + 1]))
+    for _ in range(6):
+        top2 = torch.topk(logits[:, -1], 2, dim=-1).values
+        assert float((top2[:, 0] - top2[:, 1]).min()) > 2 * ATOL
+        tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True).to(torch.int32)
+        logits, cache = api.decode_step(model, tc, cache, tok)
+    want = np.asarray(JEngine(jc, params, cache_len=64).generate(
+        jnp.asarray(prompts), max_new_tokens=6, prefix_embeds=jnp.asarray(frames)))
+    got = ServeEngine(tc, model, cache_len=64).generate(_t(prompts), max_new_tokens=6,
+                                                       prefix_embeds=_t(frames))
+    assert got.dtype == torch.int32 and got.shape == (2, 6)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_cuda_entry_points_raise_without_a_card(monkeypatch):

@@ -212,7 +212,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.models.lm, repro_torch.models.api, repro_torch.models.lm_serve\n"
         "import repro_torch.serve.engine\n"
         "import repro_torch.models.moe, repro_torch.optim, repro_torch.optim.adamw\n"
-        "import repro_torch.models.ssm\n"
+        "import repro_torch.models.ssm, repro_torch.models.encdec\n"
+        "import repro_torch.sharding, repro_torch.sharding.specs, repro_torch.sharding.ctx\n"
+        "import repro_torch.sharding.fsdp\n"
         "import repro_torch.optim.sgd, repro_torch.optim.schedules, repro_torch.utils.tree\n"
         "import repro_torch.utils.logging, repro_torch.train, repro_torch.train.trainer\n"
         "import repro_torch.train.checkpoint, repro_torch.launch, repro_torch.launch.train\n"

@@ -194,9 +194,24 @@ def test_launch_train_writes_a_checkpoint_on_the_cpu(tmp_path):
     assert step_no == 3 and int(state["step"]) == 3 and int(state["opt"]["step"]) == 3
 
 
-def test_launch_train_production_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 18.7"):
-        launch_train.main(["--production"])
+def test_launch_train_production_prints_a_spec_for_every_parameter(caplog):
+    """``--production`` at the published width: one line a parameter path
+    (the reference's, layers stacked), its spec from ``param_shardings``."""
+    from repro_torch.models import api
+    from repro_torch.sharding.specs import flat_specs, param_shardings, stacked_shapes
+
+    arch = "deepseek-v2-236b"
+    with caplog.at_level("INFO", logger="train"):
+        assert launch_train.main(["--arch", arch, "--production", "--device", "cpu"]) == 0
+    cfg = get_arch(arch)
+    want = flat_specs(param_shardings(stacked_shapes(api.init_params(cfg, device="meta")),
+                                      cfg, multi_pod=False))
+    lines = [r.getMessage() for r in caplog.records if r.name == "train"]
+    assert lines[0].startswith("production mesh: 16x16")
+    got = dict(line.split(None, 1) for line in lines[1:])
+    assert set(got) == set(want) and len(want) == 21
+    assert all(got[p] == str(spec) for p, spec in want.items())
+    assert got["layers/moe/w_gate"] == "(None, 'model', 'data', None)"   # E over model, fsdp
 
 
 def test_launch_train_defaults_to_the_card(monkeypatch):
