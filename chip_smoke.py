@@ -300,6 +300,21 @@ and never JAX or the JAX package ``repro``.  Phases, each fatal on failure:
    reduced ``llama3.2-1b`` and ``whisper-medium`` (``fsdp=True``) held by
    ``sharding.fsdp.fully_shard_model`` over an NCCL world of one, a train
    step in modes ``none`` and ``coreset`` bit for bit the groupless step.
+24. ``launch/`` (``launch_phase``): (a) ``llama3.2-1b``'s train state
+   from ``launch.inputs.state_specs`` on ``meta`` against the real state on
+   the card, storage bytes exactly, ``memory_allocated``'s growth within the
+   allocator's rounding; (b) one eager ``vrlr`` and one ``vkmc``
+   ``end_to_end`` under ``torch.profiler``: ``launch.trace.op_census``'s
+   count of each hand-written kernel equal to the launch counters (K3's and
+   K2's reduce kernels once a launch), the device-busy share of the call
+   timed without the profiler; (c) ``launch.dryrun.roofline_one`` on a
+   one-chip mesh for the (8, 256) train step and the B = 4 decode step
+   beside their measured times (no speed gate); (d) the dry run's
+   activation peak of the reduced (8, 256) step against
+   ``max_memory_allocated`` above its state, within 0.75-1.33x; (e) an
+   FSDP step in an NCCL world of one under the profiler, its collectives
+   (``launch.trace.collective_stats``) equal to
+   ``launch.dryrun.fsdp_collectives``.
 
 Every path is driven with all five launch counters set to 0 just before
 it and read just after.  With the default seed, the drawn indices of
@@ -600,6 +615,27 @@ WHISPER_DEPTHS = (1, 8)
 # steps (B = REDUCED_BATCH, S = REDUCED_SEQ, modes none and coreset) bit for
 # bit the groupless steps'
 SHARD_ARCHS = (LM_ARCH, WHISPER_ARCH)
+# phase 24, launch/ on the card: llama3.2-1b's meta state against its real
+# state; the kernel census of a profiled vrlr and vkmc end_to_end against the
+# launch counters; the dry run's one-chip roofline beside the measured (8,
+# 256) train step and B = 4 decode step; the dry run's activation peak of
+# the reduced (8, 256) step against the allocator's, within LAUNCH_PEAK_GATE;
+# FSDP's collectives in an NCCL world of one
+LAUNCH_ARCH = LM_ARCH
+LAUNCH_PEAK_GATE = (0.75, 1.33)
+LAUNCH_TRAIN_STEPS, LAUNCH_DECODE_STEPS = 3, 10
+ALLOC_ROUND = 512        # the caching allocator rounds every request up to this
+ALLOC_SPLIT = 1 << 20    # ... and keeps a large block whole when less than this is left
+# each kernel wrapper's __global__ kernels: one counted launch runs one of the
+# first set, then each kernel of the second (K3's and K2's reduce stages)
+KERNEL_NAMES = {
+    "leverage": ({"leverage_reg_kernel", "leverage_kernel", "leverage_wide_kernel"}, ()),
+    "weighted_gram": ({"wgram_partial_kernel"}, ("wgram_reduce_kernel",)),
+    "kmeans_assign_update": ({"kau_partial_kernel", "kau_partial_global_kernel"},
+                             ("kau_reduce_kernel",)),
+    "kmeans_assign": ({"kmeans_assign_fast_kernel", "kmeans_assign_global_kernel"}, ()),
+    "categorical": ({"categorical_row_kernel", "categorical_tile_kernel"}, ()),
+}
 # indices_sha256 of phases 4 and 5 at --seed 0, recorded on the card with
 # the plain draw (PERF.md); phase 7's vrlr cell (0, 1) is phase 4's m = 5000
 # build
@@ -4491,6 +4527,267 @@ def sharding_phase(torch, dev, seed, launches, card, reset_counts, read_counts):
     log(f"phase 23 took {time.perf_counter() - phase_t0:.1f} s; {card}")
 
 
+def storage_bytes(tensors) -> int:
+    """Bytes of the distinct storages under ``tensors`` (keyed by
+    ``untyped_storage()._cdata``: ``meta`` tensors have no data pointer)."""
+    seen = {}
+    for t in tensors:
+        st = t.untyped_storage()
+        seen[st._cdata] = st.nbytes()
+    return sum(seen.values())
+
+
+def state_tensors(state):
+    return [*state["params"].parameters(), *state["opt"]["m"].values(),
+            *state["opt"]["v"].values(), state["opt"]["step"], state["step"]]
+
+
+def launch_phase(torch, dev, seed, launches, card, reset_counts, read_counts):
+    """Phase 24, ``launch/`` on the card: (a) ``inputs.state_specs`` of
+    ``LAUNCH_ARCH`` at full width on ``meta`` against the real train state:
+    storage bytes equal, ``memory_allocated`` grown by them within the
+    allocator's rounding; (b) a ``torch.profiler`` trace of one eager
+    ``vrlr`` and one ``vkmc`` ``end_to_end``: ``trace.op_census``'s count of
+    each hand-written kernel equal to the launch counters over the same
+    call, and the device-busy share of the call timed without the
+    profiler (phase 4's data, made again); (c) ``dryrun.roofline_one`` on one chip for the (8, 256)
+    train step and the B = 4 decode step beside their measured times;
+    (d) the dry run's activation peak of the reduced (8, 256) step against
+    ``max_memory_allocated`` above its state, within ``LAUNCH_PEAK_GATE``;
+    (e) an FSDP train step in an NCCL world of one under the profiler:
+    ``trace.collective_stats`` against ``dryrun.fsdp_collectives``."""
+    import collections
+    import dataclasses
+    import datetime
+    import gc
+    import os
+    import statistics
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import rng
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import CoresetSpec, VFLDataset, end_to_end
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import dryrun, inputs, trace
+    from repro_torch.models import api
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.schedules import constant
+    from repro_torch.sharding.fsdp import fully_shard_model
+    from repro_torch.train import make_train_step, train_state_init
+
+    phase_t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    count = lambda fn, want, label: run_counted(torch, launches, reset_counts, read_counts,
+                                                fn, want, label)
+    cuda_trace = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    # -- (a) the meta state's bytes against the real state's
+    cfg = get_arch(LAUNCH_ARCH)
+    meta_bytes = storage_bytes(state_tensors(inputs.state_specs(cfg)))
+    requested = lambda: torch.cuda.memory_stats()["requested_bytes.all.current"]
+    torch.cuda.synchronize()
+    before = (torch.cuda.memory_allocated(), requested())
+    state = train_state_init(cfg, generator=torch.Generator(device=dev).manual_seed(seed),
+                             device=dev)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before[0]
+    asked = requested() - before[1]
+    tensors = state_tensors(state)
+    card_bytes = storage_bytes(tensors)
+    # the allocator rounds a request up to ALLOC_ROUND bytes and hands out a
+    # large block whole when less than ALLOC_SPLIT of it would be left over
+    slack = sum(ALLOC_ROUND if t.untyped_storage().nbytes() < ALLOC_SPLIT else ALLOC_SPLIT
+                for t in tensors)
+    if card_bytes != meta_bytes or asked != card_bytes:
+        fail(f"launch (a): the meta state holds {meta_bytes} bytes, the card's storages "
+             f"{card_bytes}, the allocator was asked for {asked}")
+    if not card_bytes <= grown <= card_bytes + slack:
+        fail(f"launch (a): memory_allocated grew by {grown} bytes for a {card_bytes}-byte "
+             f"state of {len(tensors)} tensors (rounding allows {slack})")
+    log(f"launch (a): {LAUNCH_ARCH} train state, state_specs on meta {meta_bytes} bytes == "
+        f"the card's storages {card_bytes} bytes ({len(tensors)} tensors) == the bytes asked "
+        f"of the allocator; memory_allocated grew by {grown} (+{grown - card_bytes}: the "
+        f"allocator's rounding, at most {slack})")
+
+    # -- (c) the one-chip roofline beside the measured steps
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    shapes = {"train": InputShape(f"train_{B}x{S}", S, B, "train"),
+              "decode": InputShape(f"decode_b{LM_BATCH}", LM_CACHE_LEN, LM_BATCH, "decode")}
+    roofs = {ph: dryrun.roofline_one(LAUNCH_ARCH, sh, sizes=dryrun.ONE_CHIP)
+             for ph, sh in shapes.items()}
+    for ph, r in roofs.items():
+        if r["status"] != "ok":
+            fail(f"launch (c): the dry run of the {ph} step: {r.get('error')}")
+    step = make_train_step(cfg, constant(TRAIN_LR))
+    batch = TokenStream(vocab=cfg.vocab_size, seq_len=S, batch_size=B, seed=seed + 50,
+                        device=dev).next_batch()
+    key = rng.PRNGKey(seed + 51, device=dev)
+    count(lambda: step(state, batch, key), {}, "launch (c) warm-up step")
+    state["params"].zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    train_ms = []
+    for i in range(LAUNCH_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        count(lambda: step(state, batch, key), {}, "launch (c) train step")
+        train_ms.append((time.perf_counter() - t0) * 1e3)
+    full_peak = torch.cuda.max_memory_allocated() - base
+    model = state["params"]
+    model.zero_grad(set_to_none=True)
+    cache = api.init_cache(cfg, LM_BATCH, LM_CACHE_LEN, device=dev)
+    tok = batch["tokens"][:LM_BATCH, :1]
+    decode_ms = []
+    with torch.inference_mode():
+        for i in range(3 + LAUNCH_DECODE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            count(lambda: api.decode_step(model, cfg, cache, tok), {}, "launch (c) decode step")
+            if i >= 3:
+                decode_ms.append((time.perf_counter() - t0) * 1e3)
+    measured = {"train": statistics.median(train_ms), "decode": statistics.median(decode_ms)}
+    rows = []
+    for ph, r in roofs.items():
+        roof_ms = max(r["t_compute_s"], r["t_memory_s"], r["t_collective_s"]) * 1e3
+        rows.append(f"{ph} {r['shape']}: roofline {roof_ms:.3f} ms ({r['bottleneck']}; "
+                    f"compute {r['t_compute_s'] * 1e3:.3f}, eager bytes "
+                    f"{r['t_memory_s'] * 1e3:.3f}, fusion-optimistic bytes "
+                    f"{r['t_memory_opt_s'] * 1e3:.3f}) against {measured[ph]:.3f} ms measured "
+                    f"(median; share {roof_ms / measured[ph]:.4f}, fusion-optimistic share "
+                    f"{r['t_memory_opt_s'] * 1e3 / measured[ph]:.4f})")
+    pred_full = roofs["train"]["memory"]["temp_size_in_bytes"]
+    log(f"launch (c): dryrun.roofline_one on one chip (989 TFLOP/s bf16, 3.35 TB/s: the "
+        f"H100 SXM data sheet at 700 W), {LAUNCH_ARCH} bf16: " + "; ".join(rows)
+        + f"; train steps {[round(t, 3) for t in train_ms]} ms, the activation peak "
+        f"{full_peak} bytes above the state against the dry run's {pred_full:.0f} "
+        f"({pred_full / full_peak:.4f}x, not gated); {card}")
+    del state, step, model, cache, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (d) the dry run's activation peak against the allocator's
+    rcfg = cfg.reduced()
+    pred = dryrun.run_one(LAUNCH_ARCH, shapes["train"], sizes=dryrun.ONE_CHIP,
+                          cfg_transform=lambda c: c.reduced())
+    if pred["status"] != "ok":
+        fail(f"launch (d): the dry run of the reduced step: {pred.get('error')}")
+    predicted = pred["memory"]["temp_size_in_bytes"]
+    rstate = train_state_init(rcfg, generator=torch.Generator(device=dev).manual_seed(seed),
+                              device=dev)
+    rbatch = TokenStream(vocab=rcfg.vocab_size, seq_len=S, batch_size=B, seed=seed + 52,
+                         device=dev).next_batch()
+    rstep = make_train_step(rcfg, constant(TRAIN_LR))
+    count(lambda: rstep(rstate, rbatch, key), {}, "launch (d) warm-up step")
+    rstate["params"].zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    count(lambda: rstep(rstate, rbatch, key), {}, "launch (d) step")
+    peak = torch.cuda.max_memory_allocated() - base
+    ratio = predicted / peak
+    log(f"launch (d): reduced {LAUNCH_ARCH} (float32) train step ({B}, {S}): the dry run's "
+        f"activation peak {predicted:.0f} bytes against max_memory_allocated {peak} above "
+        f"the state: {ratio:.4f}x (gate {LAUNCH_PEAK_GATE[0]}-{LAUNCH_PEAK_GATE[1]}); {card}")
+    if not LAUNCH_PEAK_GATE[0] <= ratio <= LAUNCH_PEAK_GATE[1]:
+        fail(f"launch (d): predicted / measured peak {ratio:.4f} outside {LAUNCH_PEAK_GATE}")
+    del rstate, rstep, rbatch
+
+    # -- (b) the kernel census of a profiled end_to_end against the counters
+    X_np, y_np = make_data(seed, N_FULL, D_FULL)
+    ds = VFLDataset.from_dense(X_np, y_np, T=T_PARTIES, device=dev)
+    lam = 0.1 * N_FULL
+    m = BUDGETS[1]
+    vk = {"k": K_CLUSTERS, "alpha": ALPHA, "local_iters": LOCAL_ITERS}
+    runs = {
+        "vrlr": lambda: end_to_end(CoresetSpec(task="vrlr", budgets=m), ds,
+                                   key=rng.fold_in(rng.PRNGKey(seed), m), lam=lam),
+        "vkmc": lambda: end_to_end(CoresetSpec(task="vkmc", budgets=m, params=vk), ds,
+                                   key=rng.fold_in(rng.PRNGKey(seed + 100), m),
+                                   k=K_CLUSTERS, iters=FIT_ITERS),
+    }
+    lines = []
+    for task, fn in runs.items():
+        fn()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        want = {nm: n for nm, n in read_counts().items() if n}
+        reset_counts()
+        with profile(activities=cuda_trace) as prof:
+            count(fn, want, f"launch (b) {task} under the profiler")
+        census = trace.op_census(prof, top=None)
+        by_base, base_us = collections.Counter(), collections.Counter()
+        for name, c in census.items():
+            by_base[trace.kernel_base_name(name)] += c["count"]
+            base_us[trace.kernel_base_name(name)] += c["device_us"]
+        found = []
+        for wrapper, (first, second) in KERNEL_NAMES.items():
+            n1 = sum(by_base[k] for k in first)
+            if n1 != want.get(wrapper, 0):
+                fail(f"launch (b) {task}: {n1} kernels of {wrapper} in the trace, "
+                     f"{want.get(wrapper, 0)} counted launches")
+            for k in second:
+                if by_base[k] != n1:
+                    fail(f"launch (b) {task}: {by_base[k]} {k} for {n1} launches of {wrapper}")
+            if n1:
+                found.append(f"{wrapper} {n1}" + "".join(f" (+{n1} {k})" for k in second))
+        # a tiled draw merges its tiles' picks when it has more than one tile
+        if by_base["categorical_merge_kernel"] > by_base["categorical_tile_kernel"]:
+            fail(f"launch (b) {task}: {by_base['categorical_merge_kernel']} merges for "
+                 f"{by_base['categorical_tile_kernel']} tiled draws")
+        found.append(f"categorical_merge_kernel {by_base['categorical_merge_kernel']}")
+        busy_s = trace.device_busy_us(prof) / 1e6
+        top = "; ".join(f"{k} x{c} {base_us[k]:.1f} us" for k, c in by_base.most_common(5))
+        lines.append(f"{task} m={m}: the trace's kernels equal the counters ({', '.join(found)}"
+                     f"); {len(census)} kernel names, {sum(c['count'] for c in census.values())}"
+                     f" device events; device busy {busy_s * 1e3:.3f} ms of the call's "
+                     f"{plain_s * 1e3:.3f} ms without the profiler ({busy_s / plain_s:.4f}); "
+                     f"most launched: {top}")
+    log("launch (b): torch.profiler (CPU + CUDA) over one eager end_to_end each: "
+        + " | ".join(lines) + f"; {card}")
+
+    # -- (e) FSDP's collectives in an NCCL world of one
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1, 1), mesh_dim_names=("pod", "data", "model"))
+        fcfg = dataclasses.replace(rcfg, fsdp=True)
+        fmodel = api.init_params(fcfg, generator=torch.Generator(device=dev).manual_seed(seed),
+                                 device=dev)
+        fully_shard_model(fmodel, fcfg, mesh)
+        fstate = {"params": fmodel, "opt": adamw_init(fmodel),
+                  "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        fbatch = TokenStream(vocab=fcfg.vocab_size, seq_len=REDUCED_SEQ,
+                             batch_size=REDUCED_BATCH, seed=seed + 53, device=dev).next_batch()
+        fstep = make_train_step(fcfg, constant(TRAIN_LR))
+        count(lambda: fstep(fstate, fbatch, key), {}, "launch (e) warm-up step")
+        with profile(activities=cuda_trace, record_shapes=True) as prof:
+            count(lambda: fstep(fstate, fbatch, key), {}, "launch (e) step")
+        stats = trace.collective_stats(prof)
+        want = dryrun.fsdp_collectives(api.init_params(fcfg, device="meta"), fcfg, "train",
+                                       dryrun.ONE_CHIP)
+        nccl = {trace.kernel_base_name(k): v for k, v in trace.op_census(prof, top=None).items()
+                if "nccl" in k.lower()}
+    finally:
+        dist.destroy_process_group()
+    if stats != want:
+        fail(f"launch (e): the trace's collectives {stats}, the formula's {want}")
+    log(f"launch (e): an FSDP step of reduced {LAUNCH_ARCH} (fsdp=True) in an NCCL world of "
+        f"one: collective_stats {stats} == fsdp_collectives {want} (one rank gathers and "
+        f"reduce-scatters nothing; AdamW's clip all-reduces one float32); NCCL kernels in the "
+        f"trace: {nccl if nccl else 'none (NCCL launched nothing for one rank)'}; {card}")
+    log(f"phase 24 took {time.perf_counter() - phase_t0:.1f} s; {card}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5581,6 +5878,11 @@ def main() -> None:
     before = dict(launches)
     sharding_phase(torch, dev, args.seed, launches, smi[0], reset_counts, read_counts)
     log(f"phase 23 launches: {({nm: launches[nm] - before[nm] for nm in launches})}")
+
+    # ---- 24. launch/: the dry run and the trace reader held on the card --------
+    before = dict(launches)
+    launch_phase(torch, dev, args.seed, launches, smi[0], reset_counts, read_counts)
+    log(f"phase 24 launches: {({nm: launches[nm] - before[nm] for nm in launches})}")
 
     # ---- records ----------------------------------------------------------------
     record = {"kernels": [

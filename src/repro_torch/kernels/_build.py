@@ -147,6 +147,11 @@ def batch_shape(lead_a, lead_b, what: str):
     return lead_a or lead_b, bool(lead_a), bool(lead_b)
 
 
+#: Device types whose tensors take a kernel's plain version: the CPU computes
+#: it; ``meta`` (the dry run's device) carries only shapes through it.
+PLAIN_DEVICES = ("cpu", "meta")
+
+
 def launch_device(*tensors):
     """The one device all ``tensors`` share; raises on a mix."""
     devs = {t.device for t in tensors}

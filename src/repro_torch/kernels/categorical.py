@@ -32,7 +32,7 @@ from typing import Optional
 import torch
 
 from repro_torch import rng
-from repro_torch.kernels._build import check, launch_device, library
+from repro_torch.kernels._build import PLAIN_DEVICES, check, launch_device, library
 
 #: Rows of at most this many columns take one thread a row; longer rows
 #: take 256-thread CTAs over column tiles.
@@ -67,7 +67,7 @@ def categorical(key: rng.Key, logits: torch.Tensor, cap: int,
     if not 0 <= take <= cap:
         raise ValueError(f"take={take} outside [0, cap={cap}]")
     key = key.to(logits.device)
-    if logits.device.type == "cpu":
+    if logits.device.type in PLAIN_DEVICES:
         return rng.categorical_plain(key, logits, cap, take)
     return _launch(key[None], logits[None], cap, None, take)
 
@@ -93,7 +93,13 @@ def categorical_parties(keys: torch.Tensor, logits: torch.Tensor, cap: int,
                          f"{tuple(keys.shape)}, {tuple(logits.shape)}, {tuple(counts.shape)}")
     cap = int(cap)
     keys, counts = keys.to(logits.device), counts.to(logits.device)
-    if logits.device.type == "cpu":
+    if logits.device.type == "meta":
+        # the plain version reads the counts on the host; a meta draw carries
+        # only its length, which ``total`` gives
+        if total is None:
+            raise ValueError("a draw on the meta device needs total= (its length)")
+        return torch.empty((int(total),), dtype=torch.int64, device=logits.device)
+    if logits.device.type in PLAIN_DEVICES:
         out = rng.categorical_parties_plain(keys, logits, cap, counts)
         if total is not None and out.shape[0] != int(total):
             raise ValueError(f"counts sum to {out.shape[0]}, not total={total}")

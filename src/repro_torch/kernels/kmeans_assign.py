@@ -34,7 +34,7 @@ import math
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels._build import (MAX_SMEM_BYTES, batch_shape, check,
+from repro_torch.kernels._build import (MAX_SMEM_BYTES, PLAIN_DEVICES, batch_shape, check,
                                        launch_device, library)
 
 #: The plain PyTorch version of the kernel (the CPU path and the oracle).
@@ -128,7 +128,7 @@ def kmeans_assign(X: torch.Tensor, C: torch.Tensor):
     Either operand may carry leading batch dims (equal on both, or absent
     on one, which is then shared); they fold into the launch grid."""
     dev = launch_device(X, C)
-    if dev.type == "cpu":
+    if dev.type in PLAIN_DEVICES:
         return plain(X, C)
     return _launch(X, C)
 

@@ -36,7 +36,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels._build import (MAX_SMEM_BYTES, batch_shape, check,
+from repro_torch.kernels._build import (MAX_SMEM_BYTES, PLAIN_DEVICES, batch_shape, check,
                                        launch_device, library)
 from repro_torch.kernels.kmeans_assign import (  # noqa: F401  (tile_rows is re-exported)
     GLOBAL, TILE_ROWS, _padded_k, check_shapes, tile_rows)
@@ -92,7 +92,7 @@ def kmeans_assign_update(X: torch.Tensor, C: torch.Tensor,
     X, C and w may each carry the leading batch dims or not, independently
     (an operand without them is shared); the batch folds into the grid."""
     dev = launch_device(X, C) if w is None else launch_device(X, C, w)
-    if dev.type == "cpu":
+    if dev.type in PLAIN_DEVICES:
         return plain(X, C, w)
     return _launch(X, C, w)
 

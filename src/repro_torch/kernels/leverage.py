@@ -29,7 +29,7 @@ import math
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels._build import (MAX_SMEM_BYTES, batch_shape, check,
+from repro_torch.kernels._build import (MAX_SMEM_BYTES, PLAIN_DEVICES, batch_shape, check,
                                        launch_device, library)
 
 #: The plain PyTorch version of the kernel (the CPU path and the oracle).
@@ -63,7 +63,7 @@ def leverage(X: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
     on one, which is then shared); the party axis of stacked scoring folds
     into the launch grid."""
     dev = launch_device(X, M)
-    if dev.type == "cpu":
+    if dev.type in PLAIN_DEVICES:
         return plain(X, M)
     return _launch(X, M)
 

@@ -18,7 +18,8 @@ import math
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels._build import batch_shape, check, launch_device, library
+from repro_torch.kernels._build import (PLAIN_DEVICES, batch_shape, check, launch_device,
+                                         library)
 
 #: The plain PyTorch version of the kernel (the CPU path and the oracle).
 plain = ref.weighted_gram
@@ -44,7 +45,7 @@ def weighted_gram(X: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     Either operand may carry leading batch dims (equal on both, or absent
     on one, which is then shared)."""
     dev = launch_device(X, w)
-    if dev.type == "cpu":
+    if dev.type in PLAIN_DEVICES:
         return plain(X, w)
     if X.ndim < 2 or w.ndim < 1:
         raise ValueError(f"weighted_gram takes X (..., n, d), w (..., n); got "

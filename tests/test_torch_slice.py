@@ -218,6 +218,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.optim.sgd, repro_torch.optim.schedules, repro_torch.utils.tree\n"
         "import repro_torch.utils.logging, repro_torch.train, repro_torch.train.trainer\n"
         "import repro_torch.train.checkpoint, repro_torch.launch, repro_torch.launch.train\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.inputs, repro_torch.launch.trace\n"
+        "import repro_torch.launch.roofline, repro_torch.launch.dryrun\n"
+        "import repro_torch.launch.hillclimb\n"
         "from repro_torch.convert import lm_params_from_numpy\n"
         "from repro_torch.core.sensitivity import ridge_leverage_scores\n"
         "from repro_torch.core.dis import server_plan\n"
