@@ -17,7 +17,10 @@ and never JAX or the JAX package ``repro``.  Phases, each fatal on failure:
    to its oracle at the main path's shapes (both timed), over the sweep and
    at ragged edges: kmeans_assign_update and kmeans_assign to their global
    variants (the same sums in the same order), leverage to its wide
-   kernel; the general variants past the
+   kernel (its oracle) at every width, the tiled kernel past s = 238 at
+   s = 239, 256, 512, 1001 (two scratch chunks at n = 17,000), two batch
+   groups (55,189 parties of one row at s = 300) and the selector's
+   (256, 2048); the general variants past the
    fast kernels' limits (leverage at s = 239, 256, 512; the k-means
    kernels at (k, d) = (425, 64), (2000, 64), (10, 2048) and one batched
    case, with assignments equal to the plain version's); CUDA-event times
@@ -231,8 +234,9 @@ and never JAX or the JAX package ``repro``.  Phases, each fatal on failure:
    selector on the mean-pooled bf16 embeddings of a (256, 512) batch:
    ``select`` at fraction 0.25 (m = 64) one K5 launch, bit for bit the
    plain draw on the same scores, weights G/(m g_S) exactly;
-   ``ridge_leverage_scores(use_kernel=True)`` one K1 launch (the wide
-   variant at (256, 2048)) against the plain form, timed; ``uniform`` and
+   ``ridge_leverage_scores(use_kernel=True)`` one K1 launch (the tiled
+   kernel at (256, 2048), its plan gated) against the plain form and bit
+   for bit the wide kernel, timed; ``uniform`` and
    ``norm``; the group selector in an NCCL world of one bit for bit the
    groupless one; (e) the reduced model in float32 on the card against the
    CPU, logits and greedy tokens.
@@ -444,9 +448,10 @@ SYNTH_Y_RTOL = 1e-6
 # Llama-3.2-1B; 1,235,814,400 parameters with the vocab padded to 128,256),
 # 4 prompts of 32 tokens and 32 new ones against a 4,096-slot cache (16 layers
 # x 4 x 4096 x 8 KV heads x 64 x (k, v) x 2 bytes), a window-8 variant; the
-# selector on a (256, 512) batch, where K1's wide variant takes 5 rows a tile
-# at d = 2048.  Tolerances, each about 4x what the card showed at --seed 0
-# (PERF.md): decode against forward in float32 relative to the largest |logit|
+# selector on a (256, 512) batch, where K1's tiled kernel covers (256, 2048)
+# in one scratch chunk of 256 rows (LM_TILED_PLAN).
+# Tolerances, each about 4x what the card showed at --seed 0 (PERF.md):
+# decode against forward in float32 relative to the largest |logit|
 # (2.6e-6); K1 against the plain form absolute, the scores lying in [0, 1]
 # (6.1e-6); the reduced model's logits on the card against the CPU absolute,
 # max |logit| about 4 (3.9e-6); the bf16 model's logits against its float32
@@ -460,7 +465,7 @@ LM_KV_BYTES = 16 * 4 * 4096 * 8 * 64 * 2 * 2
 LM_WINDOW = 8
 LM_DECODE_TOL = 1e-5
 SEL_BATCH, SEL_SEQ = 256, 512
-LM_WIDE_ROWS = 5
+LM_TILED_PLAN = (256, 1)   # chunk rows, chunks
 SEL_K1_TOL = 2.5e-5
 LM_CPU_TOL = 1.5e-5
 LM_BF16_TOL = 0.06
@@ -627,7 +632,10 @@ LAUNCH_TRAIN_STEPS, LAUNCH_DECODE_STEPS = 3, 10
 ALLOC_ROUND = 512        # the caching allocator rounds every request up to this
 ALLOC_SPLIT = 1 << 20    # ... and keeps a large block whole when less than this is left
 # each kernel wrapper's __global__ kernels: one counted launch runs one of the
-# first set, then each kernel of the second (K3's and K2's reduce stages)
+# first set, then each kernel of the second (K3's and K2's reduce stages); a
+# counted K1 launch past s = 238 runs none of them but leverage_tiled_kernel
+# and leverage_fold_kernel once a scratch chunk (tiled_plan's chunks), and the
+# census holds those apart (launch_phase)
 KERNEL_NAMES = {
     "leverage": ({"leverage_reg_kernel", "leverage_kernel", "leverage_wide_kernel"}, ()),
     "weighted_gram": ({"wgram_partial_kernel"}, ("wgram_reduce_kernel",)),
@@ -898,7 +906,8 @@ def check_k1_oracle(torch, klev, X, M, timed=False):
         fail(f"leverage {shapes}: two launches on the same input differ")
     if not torch.equal(got, wide):
         fail(f"leverage {shapes}: the kernel's output differs from the wide kernel's")
-    msg = f"  leverage {shapes}: kernel == wide kernel, bit for bit"
+    msg = (f"  leverage {shapes}: {klev.kernel_for(X.shape[-1])} == wide kernel, "
+           f"bit for bit")
     if not timed:
         log(msg)
         return None
@@ -3094,8 +3103,9 @@ def lm_phase(torch, dev, seed, launches, card, reset_counts, read_counts):
     with the prefill and decode step times and the bf16 prefill's logits
     against the copy's forward; (d) the coreset
     batch selector on mean-pooled embeddings of a (256, 512) batch: the K5
-    draw bit for bit its plain version, K1's wide variant at (256, 2048)
-    against the plain form and timed, ``uniform`` and ``norm``, and the
+    draw bit for bit its plain version, K1's tiled kernel at (256, 2048)
+    against the plain form and the wide kernel and timed, ``uniform`` and
+    ``norm``, and the
     group selector in an NCCL world of one; (e) the reduced model on the
     card against the CPU.  Returns K1's timed row for the JSON line."""
     import dataclasses
@@ -3222,7 +3232,7 @@ def lm_phase(torch, dev, seed, launches, card, reset_counts, read_counts):
     select_s = time.perf_counter() - t0
     g = sel.local_scores(feats, "leverage", scfg.ridge)
     check_draw(torch, rng, (skey.to(dev), g, m, S, w), "lm (d) select")
-    # K1's wide variant at (B, d): ridge_leverage_scores(use_kernel=True)
+    # K1's tiled kernel at (B, d): ridge_leverage_scores(use_kernel=True)
     f32 = feats.to(torch.float32)
     d = f32.shape[1]
     M = torch.linalg.inv(f32.T @ f32 + scfg.ridge * torch.eye(d, device=dev))
@@ -3232,13 +3242,17 @@ def lm_phase(torch, dev, seed, launches, card, reset_counts, read_counts):
     k1 = klev.leverage(f32, M)
     k1_err = float((k1 - klev.plain(f32, M)).abs().max())
     clip_err = float((lev_k - lev_p).abs().max())
-    if not (klev.wide_rows(d) == LM_WIDE_ROWS and k1_err <= SEL_K1_TOL
-            and clip_err <= SEL_K1_TOL):
-        fail(f"lm (d): K1 wide at {tuple(f32.shape)} ({klev.wide_rows(d)} rows a tile): "
-             f"{k1_err:.3e} from plain on the same M, the clipped scores {clip_err:.3e} "
-             f"(tolerance {SEL_K1_TOL})")
-    # the wide variant takes over 0.1 s a launch here: 3 timed launches
-    k1_ms = cuda_ms(torch, lambda: klev.leverage(f32, M), iters=3, warmup=1)
+    plan = klev.tiled_plan(1, SEL_BATCH, d)
+    got_plan = (plan.chunk_rows, plan.chunks)
+    if not (klev.kernel_for(d) == "leverage_tiled_kernel" and got_plan == LM_TILED_PLAN
+            and k1_err <= SEL_K1_TOL and clip_err <= SEL_K1_TOL):
+        fail(f"lm (d): K1 at {tuple(f32.shape)} ({klev.kernel_for(d)}, plan {got_plan}, "
+             f"recorded {LM_TILED_PLAN}): {k1_err:.3e} from plain on the same M, the "
+             f"clipped scores {clip_err:.3e} (tolerance {SEL_K1_TOL})")
+    check_k1_oracle(torch, klev, f32, M)
+    k1_ms = cuda_ms(torch, lambda: klev.leverage(f32, M))
+    # the wide kernel (the oracle) takes over 0.1 s a launch here: 3 launches
+    k1_oracle = cuda_ms(torch, lambda: klev._launch(f32, M, wide=True), iters=3, warmup=1)
     k1_plain = cuda_ms(torch, lambda: klev.plain(f32, M))
     k1_lib = cuda_ms(torch, lambda: torch.einsum("nd,de,ne->n", f32, M, f32))
     k1_bound, k1_by = bound_ms(4 * (SEL_BATCH * d + d * d + SEL_BATCH),
@@ -3248,10 +3262,12 @@ def lm_phase(torch, dev, seed, launches, card, reset_counts, read_counts):
         f"embeddings of a ({SEL_BATCH}, {SEL_SEQ}) batch in {select_s:.4f} s: m={m}, one K5 "
         f"launch, indices bit for bit the plain draw on the same g, weights G/(m g_S) exactly; g in "
         f"[{float(g.min()):.4g}, {float(g.max()):.4g}]; {card}")
-    log(f"time leverage ({SEL_BATCH}, {d}) x ({d}, {d}) (wide variant, {LM_WIDE_ROWS} rows a "
-        f"tile): kernel {k1_ms:.4f} ms, plain {k1_plain:.4f} ms, einsum {k1_lib:.4f} ms, "
-        f"bound {k1_bound:.4f} ms ({k1_by}); max abs {k1_err:.3e} from plain, clipped "
-        f"scores {clip_err:.3e} (tolerance {SEL_K1_TOL}); {card}")
+    log(f"time leverage ({SEL_BATCH}, {d}) x ({d}, {d}) (tiled kernel, {plan.chunk_rows} rows "
+        f"a chunk; linalg.inv's column-major M copied row-major in the call): kernel "
+        f"{k1_ms:.4f} ms, plain {k1_plain:.4f} ms, "
+        f"einsum {k1_lib:.4f} ms, bound {k1_bound:.4f} ms ({k1_by}), the wide kernel "
+        f"{k1_oracle:.4f} ms; max abs {k1_err:.3e} from plain, clipped scores {clip_err:.3e} "
+        f"(tolerance {SEL_K1_TOL}); {card}")
     # uniform and norm
     Su, wu = count(lambda: sel.select(skey, feats, dataclasses.replace(scfg, mode="uniform")),
                    {})
@@ -3314,7 +3330,7 @@ def lm_phase(torch, dev, seed, launches, card, reset_counts, read_counts):
     log(f"phase 16 took {time.perf_counter() - phase_t0:.1f} s; {card}")
     return {"shape": f"({SEL_BATCH}, {d}) x ({d}, {d})", "max_abs_err": k1_err, "ms": k1_ms,
             "plain_ms": k1_plain, "library_ms": k1_lib, "bound_ms": k1_bound,
-            "bound_by": k1_by}
+            "bound_by": k1_by, "oracle_ms": k1_oracle}
 
 
 def train_phase(torch, dev, seed, launches, card, reset_counts, read_counts):
@@ -4729,8 +4745,16 @@ def launch_phase(torch, dev, seed, launches, card, reset_counts, read_counts):
             by_base[trace.kernel_base_name(name)] += c["count"]
             base_us[trace.kernel_base_name(name)] += c["device_us"]
         found = []
+        # K1's tiled calls: each ran tiled_plan's chunks (>= 1) products, and
+        # a fold after each
+        products = by_base["leverage_tiled_kernel"]
+        tiled = want.get("leverage", 0) - sum(by_base[k] for k in KERNEL_NAMES["leverage"][0])
+        if by_base["leverage_fold_kernel"] != products or not (
+                0 <= tiled <= products and (tiled == 0) == (products == 0)):
+            fail(f"launch (b) {task}: {products} K1 tiled products and "
+                 f"{by_base['leverage_fold_kernel']} folds for {tiled} counted tiled launches")
         for wrapper, (first, second) in KERNEL_NAMES.items():
-            n1 = sum(by_base[k] for k in first)
+            n1 = sum(by_base[k] for k in first) + (tiled if wrapper == "leverage" else 0)
             if n1 != want.get(wrapper, 0):
                 fail(f"launch (b) {task}: {n1} kernels of {wrapper} in the trace, "
                      f"{want.get(wrapper, 0)} counted launches")
@@ -4887,13 +4911,21 @@ def main() -> None:
     for n, s, xb, mb in [(1, 5, (), ()), (7, 1, (), ()), (129, 31, (3,), ()),
                          (1001, 64, (), (2,)), (4097, 33, (2,), (2,)),
                          (513, 238, (), ()),
-                         # the wide kernel, past M whole in shared memory
+                         # the tiled kernel, past M whole in shared memory:
+                         # s % 4 != 0 (4-byte copies), batched X and M, the
+                         # selector's width, two scratch chunks
                          (4097, 239, (), ()), (1001, 256, (2,), ()),
-                         (777, 512, (), ())]:
+                         (777, 512, (), ()), (1001, 512, (), (3,)),
+                         (300, 1001, (), ()), (256, 2048, (), ()),
+                         (17_000, 1001, (), ()), (1, 300, (55_189,), ())]:
         Xs, Ms = randn(*xb, n, s), psd(mb, s)
         check_kernel(torch, "leverage", klev.leverage, klev.plain, (Xs, Ms),
                      lev_scale, LEVERAGE_TOL)
         check_k1_oracle(torch, klev, Xs, Ms)
+    if not (klev.tiled_plan(1, 17_000, 1001).chunks == 2
+            and klev.tiled_plan(55_189, 1, 300).chunks == 2):
+        fail("leverage: the sweep's (17000, 1001) no longer spans two scratch chunks, or "
+             "its 55,189 parties at s = 300 two batch groups")
     # K1's edges: the register kernel at s = 1, 31, 30 and 28 (a warp's rows
     # starting in 32, 16 and 8 banks), s = 8, 16, 24, 32 and 33 (the
     # shared-memory kernel), a short last tile over many CTAs, parties whose
@@ -5196,6 +5228,13 @@ def main() -> None:
                  lambda: klev.leverage(Xw, Mw), lambda: klev.plain(Xw, Mw),
                  lambda: torch.einsum("ns,sr,nr->n", Xw, Mw, Xw),
                  4 * (N_WIDE * sw + sw * sw + N_WIDE), 2 * N_WIDE * (sw * sw + sw), levw_err)
+    # K1 past s = 238 is the tiled kernel: bit for bit its oracle here too, and
+    # the oracle's own time beside it (3 launches: 15 ms each)
+    check_k1_oracle(torch, klev, Xw, Mw)
+    variants["leverage"][-1]["oracle_ms"] = cuda_ms(
+        torch, lambda: klev._launch(Xw, Mw, wide=True), iters=3, warmup=1)
+    log(f"  leverage {tuple(Xw.shape)}: the wide kernel (the oracle) "
+        f"{variants['leverage'][-1]['oracle_ms']:.4f} ms")
     for k, dk in [(2000, 64), (10, 2048)]:
         Xg, Cg = randn(N_WIDE, dk), randn(k, dk)
         wg = torch.rand(N_WIDE, generator=gen).to(dev)

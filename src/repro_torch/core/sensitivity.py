@@ -49,7 +49,7 @@ def ridge_leverage_scores(X: torch.Tensor, ridge: float = 1e-4,
 
     ``use_kernel=False`` (the reference's default) is the plain row-wise
     quadratic form; ``use_kernel=True`` is the ``leverage`` kernel, which at
-    a width past 238 launches its wide variant."""
+    a width past 238 launches its tiled product and fold."""
     f32 = X.to(torch.float32)
     dl = f32.shape[-1]
     G = f32.T @ f32 + ridge * torch.eye(dl, dtype=torch.float32, device=f32.device)

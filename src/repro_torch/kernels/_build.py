@@ -38,6 +38,8 @@ _vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "repro_leverage": ((_vp, _vp, _vp, _i, _ll, _i, _ll, _ll, _vp), _i),
     "repro_leverage_wide": ((_vp, _vp, _vp, _i, _ll, _i, _i, _ll, _ll, _vp), _i),
+    "repro_leverage_tiled": ((_vp, _vp, _vp, _vp, _i, _ll, _i, _i, _ll, _ll, _ll, _vp),
+                             _i),
     "repro_weighted_gram": ((_vp, _vp, _vp, _vp, _i, _ll, _i, _ll, _ll, _ll,
                              _vp), _i),
     "repro_kmeans_assign": ((_vp, _vp, _vp, _vp, _i, _ll, _i, _i, _i, _ll, _ll,

@@ -311,6 +311,68 @@ def test_leverage_kernel_choice_by_width():
         klev.wide_rows(58_105)
 
 
+@pytest.mark.parametrize("s,kernel", [
+    (1, "leverage_reg_kernel"), (31, "leverage_reg_kernel"), (8, "leverage_kernel"),
+    (32, "leverage_kernel"), (33, "leverage_kernel"), (238, "leverage_kernel"),
+    (239, "leverage_tiled_kernel"), (2048, "leverage_tiled_kernel"),
+    (58_105, "leverage_tiled_kernel")])
+def test_leverage_route_by_width(s, kernel):
+    """s <= 238 keeps the register and shared-memory kernels; every wider s
+    takes the tiled product (which has no width limit of its own); the wide
+    kernel runs only as the oracle."""
+    assert klev.kernel_for(s) == kernel
+    assert klev.kernel_for(s, wide=True) == "leverage_wide_kernel"
+
+
+@pytest.mark.parametrize("n", [1, 256, 20_001, 463_715])
+@pytest.mark.parametrize("s", [239, 256, 512, 1001, 2048])
+def test_leverage_tiled_plan(s, n):
+    """The tiled kernel's plan: T's width s rounded up to 8, the chunks
+    covering n in whole 64-row tiles where n is cut, and the scratch never
+    above TILED_SCRATCH_FLOATS."""
+    plan = klev.tiled_plan(1, n, s)
+    sp = -(-s // 8) * 8
+    rows = plan.chunk_rows
+    assert plan.sp == sp and plan.batches == 1
+    assert plan.scratch_floats == rows * sp <= klev.TILED_SCRATCH_FLOATS
+    assert rows * plan.chunks >= n > rows * (plan.chunks - 1)
+    if plan.chunks == 1:
+        assert rows == n
+    else:
+        assert rows % 64 == 0 and (rows + 64) * sp > klev.TILED_SCRATCH_FLOATS
+    want = {(2048, 256): (256, 1), (512, 20_001): (20_001, 1), (2048, 463_715): (8192, 57),
+            (1001, 20_001): (16_640, 2)}
+    if (s, n) in want:
+        assert (rows, plan.chunks) == want[(s, n)]
+
+
+@pytest.mark.parametrize("B,n,s,batches,rows", [
+    (3, 463_715, 2048, 3, 2688), (3, 20_001, 512, 3, 10_880), (2, 257, 256, 2, 257),
+    (70_000, 5, 2048, 8192, 1), (70_000, 1, 239, 65_535, 1),
+    # the card's batch-group case: the cap binds at 55,188, the grid at 65,535
+    (55_189, 1, 300, 55_188, 1), (65_536, 1, 240, 65_535, 1)])
+def test_leverage_tiled_plan_batched(B, n, s, batches, rows):
+    """Batch entries share a chunk's scratch, up to the grid's 65,535 along
+    z and the cap; the C entry runs the rest in later groups."""
+    plan = klev.tiled_plan(B, n, s)
+    assert (plan.batches, plan.chunk_rows) == (batches, rows)
+    assert plan.scratch_floats == batches * rows * plan.sp <= klev.TILED_SCRATCH_FLOATS
+    assert plan.chunks == -(-n // rows) * -(-B // batches)
+
+
+@pytest.mark.parametrize("B,n,s,match", [
+    (0, 5, 300, "B, n, s >= 1"), (1, 0, 300, "B, n, s >= 1"), (1, 5, 0, "B, n, s >= 1"),
+    (1, 5, 65_535 * 64 + 1, "takes s up to 4194240")])
+def test_leverage_tiled_plan_rejects(B, n, s, match):
+    with pytest.raises(ValueError, match=match):
+        klev.tiled_plan(B, n, s)
+
+
+def test_leverage_kernel_for_rejects_an_empty_width():
+    with pytest.raises(ValueError, match="s >= 1"):
+        klev.kernel_for(0)
+
+
 # --------------------------------------------------------------------------
 # On the card: the CUDA kernels against their plain versions
 # --------------------------------------------------------------------------
@@ -324,7 +386,11 @@ def _cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize("xb,mb,n,d", LEV_CASES + [
     ((), (), 4097, 238), ((3,), (3,), 100_003, 31), ((), (), 4097, 239),
-    ((2,), (), 1001, 256), ((), (), 777, 512)])
+    ((2,), (), 1001, 256), ((), (), 777, 512),
+    # the tiled kernel: one row, batched X, batched M, s % 4 != 0, the
+    # selector's width, two scratch chunks
+    ((), (), 1, 239), ((2,), (), 257, 256), ((), (3,), 1001, 512), ((), (), 300, 1001),
+    ((), (), 256, 2048), ((), (), 17_000, 1001)])
 def test_leverage_kernel_matches_plain(xb, mb, n, d):
     dev = _cuda()
     X, M = (torch.from_numpy(a).to(dev) for a in _lev_inputs(n + d, xb, mb, n, d))
@@ -453,13 +519,20 @@ def test_kmeans_assign_equals_its_global_variant(xb, cb, wk, n, k, d):
     ((3,), (3,), 4097, 32, None), ((), (), 300, 33, None),
     ((3,), (), 1001, 30, None), ((), (3,), 1001, 28, None),
     ((), (), 513, 238, None), ((3,), (3,), 1001, 31, "row"),
-    ((3,), (3,), 1001, 31, "M")])
+    ((3,), (3,), 1001, 31, "M"),
+    ((), (), 1, 239, None), ((2,), (), 257, 256, None), ((), (3,), 1001, 512, None),
+    ((), (), 300, 1001, None), ((), (), 256, 2048, None), ((), (), 1001, 512, "row"),
+    ((), (), 1001, 512, "M"), ((), (), 17_000, 1001, None)])
 def test_leverage_equals_its_wide_variant(xb, mb, n, d, zero):
     """K1's kernel for each width (the register kernel to s = 31, M in
-    shared memory at s = 8, 24, 32, 33 and up to 238) gives the wide
+    shared memory at s = 8, 24, 32, 33 and up to 238, the tiled product
+    past it, over two scratch chunks at (17000, 1001)) gives the wide
     kernel's output bit for bit, also for an all-zero row and an all-zero M,
     and two launches agree."""
     dev = _cuda()
+    if d > klev.SHARED_M_WIDTH:
+        assert klev.kernel_for(d) == "leverage_tiled_kernel"
+        assert klev.tiled_plan(1, n, d).chunks == (2 if n == 17_000 else 1)
     X, M = _lev_inputs(n + d, xb, mb, n, d)
     if zero == "row":
         X[..., n // 2, :] = 0.0
@@ -471,6 +544,41 @@ def test_leverage_equals_its_wide_variant(xb, mb, n, d, zero):
     oracle = klev._launch(Xt, Mt, wide=True)
     assert torch.equal(got, again)
     assert torch.equal(got, oracle)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("xb,mb,n,d", [((), (), 256, 2048), ((), (3,), 1001, 512),
+                                       ((2,), (), 300, 1001)])
+def test_leverage_tiled_kernel_on_a_column_major_M(xb, mb, n, d):
+    """A column-major M (as torch.linalg.inv returns it), copied row-major
+    by the wrapper, gives the bits of the same M contiguous, and the wide
+    kernel's."""
+    dev = _cuda()
+    X, M = (torch.from_numpy(a).to(dev) for a in _lev_inputs(n + d + 1, xb, mb, n, d))
+    Mcol = M.transpose(-1, -2).contiguous().transpose(-1, -2)
+    assert torch.equal(Mcol, M) and not Mcol.is_contiguous()
+    got = klev.leverage(X, Mcol)
+    assert torch.equal(got, klev.leverage(X, M))
+    assert torch.equal(got, klev._launch(X, Mcol, wide=True))
+
+
+@pytest.mark.gpu
+def test_leverage_tiled_kernel_over_batch_groups():
+    """55,189 parties of one row at s = 300 fill the scratch's cap with
+    55,188 a group: the C entry's second group gives the wide kernel's bits
+    and the plain version's values, in one counted launch."""
+    dev = _cuda()
+    B, n, d = 55_189, 1, 300
+    plan = klev.tiled_plan(B, n, d)
+    assert (plan.batches, plan.chunks) == (55_188, 2)
+    X, M = (torch.from_numpy(a).to(dev) for a in _lev_inputs(B + d, (B,), (), n, d))
+    before = klev.leverage.launches
+    got = klev.leverage(X, M)
+    assert klev.leverage.launches == before + 1
+    assert torch.equal(got, klev._launch(X, M, wide=True))
+    want = klev.plain(X, M)
+    scale = want.abs().max().item()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * max(scale, 1e-30))
 
 
 @pytest.mark.gpu
