@@ -634,13 +634,14 @@ ALLOC_SPLIT = 1 << 20    # ... and keeps a large block whole when less than this
 # each kernel wrapper's __global__ kernels: one counted launch runs one of the
 # first set, then each kernel of the second (K3's and K2's reduce stages); a
 # counted K1 launch past s = 238 runs none of them but leverage_tiled_kernel
-# and leverage_fold_kernel once a scratch chunk (tiled_plan's chunks), and the
+# and leverage_fold_kernel once a scratch chunk (tiled_plan's chunks), and a
+# K2 launch on its general route kau_fold_kernel after kau_assign_kernel; the
 # census holds those apart (launch_phase)
 KERNEL_NAMES = {
     "leverage": ({"leverage_reg_kernel", "leverage_kernel", "leverage_wide_kernel"}, ()),
     "weighted_gram": ({"wgram_partial_kernel"}, ("wgram_reduce_kernel",)),
-    "kmeans_assign_update": ({"kau_partial_kernel", "kau_partial_global_kernel"},
-                             ("kau_reduce_kernel",)),
+    "kmeans_assign_update": ({"kau_partial_kernel", "kau_assign_kernel",
+                              "kau_partial_global_kernel"}, ("kau_reduce_kernel",)),
     "kmeans_assign": ({"kmeans_assign_fast_kernel", "kmeans_assign_global_kernel"}, ()),
     "categorical": ({"categorical_row_kernel", "categorical_tile_kernel"}, ()),
 }
@@ -867,28 +868,33 @@ def check_kmeans(torch, ref, name, kern, plain, X, C, w=None, fused=False,
 
 
 def check_k2_oracle(torch, kkau, X, C, w=None, timed=False):
-    """K2's fast stage 1 against its global variant on the same input: the
-    five outputs equal bit for bit (both sum every entry in the same order,
-    kmeans_assign_update.cu's bit contract).  With ``timed``, also the CUDA
-    event times of both, returned as (fast ms, global ms)."""
+    """K2's stage 1 on the route a user's call takes (fast, or general past
+    the shared-memory layout) against its first global variant, the oracle,
+    on the same input: the five outputs equal bit for bit (both sum every
+    entry in the same order, kmeans_assign_update.cu's bit contract).  With
+    ``timed``, also the CUDA event times of both, returned as (route ms,
+    oracle ms)."""
     fast = kkau.kmeans_assign_update(X, C, w)
     glob = kkau._launch(X, C, w, global_variant=True)
     torch.cuda.synchronize()
     shapes = " ".join(str(tuple(a.shape)) for a in (X, C, w) if a is not None)
-    layout = kkau.layout(C.shape[-2], X.shape[-1])
+    k, d = C.shape[-2], X.shape[-1]
+    route = kkau.route_for(k, d)
+    how = (f"layout {kkau.layout(k, d)}" if route == "fast"
+           else f"plan {tuple(kkau.general_plan(1, X.shape[-2], k, d))}")
     bad = [nm for nm, a, b in zip(("assign", "d2", "csum", "wsum", "ccost"), fast, glob)
            if not torch.equal(a, b)]
     if bad:
-        fail(f"kmeans_assign_update {shapes}: the fast kernel's {bad} differ from "
-             f"the global variant's (layout {layout})")
-    msg = (f"  kmeans_assign_update {shapes}: fast kernel (layout {layout}) == "
-           f"global variant, bit for bit")
+        fail(f"kmeans_assign_update {shapes}: the {route} route's {bad} differ from "
+             f"the oracle's ({how})")
+    msg = (f"  kmeans_assign_update {shapes}: {route} route ({how}) == oracle, "
+           f"bit for bit")
     if not timed:
         log(msg)
         return None
     times = (cuda_ms(torch, lambda: kkau.kmeans_assign_update(X, C, w)),
              cuda_ms(torch, lambda: kkau._launch(X, C, w, global_variant=True)))
-    log(f"{msg}; fast {times[0]:.4f} ms, global {times[1]:.4f} ms")
+    log(f"{msg}; {route} {times[0]:.4f} ms, oracle {times[1]:.4f} ms")
     return times
 
 
@@ -4753,6 +4759,10 @@ def launch_phase(torch, dev, seed, launches, card, reset_counts, read_counts):
                 0 <= tiled <= products and (tiled == 0) == (products == 0)):
             fail(f"launch (b) {task}: {products} K1 tiled products and "
                  f"{by_base['leverage_fold_kernel']} folds for {tiled} counted tiled launches")
+        # K2's general route: one fold after each assign
+        if by_base["kau_fold_kernel"] != by_base["kau_assign_kernel"]:
+            fail(f"launch (b) {task}: {by_base['kau_fold_kernel']} K2 folds for "
+                 f"{by_base['kau_assign_kernel']} general-route assigns")
         for wrapper, (first, second) in KERNEL_NAMES.items():
             n1 = sum(by_base[k] for k in first) + (tiled if wrapper == "leverage" else 0)
             if n1 != want.get(wrapper, 0):
@@ -4818,6 +4828,7 @@ def main() -> None:
     args = ap.parse_args()
 
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         fail("torch finds no CUDA device; this check runs on the card only")
@@ -4846,6 +4857,7 @@ def main() -> None:
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref as kref
     from repro_torch.kernels import weighted_gram as kwg
+    from repro_torch.launch import trace
 
     from repro_torch.kernels.ops import COUNTED as counted
 
@@ -5154,9 +5166,9 @@ def main() -> None:
         if k > 2:
             Cs[..., 2, :] = Cs[..., 0, :]
         check_k4_oracle(torch, kka, Xs, Cs)
-    # past the shared-memory layout the global variants run, with the same
-    # assignments as the plain version
-    # (K4 keeps its smaller layout at k = kmax + 1, d = 64)
+    # past the shared-memory layout K2 takes its general route, bit for bit
+    # its oracle, and K4 its global variant, with the same assignments as the
+    # plain version (K4 keeps its smaller layout at k = kmax + 1, d = 64)
     for n, k, dk, xb, cb, wk, k4 in [(1001, kmax + 1, 64, (), (), "w", 128),
                                     (N_WIDE, 2000, 64, (), (), None, kka.GLOBAL),
                                     (N_WIDE, 10, 2048, (), (), "w", kka.GLOBAL),
@@ -5172,18 +5184,19 @@ def main() -> None:
                      kka.plain, Xs, Cs, exact=True)
         check_kmeans(torch, kref, "kmeans_assign_update", kkau.kmeans_assign_update,
                      kkau.plain, Xs, Cs, w, fused=True, exact=True)
+        check_k2_oracle(torch, kkau, Xs, Cs, w)
         if k4 != kka.GLOBAL:
             check_k4_oracle(torch, kka, Xs, Cs)
-            # K4's shared-memory layout and K2's global variant: the same bits
+            # K4's shared-memory layout and K2's general route: the same bits
             same = all(torch.equal(a, b) for a, b in zip(
                 kka.kmeans_assign(Xs, Cs), kkau.kmeans_assign_update(Xs, Cs, w)[:2]))
             if not same:
-                fail(f"(k, d) = ({k}, {dk}): K2's global variant and K4's "
+                fail(f"(k, d) = ({k}, {dk}): K2's general route and K4's "
                      f"shared-memory kernel assign differently")
-            log(f"  (k, d) = ({k}, {dk}): K2's global variant gives K4's "
+            log(f"  (k, d) = ({k}, {dk}): K2's general route gives K4's "
                 f"shared-memory assign and d2 bit for bit")
     log(f"  k*d limit: k={kmax} at d=64 takes the shared-memory layout, "
-        f"k={kmax + 1} and d=2048 the global variants")
+        f"k={kmax + 1} and d=2048 K2's general route and K4's global variant")
 
     n, B, s = kb.shape[1], kb.shape[0], kb.shape[2]
     kau_ms = cuda_ms(torch, lambda: kkau.kmeans_assign_update(kb, Cb))
@@ -5235,24 +5248,58 @@ def main() -> None:
         torch, lambda: klev._launch(Xw, Mw, wide=True), iters=3, warmup=1)
     log(f"  leverage {tuple(Xw.shape)}: the wide kernel (the oracle) "
         f"{variants['leverage'][-1]['oracle_ms']:.4f} ms")
-    for k, dk in [(2000, 64), (10, 2048)]:
-        Xg, Cg = randn(N_WIDE, dk), randn(k, dk)
-        wg = torch.rand(N_WIDE, generator=gen).to(dev)
+    # K2's general route at three shapes: two at N_WIDE rows, and the full-data
+    # baseline fit's rows at k = 300 (a vkmc fit with 300 clusters), centers
+    # drawn from the rows; each bit for bit the oracle, whose time is kept
+    # beside it (3 launches) with its distance alone (K4's global variant on
+    # the same input: the oracle's first phase, the rest its fold and stage 2)
+    Cw = X_full[torch.randperm(N_FULL, generator=gen)[:300].to(dev)].contiguous()
+    for k, dk in [(2000, 64), (10, 2048), (300, d)]:
+        if k == 300:
+            Xg, Cg, wg, wname = X_full, Cw, ones, " w=ones"
+        else:
+            Xg, Cg, wname = randn(N_WIDE, dk), randn(k, dk), " w"
+            wg = torch.rand(N_WIDE, generator=gen).to(dev)
+        n = Xg.shape[0]
         shape = f"{tuple(Xg.shape)} x {tuple(Cg.shape)}"
-        err = check_kmeans(torch, kref, "kmeans_assign", kka.kmeans_assign,
-                           kka.plain, Xg, Cg, exact=True)
-        time_variant("kmeans_assign", shape, lambda: kka.kmeans_assign(Xg, Cg),
-                     lambda: kka.plain(Xg, Cg), lambda: torch.cdist(Xg, Cg).min(-1),
-                     kmeans_bytes(1, N_WIDE, k, dk, False, 0, False),
-                     kmeans_flops(N_WIDE, k, dk, False), err)
+        if kka.assign_layout(k, dk) == kka.GLOBAL:
+            err = check_kmeans(torch, kref, "kmeans_assign", kka.kmeans_assign,
+                               kka.plain, Xg, Cg, exact=True)
+            time_variant("kmeans_assign", shape, lambda: kka.kmeans_assign(Xg, Cg),
+                         lambda: kka.plain(Xg, Cg), lambda: torch.cdist(Xg, Cg).min(-1),
+                         kmeans_bytes(1, n, k, dk, False, 0, False),
+                         kmeans_flops(n, k, dk, False), err)
         err = check_kmeans(torch, kref, "kmeans_assign_update", kkau.kmeans_assign_update,
                            kkau.plain, Xg, Cg, wg, fused=True, exact=True)
-        time_variant("kmeans_assign_update", shape + " w",
+        check_k2_oracle(torch, kkau, Xg, Cg, wg)
+        time_variant("kmeans_assign_update", shape + wname,
                      lambda: kkau.kmeans_assign_update(Xg, Cg, wg),
                      lambda: kkau.plain(Xg, Cg, wg),
                      lambda: library_assign_update(torch, Xg, Cg, wg),
-                     kmeans_bytes(1, N_WIDE, k, dk, False, N_WIDE, True),
-                     kmeans_flops(N_WIDE, k, dk, True), err)
+                     kmeans_bytes(1, n, k, dk, False, n, True),
+                     kmeans_flops(n, k, dk, True), err)
+        rec = variants["kmeans_assign_update"][-1]
+        rec["oracle_ms"] = cuda_ms(
+            torch, lambda: kkau._launch(Xg, Cg, wg, global_variant=True), iters=3, warmup=1)
+        rec["oracle_distance_ms"] = cuda_ms(
+            torch, lambda: kka._launch(Xg, Cg, global_variant=True), iters=3, warmup=1)
+        # the route's time by kernel: its assign, fold and stage 2
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                kkau.kmeans_assign_update(Xg, Cg, wg)
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            stage = {"kau_assign_kernel": "assign_ms", "kau_fold_kernel": "fold_ms",
+                     "kau_reduce_kernel": "reduce_ms"}.get(trace.kernel_base_name(e.key))
+            if stage and e.device_time_total > 0:
+                rec[stage] = e.device_time_total / e.count / 1e3
+        if not all(key in rec for key in ("assign_ms", "fold_ms", "reduce_ms")):
+            fail(f"kmeans_assign_update {shape}: the profiler saw no general route's "
+                 f"three kernels ({sorted(rec)})")
+        log(f"  kmeans_assign_update {shape}{wname}: the oracle {rec['oracle_ms']:.4f} ms, "
+            f"its distance alone {rec['oracle_distance_ms']:.4f} ms; the general route "
+            f"{rec['ms']:.4f} ms (assign {rec['assign_ms']:.4f}, fold {rec['fold_ms']:.4f}, "
+            f"stage 2 {rec['reduce_ms']:.4f}), plan {tuple(kkau.general_plan(1, n, k, dk))}")
 
     lib_kau = "cdist(X, C).min(-1) + index_add_ x3"
     for nm, shape, km, pm, lm, lname, bd, by in [
@@ -5271,7 +5318,7 @@ def main() -> None:
 
     # the checks' own large tensors go before the main path, so its
     # peak_bytes counts the path's memory and the dataset only
-    del Xw, Mw, Xg, Cg, wg, Xs, Cs, Ms, w, lg, idx, lg3, want, k5_got
+    del Xw, Mw, Xg, Cg, Cw, wg, Xs, Cs, Ms, w, lg, idx, lg3, want, k5_got
     torch.cuda.empty_cache()
 
     # ---- 4. main path: vrlr ---------------------------------------------------

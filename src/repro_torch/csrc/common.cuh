@@ -47,11 +47,15 @@ inline cudaError_t repro_persistent_ctas(Kernel kernel, int threads,
 }
 
 // Asynchronous copies from global to shared memory, in completion groups
-// (the kernels' tile rings): 4 bytes through L1, or 16 bytes (both addresses
-// 16-byte aligned) around it.
+// (the kernels' tile rings): 4 or 8 bytes through L1, or 16 bytes (both
+// addresses 16-byte aligned) around it.
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async8(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
 }
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));

@@ -37,10 +37,14 @@
 // order across tile boundaries; w = None is w_i = 1.f.  The distance to each
 // center is kmeans_common.cuh's assign_row: fmaf chains over j = 0..d-1,
 // (x2 + cn) - 2 t, the argmin at the first index of the smallest unclamped
-// value, then the minimum clamped.  kau_partial_global_kernel computes
-// exactly these chains with its operands in global memory: it is the oracle
-// that chip_smoke.py and the gpu tests hold the fast kernel to, bit for bit
-// (kernels/kmeans_assign_update.py::_launch with global_variant=True).
+// value, then the minimum clamped.  Stage 1 has three kernels that keep
+// this contract: kau_partial_kernel (the fast route, where C, the sums and a
+// row tile fit in shared memory), kau_assign_kernel + kau_fold_kernel (the
+// general route, everywhere else) and kau_partial_global_kernel, the first
+// general variant, which reads its operands from global memory one row a
+// thread.  That one is the oracle that chip_smoke.py and the gpu tests hold
+// both routes to, bit for bit (kernels/kmeans_assign_update.py::_launch with
+// global_variant=True); no user's call runs it.
 //
 // The fast stage 1, kau_partial_kernel, 256 threads (8 warps) a CTA:
 // - C transposed, ||c||^2 (kmeans_common.cuh's load_centers) and the CTA's
@@ -77,8 +81,16 @@
 // The shared-memory floats per tile row equal the earlier layout's (three
 // per-row arrays became two row columns and one int), so every (k, d) that
 // kept a shared-memory layout before keeps one: k = 424 at d = 64.  A (k, d)
-// whose layout does not fit runs kau_partial_global_kernel as stage 1
-// instead, then the same stage 2.
+// whose layout does not fit takes the general route below, then the same
+// stage 2.
+//
+// The general route's bound on the H100: its product is 2 n k d fp32
+// operations, so at (20001, 64) x (2000, 64) it is bound by them (5.2 GFLOP,
+// 78 us at 67 TFLOP/s), and at (20001, 2048) x (10, 2048) by reading X
+// (164 MB, 49 us at 3.35 TB/s), which its fold reads a second time.  The
+// product is a register-tiled fp32 GEMM without tensor cores (TF32 would
+// round x and c and break the bits); its fold is O(n d), where the first
+// general variant's rescan of every tile for every entry was O(n k d).
 #include "kmeans_common.cuh"
 
 namespace {
@@ -476,6 +488,408 @@ __global__ void kau_reduce_kernel(const float* __restrict__ part,
     ccost[b * k + (e - kd - k)] = s;
 }
 
+
+// ---- The general route: (k, d) whose fast layout does not fit --------------
+//
+// Stage 1a, kau_assign_kernel: the distances as a tiled fp32 product over its
+// own grid (row tiles, center groups, B), rows being independent.  A CTA of
+// 256 threads takes 128 rows (256 at TX = 1) against one group of center
+// tiles of 8 TX centers (TX = 1, 2, 4 or 8, the narrowest that covers k up
+// to 64; kernels/kmeans_assign_update.py::general_plan).  X's and C's tiles
+// move through shared memory in chunks of KC columns, a ring of two, row-major
+// at the stride KC + 4, copied 16, 8 or 4 bytes at a time as d and the bases
+// allow; what lies past n, k or d is zero.  Thread (ty, tx) keeps t for its
+// TM rows ty + TY i and its 8 centers tx + TX l in registers, each t one fmaf
+// chain over ascending j across the chunks; a zero past d adds fmaf(0, 0, t),
+// which keeps t's value (it can only turn -0 into +0, and (x2 + cn) - 2 t is
+// the same for both).  x2 (on the group's first center tile) and ||c||^2
+// (once a center tile) are the same chains, summed from the staged chunks by
+// one thread a row and a center.  After each center tile every thread folds
+// its distances into its rows' running minima in ascending center order with
+// the scan's rule (center 0 always, then strictly smaller values only); at
+// the end the TX threads of a row combine theirs by shuffles, keeping the
+// smaller value and, on a tie, the smaller index (kau_takes): the sequential
+// scan's first index of the smallest value, a NaN winning only at center 0.
+// The group's unclamped (minimum, index) per row goes to pv / pa.
+// Stage 1b, kau_fold_kernel: grid (P, B), the fast route's row split.  A CTA
+// takes its range in tiles of 256 rows in row order: it combines the groups'
+// minima into assign and the clamped d2, sorts the tile's (cluster, row) keys
+// (a bitonic sort, so any k) and cuts them into one segment per cluster
+// present, its rows in row order.  X's tile moves through shared memory in
+// chunks of FC columns (a ring of two); a warp takes a segment, and lane c
+// the chains of columns c and c + 32, each fmaf over the segment's rows, added
+// to the CTA's partial in shared memory when its k d + 2 k floats fit beside
+// the ring, else in its slice of the scratch.  So each entry takes the same
+// rows in the same order as in kau_partial_global_kernel: the same partials,
+// and stage 2 is unchanged.  The work is O(n d), not O(n k d).
+
+constexpr int kGenThreads = 256;
+constexpr int kFoldRows = 256;   // rows of a fold tile: one key per thread
+
+__host__ __device__ constexpr int gen_rows(int tx) { return tx == 1 ? 256 : 128; }
+
+// Whether the candidate (v, a) replaces the minimum so far (bv, ba) (ba = -1:
+// none yet).  A NaN at center 0 is the scan's answer whatever follows; other
+// NaNs never win; otherwise the smaller value, then the smaller index.
+__device__ __forceinline__ bool kau_takes(float bv, int ba, float v, int a) {
+  if (a == 0 && isnan(v)) return true;
+  if (ba == 0 && isnan(bv)) return false;
+  return v < bv || (v == bv && (unsigned)a < (unsigned)ba);
+}
+
+// Copy VW floats (4, 2 or 1) from global to shared memory, or store zeros.
+template <int VW>
+__device__ __forceinline__ void copy_vec(float* dst, const float* src) {
+  if (VW == 4) cp_async16(dst, src);
+  else if (VW == 2) cp_async8(dst, src);
+  else cp_async4(dst, src);
+}
+template <int VW>
+__device__ __forceinline__ void zero_vec(float* dst) {
+  if (VW == 4) *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+  else if (VW == 2) *reinterpret_cast<float2*>(dst) = make_float2(0.f, 0.f);
+  else *dst = 0.f;
+}
+
+// Stage KC columns from j0 of `rows` rows of a row-major (., d) source that
+// starts at src into dst at the stride KC + 4, VW floats a copy; rows from
+// `valid` on and columns from d on are zeros.  Each thread keeps one column
+// group and walks the rows, so its source pointer only advances.
+template <int VW, int KC>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, int rows,
+                                           long long valid, int d, int j0,
+                                           int tid) {
+  constexpr int VPR = KC / VW, RPI = kGenThreads / VPR;
+  const int jv = (tid % VPR) * VW, j = j0 + jv;
+  const bool in_d = j < d;
+  int row = tid / VPR;
+  const float* p = src + (long long)row * d + j;
+  for (; row < rows; row += RPI, p += (long long)RPI * d) {
+    float* q = dst + row * (KC + 4) + jv;
+    if (in_d && row < valid)
+      copy_vec<VW>(q, p);
+    else
+      zero_vec<VW>(q);
+  }
+}
+
+template <int TX, int KC>
+__global__ void __launch_bounds__(kGenThreads) kau_assign_kernel(
+    const float* __restrict__ X, const float* __restrict__ C,
+    float* __restrict__ pv, int* __restrict__ pa, long long n, int d, int k,
+    int tiles_per_group, int vec, long long x_bstride, long long c_bstride) {
+  constexpr int BM = gen_rows(TX), BN = 8 * TX;
+  constexpr int TY = kGenThreads / TX, TM = BM / TY, LD = KC + 4;
+  constexpr int STAGE = (BM + BN) * LD;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* x2s = sm + 2 * STAGE;   // [BM]
+  float* cns = x2s + BM;         // [BN], +inf past k
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+  const long long r0 = (long long)blockIdx.x * BM;
+  const int g = blockIdx.y, G = gridDim.y;
+  const long long b = blockIdx.z;
+  const float* Xt = X + b * x_bstride + r0 * d;
+  const float* Cb = C + b * c_bstride;
+  const int nct = (k + BN - 1) / BN;
+  const int ct0 = g * tiles_per_group;
+  const int ct1 = min(nct, ct0 + tiles_per_group);
+  const int nch = (d + KC - 1) / KC;
+  const int nsteps = (ct1 - ct0) * nch;
+
+  // step s: center tile ct0 + s / nch, columns from KC (s % nch)
+  auto issue = [&](int s) {
+    float* xs = sm + (s & 1) * STAGE;
+    const int c0 = (ct0 + s / nch) * BN, j0 = (s % nch) * KC;
+    const float* Ct = Cb + (long long)c0 * d;
+    if (vec == 4) {
+      stage_rows<4, KC>(xs, Xt, BM, n - r0, d, j0, tid);
+      stage_rows<4, KC>(xs + BM * LD, Ct, BN, k - c0, d, j0, tid);
+    } else if (vec == 2) {
+      stage_rows<2, KC>(xs, Xt, BM, n - r0, d, j0, tid);
+      stage_rows<2, KC>(xs + BM * LD, Ct, BN, k - c0, d, j0, tid);
+    } else {
+      stage_rows<1, KC>(xs, Xt, BM, n - r0, d, j0, tid);
+      stage_rows<1, KC>(xs + BM * LD, Ct, BN, k - c0, d, j0, tid);
+    }
+    cp_async_commit();
+  };
+
+  float t[TM][8];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int l = 0; l < 8; ++l) t[i][l] = 0.f;
+  // the thread's running minimum of each of its rows over its centers so
+  // far, in ascending center order (-1: none yet)
+  float bv[TM];
+  int ba[TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    bv[i] = __int_as_float(0x7f800000);
+    ba[i] = -1;
+  }
+  float x2 = 0.f, cn = 0.f;   // thread tid's row and center chains
+
+  issue(0);
+  for (int s = 0; s < nsteps; ++s) {
+    cp_async_wait<0>();
+    __syncthreads();   // step s has landed; every thread is done with s - 1
+    if (s + 1 < nsteps) issue(s + 1);
+    const float* xs = sm + (s & 1) * STAGE;
+    const float* cs = xs + BM * LD;
+    const bool first_tile = s < nch;
+#pragma unroll
+    for (int q = 0; q < KC / 4; ++q) {
+      float4 xv[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        xv[i] = *reinterpret_cast<const float4*>(xs + (ty + TY * i) * LD + 4 * q);
+#pragma unroll
+      for (int l = 0; l < 8; ++l) {
+        const float4 cv = *reinterpret_cast<const float4*>(cs + (tx + TX * l) * LD + 4 * q);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          t[i][l] = fmaf(xv[i].x, cv.x, t[i][l]);
+          t[i][l] = fmaf(xv[i].y, cv.y, t[i][l]);
+          t[i][l] = fmaf(xv[i].z, cv.z, t[i][l]);
+          t[i][l] = fmaf(xv[i].w, cv.w, t[i][l]);
+        }
+      }
+    }
+    // the chains of ||c||^2 and (on the group's first tile) x2, outside the
+    // product's loop so that it stays one block of straight-line code
+    if (tid < BN) {
+#pragma unroll
+      for (int q = 0; q < KC / 4; ++q) {
+        const float4 c = *reinterpret_cast<const float4*>(cs + tid * LD + 4 * q);
+        cn = fmaf(c.x, c.x, cn);
+        cn = fmaf(c.y, c.y, cn);
+        cn = fmaf(c.z, c.z, cn);
+        cn = fmaf(c.w, c.w, cn);
+      }
+    }
+    if (first_tile && tid < BM) {
+#pragma unroll
+      for (int q = 0; q < KC / 4; ++q) {
+        const float4 x = *reinterpret_cast<const float4*>(xs + tid * LD + 4 * q);
+        x2 = fmaf(x.x, x.x, x2);
+        x2 = fmaf(x.y, x.y, x2);
+        x2 = fmaf(x.z, x.z, x2);
+        x2 = fmaf(x.w, x.w, x2);
+      }
+    }
+    if (s % nch != nch - 1) continue;
+
+    // the center tile is done: its distances into the thread's minima.  A
+    // center past k has cn = +inf, so its distance is +inf (or NaN) and
+    // never smaller; center 0 is taken whatever its value, as in the scan.
+    const int c0 = (ct0 + s / nch) * BN;
+    if (tid < BN) cns[tid] = c0 + tid < k ? cn : __int_as_float(0x7f800000);
+    if (first_tile && tid < BM) x2s[tid] = x2;
+    cn = 0.f;
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const float xr = x2s[ty + TY * i];
+#pragma unroll
+      for (int l = 0; l < 8; ++l) {
+        const int c = c0 + tx + TX * l;
+        // 2 t is exact, so contracting this into an fma changes no bit
+        const float dl = (xr + cns[tx + TX * l]) - 2.0f * t[i][l];
+        if (c == 0 || dl < bv[i]) {
+          bv[i] = dl;
+          ba[i] = c;
+        }
+        t[i][l] = 0.f;
+      }
+    }
+  }
+  // the TX threads of each row combine their minima; one writes the row's
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+#pragma unroll
+    for (int off = 1; off < TX; off <<= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, bv[i], off);
+      const int oa = __shfl_xor_sync(0xffffffffu, ba[i], off);
+      if (kau_takes(bv[i], ba[i], ov, oa)) {
+        bv[i] = ov;
+        ba[i] = oa;
+      }
+    }
+    const long long r = r0 + ty + TY * i;
+    if (tx == 0 && r < n) {
+      const long long o = (b * G + g) * n + r;
+      pv[o] = bv[i];
+      pa[o] = ba[i];
+    }
+  }
+}
+
+// Floats of kau_fold_kernel's layout: the X ring (two chunks of kFoldRows
+// rows at the stride FC + 4), the sorted keys, the rows' weights and d2,
+// the segments, and (acc_in_smem) the k d + 2 k partial sums.
+__host__ __device__ inline long long kau_fold_floats(int fc, int d, int k,
+                                                     bool acc_in_smem) {
+  return 2LL * kFoldRows * (fc + 4) + 2LL * kFoldRows /* keys */ +
+         2LL * kFoldRows /* sw, sd */ + 2LL * (kFoldRows + 1) /* segments */ +
+         32 /* warp counts */ + (acc_in_smem ? (long long)k * d + 2LL * k : 0);
+}
+
+__global__ void __launch_bounds__(kThreads) kau_fold_kernel(
+    const float* __restrict__ X, const float* __restrict__ w,
+    const float* pv, const int* pa, int* assign, float* d2,   // may alias
+    float* __restrict__ part, long long n, int d, int k, int G, int fc, int vec, bool acc_in_smem,
+    long long rows_per_cta, long long x_bstride, long long w_bstride) {
+  static_assert(kThreads == kFoldRows, "one key per thread");
+  extern __shared__ float4 smem4[];
+  const int ld = fc + 4;
+  float* ring = reinterpret_cast<float*>(smem4);                    // [2][rows][ld]
+  unsigned long long* keys =
+      reinterpret_cast<unsigned long long*>(ring + 2 * kFoldRows * ld);   // [rows]
+  float* sw = reinterpret_cast<float*>(keys + kFoldRows);           // [rows]
+  float* sd = sw + kFoldRows;                                       // [rows]
+  int* seg = reinterpret_cast<int*>(sd + kFoldRows);                // [rows + 1]
+  int* seg_l = seg + kFoldRows + 1;                                 // [rows + 1]
+  int* wcount = seg_l + kFoldRows + 1;                              // [32]
+  float* sacc = reinterpret_cast<float*>(wcount + 32);              // [E]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int kd = k * d, E = kd + 2 * k;
+  const int P = gridDim.x;
+  const long long p = blockIdx.x, b = blockIdx.y;
+  const float* Xb = X + b * x_bstride;
+  const float* wb = w ? w + b * w_bstride : nullptr;
+  float* dst = part + (b * P + p) * (long long)E;
+  float* acc = acc_in_smem ? sacc : dst;
+  for (int e = tid; e < E; e += kThreads) acc[e] = 0.f;
+  const long long lo = p * rows_per_cta;
+  const long long hi = min(n, lo + rows_per_cta);
+  const int nch = (d + fc - 1) / fc;
+
+  for (long long r0 = lo; r0 < hi; r0 += kFoldRows) {
+    const int nr = (int)min((long long)kFoldRows, hi - r0);
+    // stage chunk ch of the tile's rows (columns from fc ch) into its buffer
+    auto issue = [&](int ch) {
+      float* xs = ring + (ch & 1) * kFoldRows * ld;
+      const int j0 = ch * fc, cw = min(fc, d - j0);
+      const float* src = Xb + r0 * d + j0;
+      // fc / vec is a power of two up to 64: each thread keeps one column
+      // group and walks the rows
+      const int vpr = fc / vec, c = (tid % vpr) * vec;
+      if (c < cw) {   // d % vec == 0, so cw too
+        const int step = kThreads / vpr;
+        for (int r = tid / vpr; r < nr; r += step) {
+          float* to = xs + r * ld + c;
+          const float* from = src + (long long)r * d + c;
+          if (vec == 4) copy_vec<4>(to, from);
+          else if (vec == 2) copy_vec<2>(to, from);
+          else copy_vec<1>(to, from);
+        }
+      }
+      cp_async_commit();
+    };
+    issue(0);
+
+    // the rows' assignment: the groups' minima in group order, d2 clamped
+    unsigned long long key = ~0ULL;
+    if (tid < nr) {
+      const long long row = b * n + r0 + tid;
+      float v = __int_as_float(0x7f800000);
+      int a = -1;
+      for (int q = 0; q < G; ++q) {
+        const long long o = (b * G + q) * n + r0 + tid;
+        const float qv = pv[o];
+        const int qa = pa[o];
+        if (kau_takes(v, a, qv, qa)) {
+          v = qv;
+          a = qa;
+        }
+      }
+      const float dd = fmaxf(v, 0.f);
+      assign[row] = a;
+      d2[row] = dd;
+      sw[tid] = wb ? wb[r0 + tid] : 1.f;
+      sd[tid] = dd;
+      key = ((unsigned long long)(unsigned)a << 32) | (unsigned)tid;
+    }
+    keys[tid] = key;
+    __syncthreads();
+    // bitonic sort of the (cluster, row) keys, ascending
+    for (int size = 2; size <= kFoldRows; size <<= 1) {
+      for (int stride = size >> 1; stride > 0; stride >>= 1) {
+        const int other = tid ^ stride;
+        if (other > tid) {
+          const unsigned long long a = keys[tid], c = keys[other];
+          if ((a > c) == ((tid & size) == 0)) {
+            keys[tid] = c;
+            keys[other] = a;
+          }
+        }
+        __syncthreads();
+      }
+    }
+    // segments: the first sorted position of each cluster, in order
+    const int cl = (int)(keys[tid] >> 32);
+    const bool start = tid < nr && (tid == 0 || (int)(keys[tid - 1] >> 32) != cl);
+    const unsigned ballot = __ballot_sync(0xffffffffu, start);
+    if (lane == 0) wcount[warp] = __popc(ballot);
+    __syncthreads();
+    int before = 0, nseg = 0;
+    for (int q = 0; q < kThreads / 32; ++q) {
+      before += q < warp ? wcount[q] : 0;
+      nseg += wcount[q];
+    }
+    if (start) {
+      const int id = before + __popc(ballot & ((1u << lane) - 1u));
+      seg[id] = tid;
+      seg_l[id] = cl;
+    }
+    if (tid == 0) seg[nseg] = nr;
+    // the tile's rows into the partial sums, one chunk of columns at a time
+    for (int ch = 0; ch < nch; ++ch) {
+      cp_async_wait<0>();
+      __syncthreads();   // chunk ch and the segments are in; every thread is
+                         // done with chunk ch - 1's buffer
+      if (ch + 1 < nch) issue(ch + 1);
+      const float* xs = ring + (ch & 1) * kFoldRows * ld;
+      const int j0 = ch * fc, cw = min(fc, d - j0);
+      // a warp per segment: lane c's chains (columns c and c + 32) take
+      // the segment's rows
+      const bool c0 = lane < cw, c1 = lane + 32 < cw;
+      for (int sg = warp; sg < nseg; sg += kThreads / 32) {
+        float* e = acc + seg_l[sg] * d + j0 + lane;
+        float s0 = c0 ? e[0] : 0.f, s1 = c1 ? e[32] : 0.f;
+        const int pe = seg[sg + 1];
+        const float* xc = xs + lane;
+#pragma unroll 4
+        for (int q = seg[sg]; q < pe; ++q) {
+          const int i = (int)(unsigned)keys[q];
+          const float wi = sw[i];
+          s0 = fmaf(wi, xc[i * ld], s0);
+          if (c1) s1 = fmaf(wi, xc[i * ld + 32], s1);
+        }
+        if (c0) e[0] = s0;
+        if (c1) e[32] = s1;
+      }
+    }
+    // wsum (s + w_i) and ccost (fmaf(w_i, d2_i, s)) of each segment
+    for (int it = tid; it < 2 * nseg; it += kThreads) {
+      const int sg = it >> 1, cost = it & 1;
+      const int e = kd + cost * k + seg_l[sg];
+      float s = acc[e];
+      const int pe = seg[sg + 1];
+      for (int q = seg[sg]; q < pe; ++q) {
+        const int i = (int)(unsigned)keys[q];
+        s = cost ? fmaf(sw[i], sd[i], s) : s + sw[i];
+      }
+      acc[e] = s;
+    }
+    __syncthreads();   // before the next tile's keys, segments and chunk 0
+  }
+  if (acc_in_smem)
+    for (int e = tid; e < E; e += kThreads) dst[e] = acc[e];
+}
+
 }  // namespace
 
 // Floats of the fast stage 1's layout for a tile of `rows` rows in a ring of
@@ -485,6 +899,19 @@ static long long kau_floats(int d, int k, int rows, int depth) {
   const int kp = kmeans::padded_k(k);
   return (long long)d * kp + kp + (long long)k * d + 2LL * k + rows +
          (long long)depth * rows * kau_row_stride(d);
+}
+
+// Stage 2: the B (P, k d + 2 k) partials summed in order into csum, wsum and
+// ccost.
+static cudaError_t launch_reduce(cudaStream_t st, const float* part, float* csum,
+                                 float* wsum, float* ccost, int B, long long P,
+                                 int d, int k) {
+  const int kd = k * d;
+  const long long total = (long long)B * (kd + 2 * k);
+  const int rt = 256;
+  kau_reduce_kernel<<<(unsigned)((total + rt - 1) / rt), rt, 0, st>>>(
+      part, csum, wsum, ccost, (int)P, k, kd, total);
+  return cudaGetLastError();
 }
 
 template <int kDepth>
@@ -538,10 +965,76 @@ REPRO_API int repro_kmeans_assign_update(
         rows_per_cta, x_bstride, c_bstride, w_bstride);
   }
   if (e != cudaSuccess) return (int)e;
-  const int kd = k * d;
-  const long long total = (long long)B * (kd + 2 * k);
-  const int rt = 256;
-  kau_reduce_kernel<<<(unsigned)((total + rt - 1) / rt), rt, 0, st>>>(
-      part, csum, wsum, ccost, (int)P, k, kd, total);
-  return (int)cudaGetLastError();
+  return (int)launch_reduce(st, part, csum, wsum, ccost, B, P, d, k);
+}
+
+template <int TX, int KC>
+static cudaError_t launch_assign_kc(dim3 grid, cudaStream_t st, const float* X,
+                                    const float* C, float* pv, int* pa,
+                                    long long n, int d, int k,
+                                    int tiles_per_group, int vec,
+                                    long long x_bstride, long long c_bstride) {
+  constexpr int BM = gen_rows(TX), BN = 8 * TX, LD = KC + 4;
+  const size_t bytes = sizeof(float) * (2 * (BM + BN) * LD + BM + BN);
+  cudaError_t e = repro_set_smem(kau_assign_kernel<TX, KC>, bytes);
+  if (e != cudaSuccess) return e;
+  kau_assign_kernel<TX, KC><<<grid, kGenThreads, bytes, st>>>(
+      X, C, pv, pa, n, d, k, tiles_per_group, vec, x_bstride, c_bstride);
+  return cudaGetLastError();
+}
+
+template <int TX>
+static cudaError_t launch_assign(int kc, dim3 grid, cudaStream_t st,
+                                 const float* X, const float* C, float* pv,
+                                 int* pa, long long n, int d, int k,
+                                 int tiles_per_group, int vec,
+                                 long long x_bstride, long long c_bstride) {
+  return (kc == 64 ? launch_assign_kc<TX, 64> : launch_assign_kc<TX, 32>)(
+      grid, st, X, C, pv, pa, n, d, k, tiles_per_group, vec, x_bstride,
+      c_bstride);
+}
+
+// The general path (stage 1a, 1b, then stage 2), for (k, d) whose fast layout
+// does not fit.  X, C, w, the outputs, part and the strides are as above;
+// pv, pa: (B, groups, n) minima and their indices (with groups = 1 they may be
+// d2 and assign themselves).  tx, kc, groups, tiles_per_group, fc, vec and
+// acc_in_smem are kernels/kmeans_assign_update.py::general_plan's.
+REPRO_API int repro_kmeans_assign_update_general(
+    const float* X, const float* C, const float* w, int* assign, float* d2,
+    float* pv, int* pa, float* part, float* csum, float* wsum, float* ccost,
+    int B, long long n, int d, int k, int tx, int kc, int groups,
+    int tiles_per_group, int fc, int vec, int acc_in_smem,
+    long long rows_per_cta, long long x_bstride, long long c_bstride,
+    long long w_bstride, void* stream) {
+  const bool tx_ok = tx == 1 || tx == 2 || tx == 4 || tx == 8;
+  if (B < 1 || B > 65535 || n < 1 || d < 1 || k < 1 || rows_per_cta < 1 || !tx_ok ||
+      (kc != 32 && kc != 64) || groups < 1 || groups > 65535 || tiles_per_group < 1 ||
+      fc < 4 || fc % 4 != 0 || (vec != 1 && vec != 2 && vec != 4) || d % vec != 0)
+    return (int)cudaErrorInvalidValue;
+  const long long nct = (k + 8LL * tx - 1) / (8LL * tx);
+  if ((long long)(groups - 1) * tiles_per_group >= nct ||
+      (long long)groups * tiles_per_group < nct)
+    return (int)cudaErrorInvalidValue;
+  const long long row_tiles = (n + gen_rows(tx) - 1) / gen_rows(tx);
+  const long long P = (n + rows_per_cta - 1) / rows_per_cta;
+  if (row_tiles > 2147483647LL || P > 2147483647LL) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((unsigned)row_tiles, (unsigned)groups, (unsigned)B);
+  cudaError_t e;
+  switch (tx) {
+    case 1: e = launch_assign<1>(kc, grid, st, X, C, pv, pa, n, d, k, tiles_per_group, vec, x_bstride, c_bstride); break;
+    case 2: e = launch_assign<2>(kc, grid, st, X, C, pv, pa, n, d, k, tiles_per_group, vec, x_bstride, c_bstride); break;
+    case 4: e = launch_assign<4>(kc, grid, st, X, C, pv, pa, n, d, k, tiles_per_group, vec, x_bstride, c_bstride); break;
+    default: e = launch_assign<8>(kc, grid, st, X, C, pv, pa, n, d, k, tiles_per_group, vec, x_bstride, c_bstride); break;
+  }
+  if (e != cudaSuccess) return (int)e;
+  const size_t bytes = sizeof(float) * (size_t)kau_fold_floats(fc, d, k, acc_in_smem);
+  e = repro_set_smem(kau_fold_kernel, bytes);
+  if (e != cudaSuccess) return (int)e;
+  kau_fold_kernel<<<dim3((unsigned)P, (unsigned)B), kThreads, bytes, st>>>(
+      X, w, pv, pa, assign, d2, part, n, d, k, groups, fc, vec, acc_in_smem,
+      rows_per_cta, x_bstride, w_bstride);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return (int)launch_reduce(st, part, csum, wsum, ccost, B, P, d, k);
 }

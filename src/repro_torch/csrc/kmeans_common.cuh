@@ -23,8 +23,9 @@
 // the tile height (and K2's ring depth); where even the shortest tile does
 // not fit (K2: k d past about 27,000 floats at d = 64, or d past about
 // 1,400 whatever k; K4: k past 856 at d = 64, the earlier one-tile
-// layout's line), they ask for the kernel's global variant, which keeps
-// nothing of C in shared memory.
+// layout's line), K4 asks for its global variant, which keeps nothing of C
+// in shared memory, and K2 takes its general route, which stages C in tiles
+// (kmeans_assign_update.cu).
 #pragma once
 
 #include "common.cuh"

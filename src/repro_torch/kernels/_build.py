@@ -46,6 +46,8 @@ _SIGNATURES = {
                              _vp), _i),
     "repro_kmeans_assign_update": ((_vp,) * 9 + (_i, _ll, _i, _i, _i, _i, _ll,
                                                  _ll, _ll, _ll, _vp), _i),
+    "repro_kmeans_assign_update_general": ((_vp,) * 11 + (_i, _ll) + (_i,) * 9
+                                           + (_ll,) * 4 + (_vp,), _i),
     "repro_categorical": ((_vp, _i, ctypes.c_ulonglong, _vp, _ll, _ll, _ll, _vp, _i,
                            _ll, _i, _ll, _vp, _vp, _vp, _vp), _i),
     "repro_error_string": ((_i,), ctypes.c_char_p),

@@ -10,18 +10,29 @@ give the same bits.  :func:`kmeans_assign_update` launches the kernel for
 CUDA tensors and takes the plain PyTorch version (:data:`plain`) for CPU
 tensors.  ``kmeans_assign_update.launches`` counts kernel launches.
 
-Stage 1 runs 256 threads per CTA.  Its range moves through shared memory
-in tiles of up to 128 rows, in a ring of two buffers where two fit
-(:func:`layout`), so one tile's copy overlaps the last one's work.  Up
-to eight threads share a row's distances, split by center blocks, and
-their results are combined in center order.  Each tile is then folded
-into the sums by warp tasks (one cluster, up to 128 columns each): a
-ballot per 32 rows finds the cluster's rows, and each lane adds them in
-row order.  Every entry is the same fmaf chain over the same rows as in
-the kernel's global variant, which reads its operands from global
-memory.  That variant runs where no layout fits (:func:`layout` gives
-``GLOBAL``), and it is the oracle the card's checks hold the fast stage
-to, bit for bit (:func:`_launch` with ``global_variant=True``).
+Stage 1 has two routes (:func:`route_for`), and a third stage-1 kernel
+that no user's call runs:
+
+- ``fast`` where :func:`layout` fits C, the partial sums and a row tile in
+  shared memory: 256 threads per CTA, the range's rows in tiles of up to
+  128 through a ring of two buffers where two fit.  Up to eight threads
+  share a row's distances, split by center blocks, combined in center
+  order; each tile is folded into the sums by warp tasks (one cluster, up
+  to 128 columns each): a ballot per 32 rows finds the cluster's rows, and
+  each lane adds them in row order.
+- ``general`` where it gives ``GLOBAL``: an fp32 product X Cᵀ tiled over
+  its own grid (row tiles x center groups x B), each row's (minimum,
+  index) kept in center order, then a fold over the row split that sorts
+  each tile's rows by cluster and gives each (cluster, column) entry to
+  one thread, which takes the cluster's rows in row order
+  (:func:`general_plan` gives the tiles).
+- ``oracle``: the kernel's first general variant, which reads C and the
+  rows from global memory, one row a thread, and rescans each tile for
+  every entry.  The card's checks hold both routes to it bit for bit
+  (:func:`_launch` with ``global_variant=True``).
+
+Every entry is the same fmaf chain over the same rows in all three, and
+stage 2 sums the partials in the same order.
 
 Like :mod:`repro_torch.kernels.kmeans_assign`, the kernel takes the
 argmin of the unclamped distance and clamps the minimum (the Pallas
@@ -31,7 +42,7 @@ kernel's order); the plain version clamps first (``repro.kernels.ref``'s).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -83,6 +94,103 @@ def layout(k: int, d: int):
     return GLOBAL, 0
 
 
+#: Stage 1's kernel on each route (csrc/kmeans_assign_update.cu); the
+#: general route's fold kernel follows its assign kernel.
+ROUTES = {"fast": "kau_partial_kernel", "general": "kau_assign_kernel",
+          "oracle": "kau_partial_global_kernel"}
+
+
+def route_for(k: int, d: int) -> str:
+    """The route a user's call takes at (k, d): ``fast`` where
+    :func:`layout` fits, else ``general``."""
+    return "general" if layout(k, d)[0] == GLOBAL else "fast"
+
+
+#: The general route's assign: thread columns a CTA (csrc's TX), each 8
+#: centers of a center tile; 256 threads as TX columns of 256 / TX rows.
+GEN_THREAD_COLS = (1, 2, 4, 8)
+#: CTAs the assign's grid aims for: where the row tiles of all entries fall
+#: short, the center tiles split into groups, each a CTA's.
+ASSIGN_TARGET_CTAS = 8 * TARGET_CTAS
+#: Rows of a fold tile (one sort key per thread), and the column chunks of
+#: X it stages, widest first.
+FOLD_ROWS = 256
+FOLD_COLS = (64, 32)
+
+
+class GeneralPlan(NamedTuple):
+    """The general route's tiles at (B, n, k, d): the assign's thread
+    columns ``tx``, its tile of ``tile_rows`` rows x ``tile_centers``
+    centers, its chunk of ``kc`` columns, ``vec`` floats a copy (both
+    stages), ``groups`` center groups of ``tiles_per_group`` center tiles; the
+    fold's chunk of ``fold_cols`` columns, and whether its partial sums
+    stay in shared memory."""
+    tx: int
+    tile_rows: int
+    tile_centers: int
+    kc: int
+    vec: int
+    groups: int
+    tiles_per_group: int
+    fold_cols: int
+    acc_in_smem: bool
+
+
+def gen_rows(tx: int) -> int:
+    """Rows of the assign's tile (csrc's gen_rows)."""
+    return 256 if tx == 1 else 128
+
+
+def gen_kc(tx: int, d: int) -> int:
+    """Columns of the assign's chunk: 64 where the tile has at most 200 rows
+    and centers (so two CTAs' rings of two fit an SM) and 64-column chunks
+    pad d no further than 32-column ones, else 32.  Past d the chunk is
+    zeros, which the product still multiplies: at d = 90, 96 columns
+    rather than 128."""
+    return 64 if gen_rows(tx) + 8 * tx <= 200 and -(-d // 64) * 64 == -(-d // 32) * 32 else 32
+
+
+def fold_bytes(fc: int, k: int, d: int, acc_in_smem: bool) -> int:
+    """Bytes of the fold's layout (csrc's kau_fold_floats): two chunks of
+    FOLD_ROWS rows at the stride fc + 4, the sort keys (8 bytes a row), the
+    rows' w and d2, the segments, 32 warp counts, and the k d + 2 k sums
+    when they stay in shared memory."""
+    return 4 * (2 * FOLD_ROWS * (fc + 4) + 4 * FOLD_ROWS + 2 * (FOLD_ROWS + 1) + 32
+                + ((k * d + 2 * k) if acc_in_smem else 0))
+
+
+def general_plan(B: int, n: int, k: int, d: int, align: int = 16) -> GeneralPlan:
+    """The general route's plan, a function of the shapes and of ``align``,
+    the bytes that both X's and C's first addresses are a multiple of.
+
+    The center tile is k rounded up to 8 where that is at most 64 (the
+    narrowest power-of-two count of thread columns that covers it), else 64
+    centers.  Copies are 16 bytes where d % 4 == 0 and ``align`` allows,
+    else 8 where d is even, else 4.  The center tiles split into groups of
+    as many tiles as still bring the grid to ASSIGN_TARGET_CTAS.  The fold
+    stages the widest of FOLD_COLS (at most d rounded up to a power of two,
+    at least 4) with which its partial sums fit in shared memory, else the
+    widest with the sums in the scratch."""
+    if min(B, n, k, d) < 1:
+        raise ValueError(f"kmeans_assign_update's general route needs B, n, k, d >= 1; "
+                         f"got {B}, {n}, {k}, {d}")
+    kp = _padded_k(k)
+    tx = next((t for t in GEN_THREAD_COLS if 8 * t >= kp), GEN_THREAD_COLS[-1])
+    rows, centers = gen_rows(tx), 8 * tx
+    nct = -(-k // centers)
+    groups = min(nct, -(-ASSIGN_TARGET_CTAS // (-(-n // rows) * B)))
+    # the most tiles a group with which ceil(nct / per) >= groups
+    per = nct if groups == 1 else -(-nct // (groups - 1)) - 1
+    dpow = 1 << max(2, (d - 1).bit_length())   # d's power of two, at least 4
+    fcs = [min(fc, dpow) for fc in FOLD_COLS]
+    fits = [fc for fc in fcs if fold_bytes(fc, k, d, True) <= MAX_SMEM_BYTES]
+    return GeneralPlan(tx=tx, tile_rows=rows, tile_centers=centers, kc=gen_kc(tx, d),
+                       vec=next(v for v in (4, 2, 1) if d % v == 0 and align % (4 * v) == 0),
+                       groups=-(-nct // per),
+                       tiles_per_group=per, fold_cols=(fits or fcs)[0],
+                       acc_in_smem=bool(fits))
+
+
 def kmeans_assign_update(X: torch.Tensor, C: torch.Tensor,
                          w: Optional[torch.Tensor] = None):
     """X: (..., n, d); C: (..., k, d); w: optional (..., n) weights
@@ -98,15 +206,21 @@ def kmeans_assign_update(X: torch.Tensor, C: torch.Tensor,
 
 
 def _launch(X: torch.Tensor, C: torch.Tensor, w: Optional[torch.Tensor] = None,
-            global_variant: bool = False):
-    """The launch on the card: stage 1 in the layout :func:`layout` gives,
-    or with ``global_variant`` its global variant (the bit oracle of the
-    card's checks; not a user's switch), then stage 2."""
+            global_variant: bool = False, route: Optional[str] = None):
+    """The launch on the card: stage 1 on ``route`` (one of :data:`ROUTES`;
+    by default :func:`route_for`'s), then stage 2.  ``global_variant`` is
+    ``route="oracle"``, the bit oracle of the card's checks.  Neither is a
+    user's switch; ``fast`` raises where its layout does not fit."""
     dev = launch_device(X, C) if w is None else launch_device(X, C, w)
     n, d, k = check_shapes("kmeans_assign_update", X, C)
     if w is not None and (w.ndim < 1 or w.shape[-1] != n):
         raise ValueError(f"w must be (..., {n}) to match X, got {tuple(w.shape)}")
-    rows, depth = (GLOBAL, 0) if global_variant else layout(k, d)
+    route = "oracle" if global_variant else (route or route_for(k, d))
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {sorted(ROUTES)}, got {route!r}")
+    rows, depth = layout(k, d) if route == "fast" else (GLOBAL, 0)
+    if route == "fast" and rows == GLOBAL:
+        raise ValueError(f"the fast stage 1 has no layout at (k, d) = ({k}, {d})")
     batch, xb, cb = batch_shape(X.shape[:-2], C.shape[:-2], "kmeans_assign_update")
     wb = False
     if w is not None:
@@ -125,14 +239,27 @@ def _launch(X: torch.Tensor, C: torch.Tensor, w: Optional[torch.Tensor] = None,
     Xc = X.to(torch.float32).contiguous()
     Cc = C.to(torch.float32).contiguous()
     wc = None if w is None else w.to(torch.float32).contiguous()
+    ptrs = (Xc.data_ptr(), Cc.data_ptr(), None if wc is None else wc.data_ptr(),
+            assign.data_ptr(), d2.data_ptr())
+    strides = (rows_per_cta, n * d if xb else 0, k * d if cb else 0, n if wb else 0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        code = library().repro_kmeans_assign_update(
-            Xc.data_ptr(), Cc.data_ptr(), None if wc is None else wc.data_ptr(),
-            assign.data_ptr(), d2.data_ptr(), part.data_ptr(), csum.data_ptr(),
-            wsum.data_ptr(), ccost.data_ptr(), B, n, d, k, rows, depth,
-            rows_per_cta, n * d if xb else 0, k * d if cb else 0, n if wb else 0,
-            stream)
+        if route == "general":
+            plan = general_plan(B, n, k, d, align=math.gcd(ptrs[0], ptrs[1], 16))
+            # the groups' minima: d2 and assign themselves when there is one
+            pv, pa = d2, assign
+            if plan.groups > 1:
+                pv = torch.empty((B, plan.groups, n), dtype=torch.float32, device=dev)
+                pa = torch.empty((B, plan.groups, n), dtype=torch.int32, device=dev)
+            code = library().repro_kmeans_assign_update_general(
+                *ptrs, pv.data_ptr(), pa.data_ptr(), part.data_ptr(), csum.data_ptr(),
+                wsum.data_ptr(), ccost.data_ptr(), B, n, d, k, plan.tx, plan.kc,
+                plan.groups, plan.tiles_per_group, plan.fold_cols, plan.vec,
+                int(plan.acc_in_smem), *strides, stream)
+        else:
+            code = library().repro_kmeans_assign_update(
+                *ptrs, part.data_ptr(), csum.data_ptr(), wsum.data_ptr(),
+                ccost.data_ptr(), B, n, d, k, rows, depth, *strides, stream)
     check(code, "kmeans_assign_update")
     kmeans_assign_update.launches += 1
     return assign, d2, csum, wsum, ccost

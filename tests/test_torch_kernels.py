@@ -140,7 +140,9 @@ def _check_sums(X, w, assign, d2, k, sums):
         np.testing.assert_allclose(np.asarray(got), exp.numpy(), rtol=KMEANS_TOL, atol=atol)
 
 
-@pytest.mark.parametrize("xb,cb,wk,n,k,d", KMEANS_CASES)
+@pytest.mark.parametrize("xb,cb,wk,n,k,d", KMEANS_CASES + [
+    # past K2's shared-memory layout, where the card takes its general route
+    ((), (), "w", 300, 425, 64), ((), (), "w", 300, 10, 1001)])
 def test_kmeans_plain_matches_reference_and_pallas(xb, cb, wk, n, k, d):
     jref = _reference("ref")
     jka, jkau = _reference("kmeans_assign"), _reference("kmeans_assign_update")
@@ -280,6 +282,102 @@ def test_kmeans_assign_layout_keeps_capacity():
             assert (rows == kka.GLOBAL) == (kka.tile_rows(k, d) == kka.GLOBAL)
             if rows != kka.GLOBAL:
                 assert kka.assign_bytes(k, d, rows) <= kka.MAX_SMEM_BYTES
+
+
+#: (k, d) past K2's shared-memory layout: the paper's d = 90 from k = 299,
+#: d = 256 from k = 97, d = 64 from k = 425, a party of 1,024 or more
+#: columns at k = 10, d % 4 of 1, 2 and 3, and a huge k at d = 1.
+K2_GENERAL_KD = [(299, 90), (300, 90), (97, 256), (425, 64), (2000, 64), (10, 1001),
+                 (10, 1024), (10, 2048), (1, 2048), (13, 1001), (40, 1402), (9, 3001),
+                 (64, 1000), (65, 1000), (500, 63), (29_048, 1), (5000, 7)]
+
+
+def test_kmeans_assign_update_routes_by_layout():
+    """A user's call takes the fast stage 1 wherever its layout fits and the
+    general route wherever it gives GLOBAL; the oracle is never a route of
+    its own choosing."""
+    for k in (1, 10, 300, KMAX_64, KMAX_64 + 1, 2000):
+        for d in (1, 3, 30, 64, 90, 256, 1001, 2048):
+            fits = kkau.layout(k, d)[0] != kka.GLOBAL
+            assert kkau.route_for(k, d) == ("fast" if fits else "general")
+    for k, d in K2_GENERAL_KD:
+        assert kkau.route_for(k, d) == "general"
+    assert (kkau.route_for(298, 90), kkau.route_for(96, 256)) == ("fast", "fast")
+    assert set(kkau.ROUTES) == {"fast", "general", "oracle"}
+
+
+def test_kmeans_assign_update_launch_rejects_a_route_without_its_layout():
+    X, C = torch.zeros(4, 64), torch.zeros(KMAX_64 + 1, 64)
+    with pytest.raises(ValueError, match="no layout"):
+        kkau._launch(X, C, route="fast")
+    with pytest.raises(ValueError, match="route must be one of"):
+        kkau._launch(X, C, route="wide")
+
+
+def _assign_smem_bytes(plan):
+    """The assign kernel's layout (csrc's launch_assign_kc): two stages of
+    the row tile and the center tile at the stride kc + 4, then x2 and
+    ||c||^2."""
+    rows, centers = plan.tile_rows, plan.tile_centers
+    return 4 * (2 * (rows + centers) * (plan.kc + 4) + rows + centers)
+
+
+@pytest.mark.parametrize("k,d", K2_GENERAL_KD)
+@pytest.mark.parametrize("B,n", [(1, 1), (1, 257), (3, 20_001), (1, 463_715)])
+def test_kmeans_assign_update_general_plan(k, d, B, n):
+    """The general route's plan over (k, d) past the layout: the narrowest
+    center tile that covers k up to 64, else 64 centers; 64-column chunks
+    only where they pad d no further and two CTAs' rings fit an SM; copies
+    as wide as d allows; the center groups cover every center tile once and
+    bring the grid to its target where the rows fall short; both layouts
+    fit in shared memory; the fold's chunk a power of two of whole copies."""
+    plan = kkau.general_plan(B, n, k, d)
+    kp = -(-k // 8) * 8
+    assert plan.tx == (min(t for t in (1, 2, 4, 8) if 8 * t >= kp) if kp <= 64 else 8)
+    assert (plan.tile_rows, plan.tile_centers) == (256 if plan.tx == 1 else 128, 8 * plan.tx)
+    assert 256 % plan.tx == 0 and plan.tile_rows % (256 // plan.tx) == 0
+    assert plan.kc in (32, 64)
+    if plan.kc == 64:
+        assert plan.tile_rows + plan.tile_centers <= 200 and -(-d // 64) == -(-d // 32) / 2
+    assert plan.vec == (4 if d % 4 == 0 else 2 if d % 2 == 0 else 1)
+    nct = -(-k // plan.tile_centers)
+    assert (plan.groups - 1) * plan.tiles_per_group < nct <= plan.groups * plan.tiles_per_group
+    row_tiles = -(-n // plan.tile_rows)
+    ctas = row_tiles * plan.groups * B
+    assert ctas >= min(kkau.ASSIGN_TARGET_CTAS, row_tiles * nct * B)
+    if plan.tiles_per_group < nct:   # one tile more a group would fall short
+        per = plan.tiles_per_group + 1
+        assert row_tiles * -(-nct // per) * B < kkau.ASSIGN_TARGET_CTAS
+    assert _assign_smem_bytes(plan) <= kka.MAX_SMEM_BYTES
+    fc = plan.fold_cols
+    assert fc in (4, 8, 16, 32, 64) and fc % plan.vec == 0 and 256 % (fc // plan.vec) == 0
+    p2 = 1 << max(2, (d - 1).bit_length())   # d's power of two, at least 4
+    widths = [min(c, p2) for c in (64, 32)]
+    fits = [c for c in widths if kkau.fold_bytes(c, k, d, True) <= kka.MAX_SMEM_BYTES]
+    assert plan.acc_in_smem == bool(fits) and fc == (fits or widths)[0]
+    assert kkau.fold_bytes(fc, k, d, plan.acc_in_smem) <= kka.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("k,d,plan", [
+    (2000, 64, (8, 128, 64, 64, 4, 16, 2, 64, False)),
+    (10, 2048, (2, 128, 16, 64, 4, 1, 1, 64, True)),
+    (300, 90, (8, 128, 64, 32, 2, 1, 5, 32, True))])
+def test_kmeans_assign_update_general_plan_at_the_timed_shapes(k, d, plan):
+    """chip_smoke.py's three general-route shapes: (20001, 64) x (2000, 64)
+    over 16 center groups of 2 tiles with the sums in the scratch,
+    (20001, 2048) x (10, 2048) a 16-center tile, (463715, 90) x (300, 90)
+    8-byte copies (d % 4 = 2) and 96 product columns."""
+    n = 463_715 if k == 300 else 20_001
+    assert tuple(kkau.general_plan(1, n, k, d)) == plan
+    # X or C off a 16-byte boundary takes narrower copies, nothing else
+    assert kkau.general_plan(1, n, k, d, align=8).vec == (2 if d % 2 == 0 else 1)
+    assert kkau.general_plan(1, n, k, d, align=4).vec == 1
+
+
+def test_kmeans_assign_update_general_plan_rejects_empty_shapes():
+    for shape in [(0, 1, 1, 1), (1, 0, 1, 1), (1, 1, 0, 1), (1, 1, 1, 0)]:
+        with pytest.raises(ValueError, match="general route needs"):
+            kkau.general_plan(*shape)
 
 
 def test_row_split_is_a_function_of_n():
@@ -448,6 +546,19 @@ def test_kmeans_kernels_match_plain_and_are_deterministic(xb, cb, wk, n, k, d):
         assert not (cpu(got[0]) == 2).any()
 
 
+#: The general route's cases: batch on X, on C, on both and on w; w None,
+#: ones, random and all zero; every row in one cluster; k not a multiple of
+#: 8; d = 1001 (4-byte copies) and d = 90 (8-byte); the timed shapes'
+#: (k, d); n = 1, 257 and 100,003.
+K2_GENERAL_CASES = [((3,), (), "w", 257, 425, 64), ((), (2,), "w", 1001, 425, 64),
+                    ((2,), (2,), None, 300, 2000, 64), ((2,), (2,), "wb", 257, 10, 2048),
+                    ((), (), None, 1, 425, 64), ((), (), "ones", 1001, 2000, 64),
+                    ((), (), "zero", 777, 500, 64), ((), (), "one", 20_001, 300, 90),
+                    ((), (), "w", 300, 13, 1001), ((), (), "w", 100_003, 300, 90),
+                    ((), (), "w", 20_001, 10, 2048), ((), (), "ones", 1, 10, 1001),
+                    ((), (), "w", 2000, 29_048, 1)]
+
+
 def _one_cluster_inputs(seed, n, k, d):
     """Every row next to center 3: one cluster holds all rows."""
     r = np.random.default_rng(seed)
@@ -461,29 +572,53 @@ def _one_cluster_inputs(seed, n, k, d):
     ((3,), (3,), None, 100_003, 10, 30), ((), (), "w", 20_001, 10, 90),
     ((), (), "w", 257, 10, 90), ((), (), "w", 1001, KMAX_64, 64),
     ((), (), "w", 3001, 40, 300), ((), (), "one", 100_003, 10, 90),
-    ((), (), "one", 1000, 4, 7)])
+    ((), (), "one", 1000, 4, 7)] + K2_GENERAL_CASES)
 def test_kmeans_assign_update_equals_its_global_variant(xb, cb, wk, n, k, d):
-    """The fast stage 1 gives the global variant's assign, d2 and sums bit
-    for bit (the same fmaf chain for every entry), and two launches agree:
-    ragged last tiles and ranges, a one-row range (n = 257), the one-tile
-    layout at k = 424, a 32-row tile at d = 300, and every row in one
-    cluster."""
+    """A user's call, on the fast stage 1 or past its layout on the general
+    route, gives the global variant's (the oracle's) assign, d2 and sums
+    bit for bit (the same fmaf chain for every entry) in one counted launch,
+    and two launches agree: ragged last tiles and ranges, a one-row range
+    (n = 257), the one-tile layout at k = 424, a 32-row tile at d = 300,
+    every row in one cluster, and K2_GENERAL_CASES."""
     dev = _cuda()
     if wk == "one":
         X, C, w = _one_cluster_inputs(n + k + d, n, k, d)
     else:
-        X, C, w = _kmeans_inputs(n * 7 + k + d, xb, cb, wk, n, k, d)
+        X, C, w = _kmeans_inputs(n * 7 + k + d, xb, cb, "w" if wk == "ones" else wk,
+                                 n, k, d)
+        if wk == "ones":
+            w = np.ones_like(w)
     Xt, Ct = torch.from_numpy(X).to(dev), torch.from_numpy(C).to(dev)
     wt = None if w is None else torch.from_numpy(w).to(dev)
-    assert kkau.layout(k, d)[0] != kka.GLOBAL
+    assert kkau.route_for(k, d) == ("fast" if kkau.layout(k, d)[0] != kka.GLOBAL
+                                    else "general")
+    before = kkau.kmeans_assign_update.launches
     got = kkau.kmeans_assign_update(Xt, Ct, wt)
     again = kkau.kmeans_assign_update(Xt, Ct, wt)
+    assert kkau.kmeans_assign_update.launches == before + 2
     oracle = kkau._launch(Xt, Ct, wt, global_variant=True)
     for a, b, c in zip(got, again, oracle):
         assert torch.equal(a, b)
         assert torch.equal(a, c)
     if wk == "one":
         assert bool((got[0] == 3).all())
+    elif k > 2:
+        assert not bool((got[0] == 2).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k,d", [(1001, KMAX_64, 64), (20_001, 10, 90), (257, 10, 90)])
+def test_kmeans_assign_update_general_route_equals_the_fast_stage(n, k, d):
+    """Where both can run, the general route forced gives the fast stage
+    1's outputs bit for bit: the same row split and the same partials."""
+    dev = _cuda()
+    X, C, w = (None if a is None else torch.from_numpy(a).to(dev)
+               for a in _kmeans_inputs(n + k, (), (), "w", n, k, d))
+    assert kkau.route_for(k, d) == "fast"
+    fast = kkau._launch(X, C, w, route="fast")
+    general = kkau._launch(X, C, w, route="general")
+    for a, b in zip(fast, general):
+        assert torch.equal(a, b)
 
 
 #: K4's edges beyond KMEANS_CASES: a short last tile over many CTAs, fewer
