@@ -23,7 +23,11 @@ and never JAX or the JAX package ``repro``.  Phases, each fatal on failure:
    (256, 2048); the general variants past the
    fast kernels' limits (leverage at s = 239, 256, 512; the k-means
    kernels at (k, d) = (425, 64), (2000, 64), (10, 2048) and one batched
-   case, with assignments equal to the plain version's); CUDA-event times
+   case, with assignments equal to the plain version's: K2's general route
+   and K4's tiled route, each bit for bit its oracle and the two assigning
+   alike, with the oracle's time and the route's time by kernel; K4's fast
+   kernel and its tiled route forced, timed in turns near the layout line
+   at 13 (k, d) from (10, 90) to (856, 64)); CUDA-event times
    of the kernel, the plain version and one PyTorch library call
    computing the same function, beside the card's bound, at the main
    path's shapes and for each general variant; the threefry words past
@@ -635,14 +639,18 @@ ALLOC_SPLIT = 1 << 20    # ... and keeps a large block whole when less than this
 # first set, then each kernel of the second (K3's and K2's reduce stages); a
 # counted K1 launch past s = 238 runs none of them but leverage_tiled_kernel
 # and leverage_fold_kernel once a scratch chunk (tiled_plan's chunks), and a
-# K2 launch on its general route kau_fold_kernel after kau_assign_kernel; the
-# census holds those apart (launch_phase)
+# K2 launch on its general route kau_fold_kernel after kau_assign_kernel, and
+# a K4 launch on its tiled route kmeans_assign_combine_kernel after
+# kmeans_assign_tiled_kernel where its plan has more than one center group
+# (none on the main path, whose K4 launches run the fast kernel); the census
+# holds those apart (launch_phase)
 KERNEL_NAMES = {
     "leverage": ({"leverage_reg_kernel", "leverage_kernel", "leverage_wide_kernel"}, ()),
     "weighted_gram": ({"wgram_partial_kernel"}, ("wgram_reduce_kernel",)),
     "kmeans_assign_update": ({"kau_partial_kernel", "kau_assign_kernel",
                               "kau_partial_global_kernel"}, ("kau_reduce_kernel",)),
-    "kmeans_assign": ({"kmeans_assign_fast_kernel", "kmeans_assign_global_kernel"}, ()),
+    "kmeans_assign": ({"kmeans_assign_fast_kernel", "kmeans_assign_tiled_kernel",
+                       "kmeans_assign_global_kernel"}, ()),
     "categorical": ({"categorical_row_kernel", "categorical_tile_kernel"}, ()),
 }
 # indices_sha256 of phases 4 and 5 at --seed 0, recorded on the card with
@@ -923,31 +931,50 @@ def check_k1_oracle(torch, klev, X, M, timed=False):
     return times
 
 
-def check_k4_oracle(torch, kka, X, C, timed=False):
-    """K4's fast kernel against its global variant on the same input, and
-    against itself: assign and d2 equal bit for bit (kmeans_assign.cu's bit
-    contract).  With ``timed``, also the CUDA event times of both, returned
-    as (fast ms, global ms)."""
-    fast = kka.kmeans_assign(X, C)
-    again = kka.kmeans_assign(X, C)
+def check_k4_oracle(torch, kka, X, C, timed=False, route=None):
+    """K4 on the route a user's call takes (fast, or tiled where the fast
+    layout is past kmeans_assign.FAST_LAYOUT_LIMIT or does not fit;
+    ``route`` forces one) against its global variant, the oracle, on the
+    same input, and against itself: assign and d2 equal bit for bit
+    (kmeans_assign.cu's bit contract), one counted launch a call.  Where the
+    user's route is tiled but the fast layout fits, the fast kernel is held
+    to the oracle too.  With ``timed``, also the CUDA event times of the
+    route and the oracle, returned as (route ms, oracle ms)."""
+    k, d = C.shape[-2], X.shape[-1]
+    call = ((lambda: kka.kmeans_assign(X, C)) if route is None
+            else (lambda: kka._launch(X, C, route=route)))
+    route = route or kka.route_for(k, d)
+    before = kka.kmeans_assign.launches
+    got, again = call(), call()
+    counted = kka.kmeans_assign.launches - before
     glob = kka._launch(X, C, global_variant=True)
     torch.cuda.synchronize()
     shapes = f"{tuple(X.shape)} {tuple(C.shape)}"
-    layout = kka.assign_layout(C.shape[-2], X.shape[-1])
-    if any(not torch.equal(a, b) for a, b in zip(fast, again)):
+    B = max(math.prod(X.shape[:-2]), math.prod(C.shape[:-2]))
+    how = (f"layout {kka.assign_layout(k, d)}" if route == "fast"
+           else f"plan {tuple(kka.tiled_plan(B, X.shape[-2], k, d))}")
+    if counted != 2:
+        fail(f"kmeans_assign {shapes}: {counted} counted launches for two calls")
+    if any(not torch.equal(a, b) for a, b in zip(got, again)):
         fail(f"kmeans_assign {shapes}: two launches on the same input differ")
-    bad = [nm for nm, a, b in zip(("assign", "d2"), fast, glob) if not torch.equal(a, b)]
+    bad = [nm for nm, a, b in zip(("assign", "d2"), got, glob) if not torch.equal(a, b)]
     if bad:
-        fail(f"kmeans_assign {shapes}: the fast kernel's {bad} differ from the "
-             f"global variant's (layout {layout})")
-    msg = (f"  kmeans_assign {shapes}: fast kernel (layout {layout}) == global "
-           f"variant, bit for bit")
+        fail(f"kmeans_assign {shapes}: the {route} route's {bad} differ from the "
+             f"global variant's ({how})")
+    msg = (f"  kmeans_assign {shapes}: {route} route ({how}) == global variant, "
+           f"bit for bit")
+    if route == "tiled" and kka.assign_layout(k, d) != kka.GLOBAL:
+        fast = kka._launch(X, C, route="fast")
+        if any(not torch.equal(a, b) for a, b in zip(fast, glob)):
+            fail(f"kmeans_assign {shapes}: the fast kernel (layout "
+                 f"{kka.assign_layout(k, d)}) differs from the global variant")
+        msg += f"; the fast kernel (layout {kka.assign_layout(k, d)}) too"
     if not timed:
         log(msg)
         return None
-    times = (cuda_ms(torch, lambda: kka.kmeans_assign(X, C)),
+    times = (cuda_ms(torch, call),
              cuda_ms(torch, lambda: kka._launch(X, C, global_variant=True)))
-    log(f"{msg}; fast {times[0]:.4f} ms, global {times[1]:.4f} ms")
+    log(f"{msg}; {route} {times[0]:.4f} ms, global {times[1]:.4f} ms")
     return times
 
 
@@ -4759,10 +4786,14 @@ def launch_phase(torch, dev, seed, launches, card, reset_counts, read_counts):
                 0 <= tiled <= products and (tiled == 0) == (products == 0)):
             fail(f"launch (b) {task}: {products} K1 tiled products and "
                  f"{by_base['leverage_fold_kernel']} folds for {tiled} counted tiled launches")
-        # K2's general route: one fold after each assign
+        # K2's general route: one fold after each assign; K4's tiled route: a
+        # combine after an assign of more than one center group
         if by_base["kau_fold_kernel"] != by_base["kau_assign_kernel"]:
             fail(f"launch (b) {task}: {by_base['kau_fold_kernel']} K2 folds for "
                  f"{by_base['kau_assign_kernel']} general-route assigns")
+        if by_base["kmeans_assign_combine_kernel"] > by_base["kmeans_assign_tiled_kernel"]:
+            fail(f"launch (b) {task}: {by_base['kmeans_assign_combine_kernel']} K4 combines "
+                 f"for {by_base['kmeans_assign_tiled_kernel']} tiled assigns")
         for wrapper, (first, second) in KERNEL_NAMES.items():
             n1 = sum(by_base[k] for k in first) + (tiled if wrapper == "leverage" else 0)
             if n1 != want.get(wrapper, 0):
@@ -5161,14 +5192,29 @@ def main() -> None:
                              (100_003, 10, 90, (), ()), (129, 9, 1, (3,), ()),
                              (1000, 10, 90, (), (2,)), (257, 17, 13, (2,), (2,)),
                              (300, 856, 64, (), ()), (300, 19_336, 2, (), ()),
-                             (300, 29_040, 1, (), ())]:
+                             (300, 29_040, 1, (), ()),
+                             # past the fast layout, the tiled route: one row,
+                             # k = 1, 32-column chunks of mostly zeros, batch
+                             # on X and on C, a tie across center groups
+                             (1, 2000, 64, (), ()), (257, 1, 2048, (), ()),
+                             (300, 29_048, 1, (), ()), (300, 19_344, 2, (), ()),
+                             (129, 2000, 64, (3,), ()), (257, 10, 2048, (), (2,)),
+                             (1001, 2000, 64, (), ())]:
         Xs, Cs = randn(*xb, n, dk), randn(*cb, k, dk)
         if k > 2:
             Cs[..., 2, :] = Cs[..., 0, :]
+        if k == 2000 and n == 1001:
+            Cs[-1] = Cs[0]
+            Xs[:8] = Cs[0] + 1e-3 * Xs[:8]
         check_k4_oracle(torch, kka, Xs, Cs)
-    # past the shared-memory layout K2 takes its general route, bit for bit
-    # its oracle, and K4 its global variant, with the same assignments as the
-    # plain version (K4 keeps its smaller layout at k = kmax + 1, d = 64)
+        if k == 2000 and n == 1001:
+            a = kka.kmeans_assign(Xs, Cs)[0]
+            if bool((a == k - 1).any()) or not bool((a[:8] == 0).all()):
+                fail("kmeans_assign: a tie across center groups did not take the first index")
+    # past the shared-memory layout K2 takes its general route and K4 its
+    # tiled route, each bit for bit its oracle, with the same assignments as
+    # the plain version (K4 keeps its smaller layout at k = kmax + 1, d = 64);
+    # both assign with the same bits
     for n, k, dk, xb, cb, wk, k4 in [(1001, kmax + 1, 64, (), (), "w", 128),
                                     (N_WIDE, 2000, 64, (), (), None, kka.GLOBAL),
                                     (N_WIDE, 10, 2048, (), (), "w", kka.GLOBAL),
@@ -5185,18 +5231,18 @@ def main() -> None:
         check_kmeans(torch, kref, "kmeans_assign_update", kkau.kmeans_assign_update,
                      kkau.plain, Xs, Cs, w, fused=True, exact=True)
         check_k2_oracle(torch, kkau, Xs, Cs, w)
-        if k4 != kka.GLOBAL:
-            check_k4_oracle(torch, kka, Xs, Cs)
-            # K4's shared-memory layout and K2's general route: the same bits
-            same = all(torch.equal(a, b) for a, b in zip(
-                kka.kmeans_assign(Xs, Cs), kkau.kmeans_assign_update(Xs, Cs, w)[:2]))
-            if not same:
-                fail(f"(k, d) = ({k}, {dk}): K2's general route and K4's "
-                     f"shared-memory kernel assign differently")
-            log(f"  (k, d) = ({k}, {dk}): K2's general route gives K4's "
-                f"shared-memory assign and d2 bit for bit")
+        check_k4_oracle(torch, kka, Xs, Cs)
+        # K4's route (tiled at k = kmax + 1 too, its fast layout being past
+        # FAST_LAYOUT_LIMIT) and K2's general route: the same bits
+        same = all(torch.equal(a, b) for a, b in zip(
+            kka.kmeans_assign(Xs, Cs), kkau.kmeans_assign_update(Xs, Cs, w)[:2]))
+        if not same:
+            fail(f"(k, d) = ({k}, {dk}): K2's general route and K4's "
+                 f"{kka.route_for(k, dk)} route assign differently")
+        log(f"  (k, d) = ({k}, {dk}): K2's general route gives K4's "
+            f"{kka.route_for(k, dk)} route's assign and d2 bit for bit")
     log(f"  k*d limit: k={kmax} at d=64 takes the shared-memory layout, "
-        f"k={kmax + 1} and d=2048 K2's general route and K4's global variant")
+        f"k={kmax + 1} and d=2048 K2's general route, d=2048 K4's tiled route")
 
     n, B, s = kb.shape[1], kb.shape[0], kb.shape[2]
     kau_ms = cuda_ms(torch, lambda: kkau.kmeans_assign_update(kb, Cb))
@@ -5265,10 +5311,36 @@ def main() -> None:
         if kka.assign_layout(k, dk) == kka.GLOBAL:
             err = check_kmeans(torch, kref, "kmeans_assign", kka.kmeans_assign,
                                kka.plain, Xg, Cg, exact=True)
+            check_k4_oracle(torch, kka, Xg, Cg)
             time_variant("kmeans_assign", shape, lambda: kka.kmeans_assign(Xg, Cg),
                          lambda: kka.plain(Xg, Cg), lambda: torch.cdist(Xg, Cg).min(-1),
                          kmeans_bytes(1, n, k, dk, False, 0, False),
                          kmeans_flops(n, k, dk, False), err)
+            # the oracle's time beside it (3 launches), and the route's time by
+            # kernel: its assign and, with more than one center group, its
+            # combine
+            rec = variants["kmeans_assign"][-1]
+            plan = kka.tiled_plan(1, n, k, dk)
+            rec["route"], rec["plan"] = "tiled", tuple(plan)
+            rec["oracle_ms"] = cuda_ms(
+                torch, lambda: kka._launch(Xg, Cg, global_variant=True), iters=3, warmup=1)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    kka.kmeans_assign(Xg, Cg)
+                torch.cuda.synchronize()
+            for e in prof.key_averages():
+                stage = {"kmeans_assign_tiled_kernel": "assign_ms",
+                         "kmeans_assign_combine_kernel": "combine_ms"}.get(
+                             trace.kernel_base_name(e.key))
+                if stage and e.device_time_total > 0:
+                    rec[stage] = e.device_time_total / e.count / 1e3
+            if "assign_ms" not in rec or ("combine_ms" in rec) != (plan.groups > 1):
+                fail(f"kmeans_assign {shape}: the profiler saw {sorted(rec)} for a tiled "
+                     f"route of {plan.groups} center groups")
+            rec.setdefault("combine_ms", 0.0)
+            log(f"  kmeans_assign {shape}: the tiled route {rec['ms']:.4f} ms (assign "
+                f"{rec['assign_ms']:.4f}, combine {rec['combine_ms']:.4f}), the oracle "
+                f"{rec['oracle_ms']:.4f} ms, plan {tuple(plan)}")
         err = check_kmeans(torch, kref, "kmeans_assign_update", kkau.kmeans_assign_update,
                            kkau.plain, Xg, Cg, wg, fused=True, exact=True)
         check_k2_oracle(torch, kkau, Xg, Cg, wg)
@@ -5301,6 +5373,45 @@ def main() -> None:
             f"{rec['ms']:.4f} ms (assign {rec['assign_ms']:.4f}, fold {rec['fold_ms']:.4f}, "
             f"stage 2 {rec['reduce_ms']:.4f}), plan {tuple(kkau.general_plan(1, n, k, dk))}")
 
+    # K4 near its layout line: where the fast layout fits, the fast kernel
+    # and the tiled route forced, each bit for bit the oracle, timed in turns
+    # (fast, tiled, tiled, fast), with the route a user's call takes
+    # (route_for: tiled past FAST_LAYOUT_LIMIT) and whether it was the faster;
+    # both sides of the limit at d = 90 (the paper's rows, centers drawn from
+    # them) and d = 64, and further from it at d = 256, 1001 and 13; the data
+    # from a generator of its own, so that the phase's later inputs stay
+    ngen = torch.Generator(device="cpu").manual_seed(args.seed + 1)
+
+    def nrandn(*shape):
+        return torch.randn(*shape, generator=ngen).to(dev)
+
+    X13, X256 = nrandn(N_FULL, 13), nrandn(100_003, 256)
+    X64, X1001 = nrandn(N_WIDE, 64), nrandn(N_WIDE, 1001)
+    near_line = []
+    for Xn, ks in [(X_full, (10, 64, 128, 200, 300)), (X64, (64, 256, 425, 856)),
+                   (X256, (10, 65)), (X1001, (10,)), (X13, (300,))]:
+        dk = Xn.shape[-1]
+        for k in ks:
+            Cn = Cw[:k] if Xn is X_full else nrandn(k, dk)
+            for route in ("fast", "tiled"):
+                check_k4_oracle(torch, kka, Xn, Cn, route=route)
+            t = [cuda_ms(torch, lambda r=r: kka._launch(Xn, Cn, route=r))
+                 for r in ("fast", "tiled", "tiled", "fast")]
+            picked = kka.route_for(k, dk)
+            rec = {"shape": f"{tuple(Xn.shape)} x {tuple(Cn.shape)}",
+                   "fast_layout": kka.assign_layout(k, dk),
+                   "tiled_plan": tuple(kka.tiled_plan(1, Xn.shape[0], k, dk)),
+                   "fast_ms": [t[0], t[3]], "tiled_ms": [t[1], t[2]], "route_for": picked,
+                   "faster_picked": (picked == "fast") == (t[0] + t[3] <= t[1] + t[2])}
+            near_line.append(rec)
+            log(f"time kmeans_assign {rec['shape']} near the layout line: fast (layout "
+                f"{rec['fast_layout']}) {t[0]:.4f} / {t[3]:.4f} ms, tiled (plan "
+                f"{rec['tiled_plan']}) {t[1]:.4f} / {t[2]:.4f} ms; route_for {picked}"
+                f"{'' if rec['faster_picked'] else ' (the slower)'}")
+    del X13, X256, X64, X1001
+    log(f"  route_for took the faster route at {sum(r['faster_picked'] for r in near_line)} "
+        f"of {len(near_line)} shapes near the layout line")
+
     lib_kau = "cdist(X, C).min(-1) + index_add_ x3"
     for nm, shape, km, pm, lm, lname, bd, by in [
             ("kmeans_assign_update", f"{tuple(kb.shape)} x {tuple(Cb.shape)} w=None",
@@ -5318,7 +5429,7 @@ def main() -> None:
 
     # the checks' own large tensors go before the main path, so its
     # peak_bytes counts the path's memory and the dataset only
-    del Xw, Mw, Xg, Cg, Cw, wg, Xs, Cs, Ms, w, lg, idx, lg3, want, k5_got
+    del Xw, Mw, Xg, Cg, Cw, wg, Xs, Cs, Xn, Cn, Ms, w, lg, idx, lg3, want, k5_got
     torch.cuda.empty_cache()
 
     # ---- 4. main path: vrlr ---------------------------------------------------
@@ -6001,7 +6112,7 @@ def main() -> None:
          "launches": launches["kmeans_assign"], "max_abs_err": ka_err,
          "ms": ka_ms, "plain_ms": ka_plain, "bound_ms": ka_bound,
          "bound_by": ka_by, "library_ms": ka_lib,
-         "variants": variants["kmeans_assign"]},
+         "variants": variants["kmeans_assign"], "near_layout_line": near_line},
         # no TPU kernel behind it: the reference's XLA-compiled
         # jax.random.categorical (DIS round 2); no PyTorch call draws these bits
         {"name": "categorical", "route": "cuda",

@@ -16,11 +16,31 @@
 // The bit contract.  Every row's assign and d2 are kmeans_common.cuh's
 // assign_row arithmetic: x2, t_l and cn[l] fmaf chains over j = 0..d-1,
 // dl = (x2 + cn[l]) - 2 t_l, the first index of the smallest unclamped dl,
-// then that minimum clamped at 0.  kmeans_assign_global_kernel computes exactly this
-// with C and the row in global memory: it is the oracle that chip_smoke.py
-// and the gpu tests hold the fast kernel to, bit for bit
-// (kernels/kmeans_assign.py::_launch with global_variant=True).  K2's stage
-// 1 (kmeans_assign_update.cu) assigns with the same bits.
+// then that minimum clamped at 0.  kmeans_assign_global_kernel computes
+// exactly this with C and the row in global memory, one row a thread: it is
+// the oracle that chip_smoke.py and the gpu tests hold both routes to, bit
+// for bit (kernels/kmeans_assign.py::_launch with global_variant=True); no
+// user's call runs it.  K2's stage 1 (kmeans_assign_update.cu) assigns with
+// the same bits.
+//
+// A user's call takes one of two routes (kernels/kmeans_assign.py::route_for):
+// - fast, where assign_layout fits C and a row tile in half of a block's
+//   shared memory: kmeans_assign_fast_kernel, below;
+// - tiled, where that layout takes more (one CTA an SM keeps too few warps
+//   busy: (300, 90), (856, 64)) or gives GLOBAL (k d past the earlier
+//   one-tile layout's line: (2000, 64), or d = 2048 whatever k): the grid
+//   (row tiles, center groups, B) of kmeans_assign_tiled_kernel,
+//   kmeans_tiled.cuh's tiled fp32 assign (K2's general route runs the same
+//   body) on 256, 128 or 64 threads, as kernels/kmeans_assign.py::tiled_plan
+//   gives it (shorter tiles where the grid would hold fewer than two CTAs
+//   an SM).  With one center group it writes
+//   assign and the clamped d2 itself; with more it writes each group's
+//   unclamped (minimum, index) per row to a (B, G, n) scratch, and
+//   kmeans_assign_combine_kernel combines the groups in group order
+//   (kmeans_tiled.cuh's combine_groups) and clamps.  Its bound is the
+//   product's 2 n k d operations at (20001, 64) x (2000, 64) (5.2 GFLOP, 78 us
+//   at 67 TFLOP/s) and the read of X at (20001, 2048) x (10, 2048) (164 MB,
+//   49 us at 3.35 TB/s).
 //
 // Design of the fast kernel, kmeans_assign_fast_kernel, 128 threads a CTA:
 // - Persistent CTAs: (SMs x CTAs per SM) / B per batch entry, from the
@@ -51,12 +71,16 @@
 //   The runs' (min, argmin) are combined last to first through two per-row
 //   arrays: a later run wins only with a strictly smaller value, the
 //   sequential scan's answer.
-// The fast kernel runs where the earlier one-tile kernel's layout fitted,
-// its tiles going down to 8 rows so that one always fits there; elsewhere
-// kmeans_assign_global_kernel runs (past that line the short tiles that
-// still fit keep few threads busy, and ran slower than it).  fp32 with explicit fmaf, no tensor cores and no TF32.  The real d
-// and k are kept: there is no padding to 128 lanes, which is a TPU layout.
-#include "kmeans_common.cuh"
+// The fast kernel's layout fits where the earlier one-tile kernel's layout
+// fitted, its tiles going down to 8 rows so that one always fits there;
+// past that line, and where it fills more than half of the shared memory,
+// the tiled route runs.  fp32 with explicit fmaf, no tensor cores and no
+// TF32.
+// The real d and k are kept: there is no padding to 128 lanes, which is a
+// TPU layout.
+#include <cstdint>
+
+#include "kmeans_tiled.cuh"
 
 namespace {
 
@@ -296,10 +320,9 @@ __global__ void __launch_bounds__(kFastThreads, kFastMinCtas)
   }
 }
 
-// The global variant, for (k, d) whose layout does not fit in shared memory,
-// and the fast kernel's bit oracle: one row per thread, the row and C read
-// through the caches (kmeans::assign_row_global, assign_row's arithmetic in
-// its order).
+// The global variant, the bit oracle of both routes (no user's call runs
+// it): one row per thread, the row and C read through the caches
+// (kmeans::assign_row_global, assign_row's arithmetic in its order).
 __global__ void kmeans_assign_global_kernel(const float* __restrict__ X,
                                             const float* __restrict__ C,
                                             int* __restrict__ assign,
@@ -315,6 +338,88 @@ __global__ void kmeans_assign_global_kernel(const float* __restrict__ X,
                             &a, &dd);
   assign[b * n + i] = a;
   d2[b * n + i] = dd;
+}
+
+// The tiled route's assign: kmeans_tiled.cuh's body on NT threads, a tile of
+// tiled_rows(TX, NT) rows against center group blockIdx.y.  With one group
+// the row's result goes to assign and d2 (clamped), with more its group's
+// unclamped (minimum, index) to the (B, G, n) scratch pv / pa.
+template <int NT, int TX, int KC>
+__global__ void __launch_bounds__(NT) kmeans_assign_tiled_kernel(
+    const float* __restrict__ X, const float* __restrict__ C,
+    int* __restrict__ assign, float* __restrict__ d2, float* __restrict__ pv,
+    int* __restrict__ pa, long long n, int d, int k, int tiles_per_group,
+    int vec, long long x_bstride, long long c_bstride) {
+  constexpr int BM = kmeans::tiled_rows(TX, NT), BN = 8 * TX;
+  const long long r0 = (long long)blockIdx.x * BM;
+  const int g = blockIdx.y, G = gridDim.y;
+  const long long b = blockIdx.z;
+  const int ct0 = g * tiles_per_group;
+  const int ct1 = min((k + BN - 1) / BN, ct0 + tiles_per_group);
+  kmeans::tiled_assign<NT, TX, KC, BM>(
+      X + b * x_bstride + r0 * d, C + b * c_bstride, n - r0, d, k, ct0, ct1, vec,
+      [&](int r, float v, int a) {
+        if (G == 1) {
+          assign[b * n + r0 + r] = a;
+          d2[b * n + r0 + r] = fmaxf(v, 0.f);
+        } else {
+          const long long o = (b * G + g) * n + r0 + r;
+          pv[o] = v;
+          pa[o] = a;
+        }
+      });
+}
+
+// The tiled route's combine, where it has G > 1 center groups: each row's
+// groups in group order, then the minimum clamped at 0.
+__global__ void kmeans_assign_combine_kernel(const float* __restrict__ pv,
+                                             const int* __restrict__ pa,
+                                             int* __restrict__ assign,
+                                             float* __restrict__ d2, long long n,
+                                             int G) {
+  const long long b = blockIdx.y;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float v;
+  int a;
+  kmeans::combine_groups(pv, pa, b, G, n, i, &v, &a);
+  assign[b * n + i] = a;
+  d2[b * n + i] = fmaxf(v, 0.f);
+}
+
+template <int NT, int TX, int KC>
+cudaError_t launch_tiled_kc(dim3 grid, cudaStream_t st, const float* X,
+                            const float* C, int* assign, float* d2, float* pv,
+                            int* pa, long long n, int d, int k,
+                            int tiles_per_group, int vec, long long x_bstride,
+                            long long c_bstride) {
+  const size_t bytes =
+      sizeof(float) * kmeans::tiled_floats(kmeans::tiled_rows(TX, NT), 8 * TX, KC);
+  cudaError_t e = repro_set_smem(kmeans_assign_tiled_kernel<NT, TX, KC>, bytes);
+  if (e != cudaSuccess) return e;
+  kmeans_assign_tiled_kernel<NT, TX, KC><<<grid, NT, bytes, st>>>(
+      X, C, assign, d2, pv, pa, n, d, k, tiles_per_group, vec, x_bstride,
+      c_bstride);
+  return cudaGetLastError();
+}
+
+template <int NT>
+cudaError_t launch_tiled(int tx, int kc, dim3 grid, cudaStream_t st,
+                         const float* X, const float* C, int* assign, float* d2,
+                         float* pv, int* pa, long long n, int d, int k,
+                         int tiles_per_group, int vec, long long x_bstride,
+                         long long c_bstride) {
+  const bool w = kc == 64;
+  auto go = [&](auto launch) {
+    return launch(grid, st, X, C, assign, d2, pv, pa, n, d, k, tiles_per_group,
+                  vec, x_bstride, c_bstride);
+  };
+  switch (tx) {
+    case 1: return go(w ? launch_tiled_kc<NT, 1, 64> : launch_tiled_kc<NT, 1, 32>);
+    case 2: return go(w ? launch_tiled_kc<NT, 2, 64> : launch_tiled_kc<NT, 2, 32>);
+    case 4: return go(w ? launch_tiled_kc<NT, 4, 64> : launch_tiled_kc<NT, 4, 32>);
+    default: return go(w ? launch_tiled_kc<NT, 8, 64> : launch_tiled_kc<NT, 8, 32>);
+  }
 }
 
 }  // namespace
@@ -355,5 +460,50 @@ REPRO_API int repro_kmeans_assign(const float* X, const float* C, int* assign,
   kmeans_assign_fast_kernel<<<dim3(ctas, (unsigned)B), kFastThreads, bytes,
                               st>>>(X, C, assign, d2, n, d, k, rows, x_bstride,
                                     c_bstride);
+  return (int)cudaGetLastError();
+}
+
+// The tiled route: X, C, assign, d2 and the strides as above; pv, pa: the
+// (B, groups, n) scratch of the groups' minima (unused, and may be null, with
+// one group).  tx, rows, kc, groups, tiles_per_group and vec are
+// kernels/kmeans_assign.py::tiled_plan's; rows is tiled_rows(tx, threads) for
+// a CTA of 256, 128 or 64 threads.  X and C must start on a multiple of vec
+// floats (the copies' width).
+REPRO_API int repro_kmeans_assign_tiled(const float* X, const float* C,
+                                        int* assign, float* d2, float* pv,
+                                        int* pa, int B, long long n, int d,
+                                        int k, int tx, int rows, int kc,
+                                        int groups, int tiles_per_group,
+                                        int vec, long long x_bstride,
+                                        long long c_bstride, void* stream) {
+  const bool tx_ok = tx == 1 || tx == 2 || tx == 4 || tx == 8;
+  const int full = tx_ok ? kmeans::tiled_rows(tx, 256) : 0;
+  if (B < 1 || B > 65535 || n < 1 || d < 1 || k < 1 || !tx_ok ||
+      (rows != full && rows != full / 2 && rows != full / 4) ||
+      (kc != 32 && kc != 64) ||
+      groups < 1 || groups > 65535 || tiles_per_group < 1 ||
+      (vec != 1 && vec != 2 && vec != 4) || d % vec != 0 ||
+      reinterpret_cast<uintptr_t>(X) % (4 * vec) != 0 ||
+      reinterpret_cast<uintptr_t>(C) % (4 * vec) != 0 ||
+      (groups > 1 && (pv == nullptr || pa == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const long long nct = (k + 8LL * tx - 1) / (8LL * tx);
+  if ((long long)(groups - 1) * tiles_per_group >= nct ||
+      (long long)groups * tiles_per_group < nct)
+    return (int)cudaErrorInvalidValue;
+  const long long row_tiles = (n + rows - 1) / rows;
+  const long long blocks = (n + 255) / 256;
+  if (row_tiles > 2147483647LL || blocks > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((unsigned)row_tiles, (unsigned)groups, (unsigned)B);
+  cudaError_t e = (rows == full       ? launch_tiled<256>
+                   : rows == full / 2 ? launch_tiled<128>
+                                      : launch_tiled<64>)(
+      tx, kc, grid, st, X, C, assign, d2, pv, pa, n, d, k, tiles_per_group, vec,
+      x_bstride, c_bstride);
+  if (e != cudaSuccess || groups == 1) return (int)e;
+  kmeans_assign_combine_kernel<<<dim3((unsigned)blocks, (unsigned)B), 256, 0,
+                                 st>>>(pv, pa, assign, d2, n, groups);
   return (int)cudaGetLastError();
 }

@@ -89,9 +89,10 @@
 // 78 us at 67 TFLOP/s), and at (20001, 2048) x (10, 2048) by reading X
 // (164 MB, 49 us at 3.35 TB/s), which its fold reads a second time.  The
 // product is a register-tiled fp32 GEMM without tensor cores (TF32 would
-// round x and c and break the bits); its fold is O(n d), where the first
-// general variant's rescan of every tile for every entry was O(n k d).
-#include "kmeans_common.cuh"
+// round x and c and break the bits), kmeans_tiled.cuh's, which K4's tiled
+// route runs too; its fold is O(n d), where the first general variant's
+// rescan of every tile for every entry was O(n k d).
+#include "kmeans_tiled.cuh"
 
 namespace {
 
@@ -491,31 +492,15 @@ __global__ void kau_reduce_kernel(const float* __restrict__ part,
 
 // ---- The general route: (k, d) whose fast layout does not fit --------------
 //
-// Stage 1a, kau_assign_kernel: the distances as a tiled fp32 product over its
-// own grid (row tiles, center groups, B), rows being independent.  A CTA of
-// 256 threads takes 128 rows (256 at TX = 1) against one group of center
-// tiles of 8 TX centers (TX = 1, 2, 4 or 8, the narrowest that covers k up
-// to 64; kernels/kmeans_assign_update.py::general_plan).  X's and C's tiles
-// move through shared memory in chunks of KC columns, a ring of two, row-major
-// at the stride KC + 4, copied 16, 8 or 4 bytes at a time as d and the bases
-// allow; what lies past n, k or d is zero.  Thread (ty, tx) keeps t for its
-// TM rows ty + TY i and its 8 centers tx + TX l in registers, each t one fmaf
-// chain over ascending j across the chunks; a zero past d adds fmaf(0, 0, t),
-// which keeps t's value (it can only turn -0 into +0, and (x2 + cn) - 2 t is
-// the same for both).  x2 (on the group's first center tile) and ||c||^2
-// (once a center tile) are the same chains, summed from the staged chunks by
-// one thread a row and a center.  After each center tile every thread folds
-// its distances into its rows' running minima in ascending center order with
-// the scan's rule (center 0 always, then strictly smaller values only); at
-// the end the TX threads of a row combine theirs by shuffles, keeping the
-// smaller value and, on a tie, the smaller index (kau_takes): the sequential
-// scan's first index of the smallest value, a NaN winning only at center 0.
-// The group's unclamped (minimum, index) per row goes to pv / pa.
+// Stage 1a, kau_assign_kernel: kmeans_tiled.cuh's tiled fp32 assign on 256
+// threads, 128 rows (256 at TX = 1) a CTA, over the grid (row tiles, center
+// groups, B) (kernels/kmeans_assign_update.py::general_plan).  Each group's
+// unclamped (minimum, index) per row goes to pv / pa.
 // Stage 1b, kau_fold_kernel: grid (P, B), the fast route's row split.  A CTA
 // takes its range in tiles of 256 rows in row order: it combines the groups'
-// minima into assign and the clamped d2, sorts the tile's (cluster, row) keys
-// (a bitonic sort, so any k) and cuts them into one segment per cluster
-// present, its rows in row order.  X's tile moves through shared memory in
+// minima into assign and the clamped d2 (kmeans_tiled.cuh's combine_groups),
+// sorts the tile's (cluster, row) keys (a bitonic sort, so any k) and cuts
+// them into one segment per cluster present, its rows in row order.  X's tile moves through shared memory in
 // chunks of FC columns (a ring of two); a warp takes a segment, and lane c
 // the chains of columns c and c + 32, each fmaf over the segment's rows, added
 // to the CTA's partial in shared memory when its k d + 2 k floats fit beside
@@ -523,54 +508,11 @@ __global__ void kau_reduce_kernel(const float* __restrict__ part,
 // rows in the same order as in kau_partial_global_kernel: the same partials,
 // and stage 2 is unchanged.  The work is O(n d), not O(n k d).
 
-constexpr int kGenThreads = 256;
+constexpr int kGenThreads = kmeans::kTiledThreads;
 constexpr int kFoldRows = 256;   // rows of a fold tile: one key per thread
 
-__host__ __device__ constexpr int gen_rows(int tx) { return tx == 1 ? 256 : 128; }
-
-// Whether the candidate (v, a) replaces the minimum so far (bv, ba) (ba = -1:
-// none yet).  A NaN at center 0 is the scan's answer whatever follows; other
-// NaNs never win; otherwise the smaller value, then the smaller index.
-__device__ __forceinline__ bool kau_takes(float bv, int ba, float v, int a) {
-  if (a == 0 && isnan(v)) return true;
-  if (ba == 0 && isnan(bv)) return false;
-  return v < bv || (v == bv && (unsigned)a < (unsigned)ba);
-}
-
-// Copy VW floats (4, 2 or 1) from global to shared memory, or store zeros.
-template <int VW>
-__device__ __forceinline__ void copy_vec(float* dst, const float* src) {
-  if (VW == 4) cp_async16(dst, src);
-  else if (VW == 2) cp_async8(dst, src);
-  else cp_async4(dst, src);
-}
-template <int VW>
-__device__ __forceinline__ void zero_vec(float* dst) {
-  if (VW == 4) *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
-  else if (VW == 2) *reinterpret_cast<float2*>(dst) = make_float2(0.f, 0.f);
-  else *dst = 0.f;
-}
-
-// Stage KC columns from j0 of `rows` rows of a row-major (., d) source that
-// starts at src into dst at the stride KC + 4, VW floats a copy; rows from
-// `valid` on and columns from d on are zeros.  Each thread keeps one column
-// group and walks the rows, so its source pointer only advances.
-template <int VW, int KC>
-__device__ __forceinline__ void stage_rows(float* dst, const float* src, int rows,
-                                           long long valid, int d, int j0,
-                                           int tid) {
-  constexpr int VPR = KC / VW, RPI = kGenThreads / VPR;
-  const int jv = (tid % VPR) * VW, j = j0 + jv;
-  const bool in_d = j < d;
-  int row = tid / VPR;
-  const float* p = src + (long long)row * d + j;
-  for (; row < rows; row += RPI, p += (long long)RPI * d) {
-    float* q = dst + row * (KC + 4) + jv;
-    if (in_d && row < valid)
-      copy_vec<VW>(q, p);
-    else
-      zero_vec<VW>(q);
-  }
+__host__ __device__ constexpr int gen_rows(int tx) {
+  return kmeans::tiled_rows(tx, kGenThreads);
 }
 
 template <int TX, int KC>
@@ -579,151 +521,18 @@ __global__ void __launch_bounds__(kGenThreads) kau_assign_kernel(
     float* __restrict__ pv, int* __restrict__ pa, long long n, int d, int k,
     int tiles_per_group, int vec, long long x_bstride, long long c_bstride) {
   constexpr int BM = gen_rows(TX), BN = 8 * TX;
-  constexpr int TY = kGenThreads / TX, TM = BM / TY, LD = KC + 4;
-  constexpr int STAGE = (BM + BN) * LD;
-  extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
-  float* x2s = sm + 2 * STAGE;   // [BM]
-  float* cns = x2s + BM;         // [BN], +inf past k
-  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
   const long long r0 = (long long)blockIdx.x * BM;
   const int g = blockIdx.y, G = gridDim.y;
   const long long b = blockIdx.z;
-  const float* Xt = X + b * x_bstride + r0 * d;
-  const float* Cb = C + b * c_bstride;
-  const int nct = (k + BN - 1) / BN;
   const int ct0 = g * tiles_per_group;
-  const int ct1 = min(nct, ct0 + tiles_per_group);
-  const int nch = (d + KC - 1) / KC;
-  const int nsteps = (ct1 - ct0) * nch;
-
-  // step s: center tile ct0 + s / nch, columns from KC (s % nch)
-  auto issue = [&](int s) {
-    float* xs = sm + (s & 1) * STAGE;
-    const int c0 = (ct0 + s / nch) * BN, j0 = (s % nch) * KC;
-    const float* Ct = Cb + (long long)c0 * d;
-    if (vec == 4) {
-      stage_rows<4, KC>(xs, Xt, BM, n - r0, d, j0, tid);
-      stage_rows<4, KC>(xs + BM * LD, Ct, BN, k - c0, d, j0, tid);
-    } else if (vec == 2) {
-      stage_rows<2, KC>(xs, Xt, BM, n - r0, d, j0, tid);
-      stage_rows<2, KC>(xs + BM * LD, Ct, BN, k - c0, d, j0, tid);
-    } else {
-      stage_rows<1, KC>(xs, Xt, BM, n - r0, d, j0, tid);
-      stage_rows<1, KC>(xs + BM * LD, Ct, BN, k - c0, d, j0, tid);
-    }
-    cp_async_commit();
-  };
-
-  float t[TM][8];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int l = 0; l < 8; ++l) t[i][l] = 0.f;
-  // the thread's running minimum of each of its rows over its centers so
-  // far, in ascending center order (-1: none yet)
-  float bv[TM];
-  int ba[TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    bv[i] = __int_as_float(0x7f800000);
-    ba[i] = -1;
-  }
-  float x2 = 0.f, cn = 0.f;   // thread tid's row and center chains
-
-  issue(0);
-  for (int s = 0; s < nsteps; ++s) {
-    cp_async_wait<0>();
-    __syncthreads();   // step s has landed; every thread is done with s - 1
-    if (s + 1 < nsteps) issue(s + 1);
-    const float* xs = sm + (s & 1) * STAGE;
-    const float* cs = xs + BM * LD;
-    const bool first_tile = s < nch;
-#pragma unroll
-    for (int q = 0; q < KC / 4; ++q) {
-      float4 xv[TM];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-        xv[i] = *reinterpret_cast<const float4*>(xs + (ty + TY * i) * LD + 4 * q);
-#pragma unroll
-      for (int l = 0; l < 8; ++l) {
-        const float4 cv = *reinterpret_cast<const float4*>(cs + (tx + TX * l) * LD + 4 * q);
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          t[i][l] = fmaf(xv[i].x, cv.x, t[i][l]);
-          t[i][l] = fmaf(xv[i].y, cv.y, t[i][l]);
-          t[i][l] = fmaf(xv[i].z, cv.z, t[i][l]);
-          t[i][l] = fmaf(xv[i].w, cv.w, t[i][l]);
-        }
-      }
-    }
-    // the chains of ||c||^2 and (on the group's first tile) x2, outside the
-    // product's loop so that it stays one block of straight-line code
-    if (tid < BN) {
-#pragma unroll
-      for (int q = 0; q < KC / 4; ++q) {
-        const float4 c = *reinterpret_cast<const float4*>(cs + tid * LD + 4 * q);
-        cn = fmaf(c.x, c.x, cn);
-        cn = fmaf(c.y, c.y, cn);
-        cn = fmaf(c.z, c.z, cn);
-        cn = fmaf(c.w, c.w, cn);
-      }
-    }
-    if (first_tile && tid < BM) {
-#pragma unroll
-      for (int q = 0; q < KC / 4; ++q) {
-        const float4 x = *reinterpret_cast<const float4*>(xs + tid * LD + 4 * q);
-        x2 = fmaf(x.x, x.x, x2);
-        x2 = fmaf(x.y, x.y, x2);
-        x2 = fmaf(x.z, x.z, x2);
-        x2 = fmaf(x.w, x.w, x2);
-      }
-    }
-    if (s % nch != nch - 1) continue;
-
-    // the center tile is done: its distances into the thread's minima.  A
-    // center past k has cn = +inf, so its distance is +inf (or NaN) and
-    // never smaller; center 0 is taken whatever its value, as in the scan.
-    const int c0 = (ct0 + s / nch) * BN;
-    if (tid < BN) cns[tid] = c0 + tid < k ? cn : __int_as_float(0x7f800000);
-    if (first_tile && tid < BM) x2s[tid] = x2;
-    cn = 0.f;
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const float xr = x2s[ty + TY * i];
-#pragma unroll
-      for (int l = 0; l < 8; ++l) {
-        const int c = c0 + tx + TX * l;
-        // 2 t is exact, so contracting this into an fma changes no bit
-        const float dl = (xr + cns[tx + TX * l]) - 2.0f * t[i][l];
-        if (c == 0 || dl < bv[i]) {
-          bv[i] = dl;
-          ba[i] = c;
-        }
-        t[i][l] = 0.f;
-      }
-    }
-  }
-  // the TX threads of each row combine their minima; one writes the row's
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-#pragma unroll
-    for (int off = 1; off < TX; off <<= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, bv[i], off);
-      const int oa = __shfl_xor_sync(0xffffffffu, ba[i], off);
-      if (kau_takes(bv[i], ba[i], ov, oa)) {
-        bv[i] = ov;
-        ba[i] = oa;
-      }
-    }
-    const long long r = r0 + ty + TY * i;
-    if (tx == 0 && r < n) {
-      const long long o = (b * G + g) * n + r;
-      pv[o] = bv[i];
-      pa[o] = ba[i];
-    }
-  }
+  const int ct1 = min((k + BN - 1) / BN, ct0 + tiles_per_group);
+  kmeans::tiled_assign<kGenThreads, TX, KC, BM>(
+      X + b * x_bstride + r0 * d, C + b * c_bstride, n - r0, d, k, ct0, ct1, vec,
+      [&](int r, float v, int a) {
+        const long long o = (b * G + g) * n + r0 + r;
+        pv[o] = v;
+        pa[o] = a;
+      });
 }
 
 // Floats of kau_fold_kernel's layout: the X ring (two chunks of kFoldRows
@@ -781,9 +590,9 @@ __global__ void __launch_bounds__(kThreads) kau_fold_kernel(
         for (int r = tid / vpr; r < nr; r += step) {
           float* to = xs + r * ld + c;
           const float* from = src + (long long)r * d + c;
-          if (vec == 4) copy_vec<4>(to, from);
-          else if (vec == 2) copy_vec<2>(to, from);
-          else copy_vec<1>(to, from);
+          if (vec == 4) kmeans::copy_vec<4>(to, from);
+          else if (vec == 2) kmeans::copy_vec<2>(to, from);
+          else kmeans::copy_vec<1>(to, from);
         }
       }
       cp_async_commit();
@@ -794,17 +603,9 @@ __global__ void __launch_bounds__(kThreads) kau_fold_kernel(
     unsigned long long key = ~0ULL;
     if (tid < nr) {
       const long long row = b * n + r0 + tid;
-      float v = __int_as_float(0x7f800000);
-      int a = -1;
-      for (int q = 0; q < G; ++q) {
-        const long long o = (b * G + q) * n + r0 + tid;
-        const float qv = pv[o];
-        const int qa = pa[o];
-        if (kau_takes(v, a, qv, qa)) {
-          v = qv;
-          a = qa;
-        }
-      }
+      float v;
+      int a;
+      kmeans::combine_groups(pv, pa, b, G, n, r0 + tid, &v, &a);
       const float dd = fmaxf(v, 0.f);
       assign[row] = a;
       d2[row] = dd;
@@ -974,8 +775,7 @@ static cudaError_t launch_assign_kc(dim3 grid, cudaStream_t st, const float* X,
                                     long long n, int d, int k,
                                     int tiles_per_group, int vec,
                                     long long x_bstride, long long c_bstride) {
-  constexpr int BM = gen_rows(TX), BN = 8 * TX, LD = KC + 4;
-  const size_t bytes = sizeof(float) * (2 * (BM + BN) * LD + BM + BN);
+  const size_t bytes = sizeof(float) * kmeans::tiled_floats(gen_rows(TX), 8 * TX, KC);
   cudaError_t e = repro_set_smem(kau_assign_kernel<TX, KC>, bytes);
   if (e != cudaSuccess) return e;
   kau_assign_kernel<TX, KC><<<grid, kGenThreads, bytes, st>>>(

@@ -10,7 +10,8 @@
 // on ties, as jnp.argmin does), and d2 is that minimum clamped at 0.  The
 // fast kernels' scans (kmeans_assign_update.cu's scan_blocks,
 // kmeans_assign.cu's scan_run, over runs of 8-center blocks combined in
-// order) and assign_row_global (the global variants, with C in global
+// order), the tiled product past their layouts (kmeans_tiled.cuh) and
+// assign_row_global (the global variants, the oracles, with C in global
 // memory) compute these bits.
 //
 // A fast kernel's CTA keeps, from the start of its dynamic shared memory:
@@ -23,9 +24,10 @@
 // the tile height (and K2's ring depth); where even the shortest tile does
 // not fit (K2: k d past about 27,000 floats at d = 64, or d past about
 // 1,400 whatever k; K4: k past 856 at d = 64, the earlier one-tile
-// layout's line), K4 asks for its global variant, which keeps nothing of C
-// in shared memory, and K2 takes its general route, which stages C in tiles
-// (kmeans_assign_update.cu).
+// layout's line), both take a tiled fp32 product that stages X and C in
+// chunks (kmeans_tiled.cuh): K2's general route and K4's tiled route.  The
+// global variants (assign_row_global below), which keep nothing of C in
+// shared memory, are only the bit oracles of the card's checks.
 #pragma once
 
 #include "common.cuh"
@@ -61,8 +63,8 @@ __device__ inline void load_centers(const float* __restrict__ C, float* CT,
   __syncthreads();
 }
 
-// The assignment of one row for the global variants, whose layout does not
-// fit in shared memory: the row xr and C (k, d), row-major, are read from
+// The assignment of one row for the global variants (the oracles), which
+// keep nothing in shared memory: the row xr and C (k, d), row-major, are read from
 // global memory (through L1 and L2), and ||c_l||^2 is summed beside x.c_l in
 // the same pass.  Every sum is the fmaf chain over j = 0..d-1 above, the
 // centers are taken in ascending order, 8 at a time, with the min and

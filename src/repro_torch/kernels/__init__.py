@@ -11,4 +11,5 @@
 # version; csrc/<name>.cu the kernel; _build.py builds and loads the
 # library; ops.py dispatches by backend and lists the counted wrappers;
 # ref.py the plain PyTorch oracles.
-# The k-means kernels share their distance code (csrc/kmeans_common.cuh).
+# The k-means kernels share their distance code (csrc/kmeans_common.cuh) and,
+# past their shared-memory layouts, a tiled fp32 assign (csrc/kmeans_tiled.cuh).

@@ -44,6 +44,7 @@ _SIGNATURES = {
                              _vp), _i),
     "repro_kmeans_assign": ((_vp, _vp, _vp, _vp, _i, _ll, _i, _i, _i, _ll, _ll,
                              _vp), _i),
+    "repro_kmeans_assign_tiled": ((_vp,) * 6 + (_i, _ll) + (_i,) * 8 + (_ll, _ll, _vp), _i),
     "repro_kmeans_assign_update": ((_vp,) * 9 + (_i, _ll, _i, _i, _i, _i, _ll,
                                                  _ll, _ll, _ll, _vp), _i),
     "repro_kmeans_assign_update_general": ((_vp,) * 11 + (_i, _ll) + (_i,) * 9

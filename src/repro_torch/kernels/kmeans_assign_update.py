@@ -49,8 +49,8 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import (MAX_SMEM_BYTES, PLAIN_DEVICES, batch_shape, check,
                                        launch_device, library)
-from repro_torch.kernels.kmeans_assign import (  # noqa: F401  (tile_rows is re-exported)
-    GLOBAL, TILE_ROWS, _padded_k, check_shapes, tile_rows)
+from repro_torch.kernels.kmeans_assign import (  # noqa: F401  (re-exported)
+    ASSIGN_TARGET_CTAS, GLOBAL, TILE_ROWS, _padded_k, assign_tiles, check_shapes, tile_rows)
 
 #: The plain PyTorch version of the kernel (the CPU path and the oracle).
 plain = ref.kmeans_assign_update
@@ -106,12 +106,9 @@ def route_for(k: int, d: int) -> str:
     return "general" if layout(k, d)[0] == GLOBAL else "fast"
 
 
-#: The general route's assign: thread columns a CTA (csrc's TX), each 8
-#: centers of a center tile; 256 threads as TX columns of 256 / TX rows.
-GEN_THREAD_COLS = (1, 2, 4, 8)
-#: CTAs the assign's grid aims for: where the row tiles of all entries fall
-#: short, the center tiles split into groups, each a CTA's.
-ASSIGN_TARGET_CTAS = 8 * TARGET_CTAS
+# The general route's assign is the tiled assign of kernels/kmeans_assign.py
+# (csrc/kmeans_tiled.cuh) at 256 threads, its grid aiming for
+# ASSIGN_TARGET_CTAS: eight CTAs for each of TARGET_CTAS ranges.
 #: Rows of a fold tile (one sort key per thread), and the column chunks of
 #: X it stages, widest first.
 FOLD_ROWS = 256
@@ -136,20 +133,6 @@ class GeneralPlan(NamedTuple):
     acc_in_smem: bool
 
 
-def gen_rows(tx: int) -> int:
-    """Rows of the assign's tile (csrc's gen_rows)."""
-    return 256 if tx == 1 else 128
-
-
-def gen_kc(tx: int, d: int) -> int:
-    """Columns of the assign's chunk: 64 where the tile has at most 200 rows
-    and centers (so two CTAs' rings of two fit an SM) and 64-column chunks
-    pad d no further than 32-column ones, else 32.  Past d the chunk is
-    zeros, which the product still multiplies: at d = 90, 96 columns
-    rather than 128."""
-    return 64 if gen_rows(tx) + 8 * tx <= 200 and -(-d // 64) * 64 == -(-d // 32) * 32 else 32
-
-
 def fold_bytes(fc: int, k: int, d: int, acc_in_smem: bool) -> int:
     """Bytes of the fold's layout (csrc's kau_fold_floats): two chunks of
     FOLD_ROWS rows at the stride fc + 4, the sort keys (8 bytes a row), the
@@ -163,32 +146,21 @@ def general_plan(B: int, n: int, k: int, d: int, align: int = 16) -> GeneralPlan
     """The general route's plan, a function of the shapes and of ``align``,
     the bytes that both X's and C's first addresses are a multiple of.
 
-    The center tile is k rounded up to 8 where that is at most 64 (the
-    narrowest power-of-two count of thread columns that covers it), else 64
-    centers.  Copies are 16 bytes where d % 4 == 0 and ``align`` allows,
-    else 8 where d is even, else 4.  The center tiles split into groups of
-    as many tiles as still bring the grid to ASSIGN_TARGET_CTAS.  The fold
-    stages the widest of FOLD_COLS (at most d rounded up to a power of two,
-    at least 4) with which its partial sums fit in shared memory, else the
-    widest with the sums in the scratch."""
+    The assign's fields are :func:`assign_tiles`' at 256 threads (the
+    center tile k rounded up to 8 up to 64 centers, copies as wide as d and
+    ``align`` allow, the center tiles in groups that bring the grid to
+    ASSIGN_TARGET_CTAS).  The fold stages the widest of FOLD_COLS (at most d
+    rounded up to a power of two, at least 4) with which its partial sums
+    fit in shared memory, else the widest with the sums in the scratch."""
     if min(B, n, k, d) < 1:
         raise ValueError(f"kmeans_assign_update's general route needs B, n, k, d >= 1; "
                          f"got {B}, {n}, {k}, {d}")
-    kp = _padded_k(k)
-    tx = next((t for t in GEN_THREAD_COLS if 8 * t >= kp), GEN_THREAD_COLS[-1])
-    rows, centers = gen_rows(tx), 8 * tx
-    nct = -(-k // centers)
-    groups = min(nct, -(-ASSIGN_TARGET_CTAS // (-(-n // rows) * B)))
-    # the most tiles a group with which ceil(nct / per) >= groups
-    per = nct if groups == 1 else -(-nct // (groups - 1)) - 1
+    tiles = assign_tiles(B, n, k, d, align)
     dpow = 1 << max(2, (d - 1).bit_length())   # d's power of two, at least 4
     fcs = [min(fc, dpow) for fc in FOLD_COLS]
     fits = [fc for fc in fcs if fold_bytes(fc, k, d, True) <= MAX_SMEM_BYTES]
-    return GeneralPlan(tx=tx, tile_rows=rows, tile_centers=centers, kc=gen_kc(tx, d),
-                       vec=next(v for v in (4, 2, 1) if d % v == 0 and align % (4 * v) == 0),
-                       groups=-(-nct // per),
-                       tiles_per_group=per, fold_cols=(fits or fcs)[0],
-                       acc_in_smem=bool(fits))
+    # all of the tiles but their threads: K2's CTA is always GEN_THREADS
+    return GeneralPlan(*tiles[:-1], fold_cols=(fits or fcs)[0], acc_in_smem=bool(fits))
 
 
 def kmeans_assign_update(X: torch.Tensor, C: torch.Tensor,

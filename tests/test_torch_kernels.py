@@ -284,6 +284,107 @@ def test_kmeans_assign_layout_keeps_capacity():
                 assert kka.assign_bytes(k, d, rows) <= kka.MAX_SMEM_BYTES
 
 
+#: (k, d) where K4's fast layout gives GLOBAL (test_kmeans_assign_layout_planner's).
+K4_GLOBAL_KD = [(857, 64), (2000, 64), (1, 2048), (10, 2048), (19_344, 2), (29_048, 1)]
+
+
+def test_kmeans_assign_routes_by_layout():
+    """A user's K4 call takes the fast kernel wherever its layout fits in
+    half of a block's shared memory, and the tiled route elsewhere: where
+    the layout takes more and wherever it gives GLOBAL.  The main path's
+    (10, 90) and (10, 30) stay on the fast kernel; the oracle is never a
+    route of its own choosing."""
+    assert kka.FAST_LAYOUT_LIMIT == kka.MAX_SMEM_BYTES // 2
+    for k in (1, 10, 64, 128, 200, 300, 425, 856, 857, 2000, 19_336, 29_040, 29_048):
+        for d in (1, 2, 3, 13, 30, 64, 90, 256, 1001, 2048):
+            rows = kka.assign_layout(k, d)
+            fast = rows != kka.GLOBAL and kka.assign_bytes(k, d, rows) <= kka.FAST_LAYOUT_LIMIT
+            assert kka.route_for(k, d) == ("fast" if fast else "tiled")
+    for k, d in K4_GLOBAL_KD:
+        assert kka.route_for(k, d) == "tiled"
+    # either side of the limit, at shapes chip_smoke.py times
+    for k, d in [(10, 90), (10, 30), (96, 90), (128, 90), (256, 64), (300, 30), (300, 13)]:
+        assert kka.route_for(k, d) == "fast"
+    for k, d in [(200, 90), (300, 90), (425, 64), (856, 64), (10, 256), (65, 256),
+                 (10, 1001)]:
+        assert kka.assign_layout(k, d) != kka.GLOBAL and kka.route_for(k, d) == "tiled"
+    assert kka.ROUTES == {"fast": "kmeans_assign_fast_kernel",
+                          "tiled": "kmeans_assign_tiled_kernel",
+                          "oracle": "kmeans_assign_global_kernel"}
+
+
+def test_kmeans_assign_launch_rejects_a_route_without_its_layout():
+    X, C = torch.zeros(4, 64), torch.zeros(2000, 64)
+    with pytest.raises(ValueError, match="no layout"):
+        kka._launch(X, C, route="fast")
+    with pytest.raises(ValueError, match="route must be one of"):
+        kka._launch(X, C, route="general")
+
+
+def _tiled_smem_bytes(plan):
+    """The tiled assign's layout (csrc's tiled_floats): two stages of the
+    row tile and the center tile at the stride kc + 4, then x2 and
+    ||c||^2."""
+    rows, centers = plan.tile_rows, plan.tile_centers
+    return 4 * (2 * (rows + centers) * (plan.kc + 4) + rows + centers)
+
+
+@pytest.mark.parametrize("k,d", K4_GLOBAL_KD + [(300, 90), (425, 64), (10, 256), (33, 1024)])
+@pytest.mark.parametrize("B,n", [(1, 1), (1, 257), (3, 20_001), (1, 100_003), (1, 463_715)])
+def test_kmeans_assign_tiled_plan(k, d, B, n):
+    """K4's tiled plan wherever a user's call takes the tiled route: K2's
+    assign tiles (the narrowest center tile that covers k up to 64, else 64
+    centers) at 256 threads, halved while the grid with a group per center
+    tile has fewer than TILED_MIN_CTAS CTAs, down to 64 threads and never
+    below a tile of as many rows as centers; the center groups cover every
+    center tile once; the layout fits in shared memory; copies narrow with
+    the operands' alignment."""
+    plan = kka.tiled_plan(B, n, k, d)
+    assert kka.route_for(k, d) == "tiled"
+    assert plan.threads in (256, 128, 64)
+    assert plan == kka.assign_tiles(B, n, k, d, threads=plan.threads)
+    assert plan.tile_rows == kka.gen_rows(plan.tx, plan.threads) >= plan.tile_centers
+
+    def grid(threads):
+        t = kka.assign_tiles(B, n, k, d, threads=threads)
+        return -(-n // t.tile_rows) * -(-k // t.tile_centers) * B
+
+    for threads in (256, 128, 64):
+        if threads > plan.threads:   # every taller tile left the grid short
+            assert grid(threads) < kka.TILED_MIN_CTAS
+    if plan.threads > 64 and kka.gen_rows(plan.tx, plan.threads // 2) >= plan.tile_centers:
+        assert grid(plan.threads) >= kka.TILED_MIN_CTAS
+    assert plan.tile_rows * plan.tx % plan.threads == 0   # whole rows a thread
+    nct = -(-k // plan.tile_centers)
+    assert (plan.groups - 1) * plan.tiles_per_group < nct <= plan.groups * plan.tiles_per_group
+    assert plan.groups <= 65_535
+    assert _tiled_smem_bytes(plan) <= kka.MAX_SMEM_BYTES
+    assert plan.vec == (4 if d % 4 == 0 else 2 if d % 2 == 0 else 1)
+    assert kka.tiled_plan(B, n, k, d, align=8).vec == (2 if d % 2 == 0 else 1)
+    assert kka.tiled_plan(B, n, k, d, align=4).vec == 1
+    # K2's general route runs the same assign tiles at 256 threads
+    tiles = kka.assign_tiles(B, n, k, d)
+    assert tiles.threads == kka.GEN_THREADS == 256
+    assert tuple(kkau.general_plan(B, n, k, d))[:7] == tiles[:-1]
+    assert kkau.ASSIGN_TARGET_CTAS == kka.ASSIGN_TARGET_CTAS == 8 * kkau.TARGET_CTAS
+
+
+@pytest.mark.parametrize("n,k,d,plan", [
+    (20_001, 2000, 64, (8, 128, 64, 64, 4, 16, 2, 256)),
+    (20_001, 10, 2048, (2, 32, 16, 64, 4, 1, 1, 64)),
+    (463_715, 300, 90, (8, 128, 64, 32, 2, 1, 5, 256)),
+    (20_001, 856, 64, (8, 128, 64, 64, 4, 14, 1, 256))])
+def test_kmeans_assign_tiled_plan_at_the_timed_shapes(n, k, d, plan):
+    """chip_smoke.py's timed shapes: (20001, 64) x (2000, 64) over 16 center
+    groups of 2 tiles (K2's tiles; a combine follows), (20001, 2048) x
+    (10, 2048) one 16-center tile on 32-row tiles of 64 threads (626 CTAs,
+    not 157), and the two near the fast layout's line: K2's tiles, 8-byte
+    copies at d = 90, 14 groups of one tile at (856, 64)."""
+    assert tuple(kka.tiled_plan(1, n, k, d)) == plan
+    with pytest.raises(ValueError, match="tiled assign needs"):
+        kka.tiled_plan(1, 0, k, d)
+
+
 #: (k, d) past K2's shared-memory layout: the paper's d = 90 from k = 299,
 #: d = 256 from k = 97, d = 64 from k = 425, a party of 1,024 or more
 #: columns at k = 10, d % 4 of 1, 2 and 3, and a huge k at d = 1.
@@ -630,20 +731,133 @@ K4_EDGES = [((), (), None, 100_003, 10, 90), ((), (), None, 7, 9, 90),
             ((), (), None, 300, 29_040, 1)]
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("xb,cb,wk,n,k,d", KMEANS_CASES + K4_EDGES)
-def test_kmeans_assign_equals_its_global_variant(xb, cb, wk, n, k, d):
-    """K4's fast kernel gives the global variant's assign and d2 bit for
-    bit (kmeans_common.cuh's bit contract), and two launches agree."""
-    dev = _cuda()
-    X, C, _ = _kmeans_inputs(n * 7 + k + d, xb, cb, wk, n, k, d)
+#: K4's tiled route (k d past the fast layout): K2_GENERAL_KD's GLOBAL (k, d)
+#: of K4, then one row; k = 1 at d = 2048; (29,048, 1) and (19,344, 2), whose
+#: 32-column chunks are mostly zeros; C[k - 1] = C[0] in another center group
+#: ("dup"); a NaN row ("nan"); batch on X, on C and on both; X off a 16-byte
+#: boundary ("off4", "off8": 4- and 8-byte copies); many groups at n = 1.
+K4_TILED_CASES = [((), (), None, 2001, k, d) for k, d in K2_GENERAL_KD
+                  if kka.assign_layout(k, d) == kka.GLOBAL] + [
+    ((), (), None, 1, 2000, 64), ((), (), None, 20_001, 2000, 64),
+    ((), (), None, 20_001, 10, 2048), ((), (), None, 257, 1, 2048),
+    ((), (), None, 300, 29_048, 1), ((), (), None, 300, 19_344, 2),
+    ((), (), "dup", 1001, 2000, 64), ((), (), "nan", 1001, 2000, 64),
+    ((), (), "nan", 300, 10, 2048), ((3,), (), None, 129, 2000, 64),
+    ((), (2,), None, 257, 10, 2048), ((2,), (2,), None, 300, 900, 64),
+    ((), (), "off4", 1001, 857, 64), ((), (), "off8", 1001, 10, 2048),
+    ((), (), "off4", 777, 9, 3001)]
+
+
+def _k4_inputs(dev, xb, cb, kind, n, k, d):
+    """X and C on the card per the case's kind (see K4_TILED_CASES)."""
+    X, C, _ = _kmeans_inputs(n * 7 + k + d, xb, cb, None, n, k, d)
+    if kind == "dup":   # a tie across groups, and rows next to it
+        C[..., k - 1, :] = C[..., 0, :]
+        X[..., :8, :] = C[..., :1, :] + 1e-3 * X[..., :8, :]
+    if kind == "nan":
+        X[..., n // 2, :] = np.nan
     Xt, Ct = torch.from_numpy(X).to(dev), torch.from_numpy(C).to(dev)
-    assert kka.assign_layout(k, d) != kka.GLOBAL
+    if kind in ("off4", "off8"):
+        off = 1 if kind == "off4" else 2
+        buf = torch.empty(Xt.numel() + off, device=dev)
+        buf[off:] = Xt.reshape(-1)
+        Xt = buf[off:].view(Xt.shape)
+        assert Xt.is_contiguous() and Xt.data_ptr() % 16 == 4 * off
+    return Xt, Ct
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("xb,cb,wk,n,k,d", KMEANS_CASES + K4_EDGES + K4_TILED_CASES)
+def test_kmeans_assign_equals_its_global_variant(xb, cb, wk, n, k, d):
+    """A user's K4 call, on the fast kernel or on the tiled route, gives the
+    global variant's (the oracle's) assign and d2 bit for bit
+    (kmeans_common.cuh's bit contract) in one counted launch, and two
+    launches agree: KMEANS_CASES, K4_EDGES and K4_TILED_CASES.  Where the
+    fast layout fits but the call takes the tiled route (K4_EDGES' short
+    tiles), the fast kernel forced gives the same bits."""
+    dev = _cuda()
+    if wk in (None, "dup", "nan", "off4", "off8"):
+        Xt, Ct = _k4_inputs(dev, xb, cb, wk, n, k, d)
+    else:
+        X, C, _ = _kmeans_inputs(n * 7 + k + d, xb, cb, wk, n, k, d)
+        Xt, Ct = torch.from_numpy(X).to(dev), torch.from_numpy(C).to(dev)
+    rows = kka.assign_layout(k, d)
+    fits = rows != kka.GLOBAL and kka.assign_bytes(k, d, rows) <= kka.FAST_LAYOUT_LIMIT
+    assert kka.route_for(k, d) == ("fast" if fits else "tiled")
+    before = kka.kmeans_assign.launches
     got = kka.kmeans_assign(Xt, Ct)
     again = kka.kmeans_assign(Xt, Ct)
+    assert kka.kmeans_assign.launches == before + 2
     oracle = kka._launch(Xt, Ct, global_variant=True)
     for a, b, c in zip(got, again, oracle):
         assert torch.equal(a, b)
+        assert torch.equal(a, c)
+    if rows != kka.GLOBAL:   # the fast kernel, wherever its layout fits
+        for a, c in zip(kka._launch(Xt, Ct, route="fast"), oracle):
+            assert torch.equal(a, c)
+    if wk == "dup":
+        assert not bool((got[0] == k - 1).any())
+        assert bool((got[0] == 0).any())
+    if wk == "nan":
+        assert int(got[0][..., n // 2].max()) == 0 and float(got[1][..., n // 2].max()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k,d", [(20_001, 10, 90), (1001, 856, 64), (257, 425, 64),
+                                   (300, 29_040, 1), (100_003, 300, 90), (129, 9, 1)])
+def test_kmeans_assign_tiled_route_equals_the_fast_kernel(n, k, d):
+    """Where the fast layout fits, the two routes forced give the same
+    assign and d2 bit for bit, one counted launch each."""
+    dev = _cuda()
+    X, C = _k4_inputs(dev, (), (), None, n, k, d)
+    assert kka.assign_layout(k, d) != kka.GLOBAL
+    before = kka.kmeans_assign.launches
+    fast = kka._launch(X, C, route="fast")
+    tiled = kka._launch(X, C, route="tiled")
+    assert kka.kmeans_assign.launches == before + 2
+    for a, b in zip(fast, tiled):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_kmeans_assign_tiled_entry_rejects_copies_past_the_alignment():
+    """The tiled route's C entry refuses 16-byte copies from an X that
+    starts 4 bytes off 16 (tiled_plan's vec at align 16) instead of issuing
+    misaligned cp.async copies."""
+    from repro_torch.kernels._build import library
+    dev = _cuda()
+    n, k, d = 1001, 2000, 64
+    X, C = _k4_inputs(dev, (), (), "off4", n, k, d)
+    plan = kka.tiled_plan(1, n, k, d)
+    assert plan.vec == 4 and plan.groups > 1
+    assign = torch.empty(n, dtype=torch.int32, device=dev)
+    d2 = torch.empty(n, device=dev)
+    pv = torch.empty((1, plan.groups, n), device=dev)
+    pa = torch.empty((1, plan.groups, n), dtype=torch.int32, device=dev)
+    code = library().repro_kmeans_assign_tiled(
+        X.data_ptr(), C.data_ptr(), assign.data_ptr(), d2.data_ptr(), pv.data_ptr(),
+        pa.data_ptr(), 1, n, d, k, plan.tx, plan.tile_rows, plan.kc, plan.groups,
+        plan.tiles_per_group, plan.vec, 0, 0, torch.cuda.current_stream().cuda_stream)
+    assert code != 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("xb,cb,n,k,d,threads", [
+    ((), (), 20_001, 2000, 64, 256), ((), (), 1001, 2000, 64, 128),
+    ((), (), 20_001, 10, 2048, 64), ((3,), (), 20_001, 10, 2048, 128),
+    ((), (), 100_003, 10, 2048, 256), ((), (), 777, 33, 1024, 128),
+    ((), (), 1001, 1, 2048, 64), ((2,), (2,), 300, 900, 64, 128),
+    ((), (), 300, 29_048, 1, 256)])
+def test_kmeans_assign_tiled_route_at_every_cta_size(xb, cb, n, k, d, threads):
+    """The tiled route on each CTA size that tiled_plan picks (256, 128 and
+    64 threads, by the shapes) gives the oracle's bits."""
+    dev = _cuda()
+    X, C = _k4_inputs(dev, xb, cb, None, n, k, d)
+    B = max(int(np.prod(xb)), int(np.prod(cb)))
+    assert kka.tiled_plan(B, n, k, d).threads == threads
+    oracle = kka._launch(X, C, global_variant=True)
+    for a, c in zip(kka._launch(X, C, route="tiled"), oracle):
         assert torch.equal(a, c)
 
 
